@@ -10,6 +10,15 @@ import pytest
 import torch
 
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
+from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
+                                            fused_irt_sqr_ref)
+from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                       condition_update_ref,
+                                       gram_conditional_cuda,
+                                       gram_conditional_ref)
+
+NO_CARD = "needs a CUDA device: the kernel has no CPU mode"
+SHAPES = [(17, 5), (17, 13), (17, 19), (33, 23), (9, 40)]
 
 
 def _operands(m, n, r, seed):
@@ -46,7 +55,7 @@ def test_dim_step_kernel_matches_plain_on_card(mode, n, r):
     run in f64 (on the same operands) as the plain f32 version is: at
     most twice its error plus 1e-6."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip(NO_CARD)
     ops = _operands(m=4096 + 7, n=n, r=r, seed=n + r)
     if mode == "rt":
         ops["qp32"] = np.random.default_rng(r).uniform(
@@ -76,7 +85,7 @@ def test_dim_step_kernel_rejects_bad_operands():
     """The wrapper raises on what the kernel does not take; nothing is
     launched."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        pytest.skip(NO_CARD)
     ops = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
            for k, v in _operands(m=256, n=17, r=5, seed=1).items()}
     before = dim_step_cuda.launches
@@ -87,3 +96,232 @@ def test_dim_step_kernel_rejects_bad_operands():
         dim_step_cuda(ops["phi"], ops["qp32"], ops["um32"], ops["bmat"].cpu(),
                  ops["cmat"], ops["hrow"], ops["xg"])
     assert dim_step_cuda.launches == before
+
+
+def _step_operands(m, n, r, seed):
+    """phi, a general (non-symmetric) P, a core, brackets that include
+    n-2, and weights with lb drawn independently of la."""
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((m, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    pmat = rng.standard_normal((r * r, n)).astype(np.float32)
+    cmat = rng.standard_normal((n, r * r)).astype(np.float32)
+    i0 = rng.integers(0, n - 1, size=m).astype(np.int32)
+    i0[:8] = n - 2
+    la = rng.uniform(size=m).astype(np.float32)
+    lb = rng.uniform(size=m).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (phi, pmat, cmat, i0, la, lb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", SHAPES)
+def test_gram_conditional_kernel_matches_plain_on_card(n, r):
+    """fk from the kernel against the plain version run in f64 on the
+    same operands: 1e-5 of the largest |fk| (an f32 sum of r^2 terms),
+    and no further from it than twice the plain f32 version plus 1e-6 of
+    that scale."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    phi, pmat, _, _, _, _ = _step_operands(4096 + 7, n, r, n + r)
+    before = gram_conditional_cuda.launches
+    fk = gram_conditional_cuda(phi, pmat)
+    torch.cuda.synchronize()
+    assert gram_conditional_cuda.launches == before + 1
+    f64 = gram_conditional_ref(phi.double(), pmat.double())
+    scale = float(f64.abs().max())
+    err_k = float((fk.double() - f64).abs().max()) / scale
+    err_p = float((gram_conditional_ref(phi, pmat).double()
+                   - f64).abs().max()) / scale
+    assert err_k < 1e-5
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", SHAPES)
+def test_condition_update_kernel_matches_plain_on_card(n, r):
+    """phi' from the kernel against the plain version in f64: 1e-5
+    absolute on the max-normalised prefix."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    phi, _, cmat, i0, la, lb = _step_operands(4096 + 7, n, r, n * r)
+    before = condition_update_cuda.launches
+    pk = condition_update_cuda(phi, i0, la, lb, cmat)
+    torch.cuda.synchronize()
+    assert condition_update_cuda.launches == before + 1
+    p64 = condition_update_ref(phi.double(), i0, la.double(), lb.double(),
+                               cmat.double())
+    pr = condition_update_ref(phi, i0, la, lb, cmat)
+    err_k = float((pk.double() - p64).abs().max())
+    err_p = float((pr.double() - p64).abs().max())
+    assert err_k < 1e-5
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+
+
+def _fused_operands(m, d, n, r, seed):
+    """Operands of the whole transform from a smooth positive random TT
+    (softplus of random Fourier features), made with numpy and prepared
+    by the port on the card; rows 0 and 1 hold the seeds 0 and 1."""
+    from tt_irt_tpu_torch.ops.fused_irt import build_fused_data
+    from tt_irt_tpu_torch.ops.tt import TT
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, n)
+    feats = np.stack([np.ones_like(x), np.sin(np.pi * x), np.cos(np.pi * x)])
+    cores = []
+    for k in range(d):
+        r1 = 1 if k == 0 else r
+        r2 = 1 if k == d - 1 else r
+        w = rng.standard_normal((r1, 3, r2)) / np.sqrt(3 * r1)
+        cores.append(np.log1p(np.exp(np.einsum("afb,fn->anb", w, feats))))
+    tt = TT([torch.from_numpy(c).cuda() for c in cores])
+    grid = torch.linspace(-2.0, 2.0, n, dtype=torch.float64).cuda()
+    data = build_fused_data(tt, [grid] * d)
+    q = rng.uniform(size=(m, d))
+    q[0], q[1] = 0.0, 1.0
+    return torch.from_numpy(q).float().cuda(), data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", SHAPES[:4])
+def test_fused_irt_kernel_matches_plain_on_card(n, r):
+    """The whole-transform kernel against its plain version in f64 on
+    the same f32 operands (d=6): as accurate as the plain f32 version.
+    The one-sided inversion in its cancelling form
+    (-f1 + sqrt(f1^2 + 4 a t)) / 2a amplifies f32 rounding on flat cells
+    and in the right tail, so two f32 implementations differ per row by
+    more than 1e-5, and a bracket flips on rare rows at a CDF node.  The
+    kernel's median and 99th-percentile errors must be at most twice the
+    plain f32 version's plus 1e-6, and it may have at most twice as many
+    outlier rows (error above 10x the plain version's 99th percentile
+    plus 1e-5) as the plain version, plus 0.1% of the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, data = _fused_operands(4096 + 7, 6, n, r, n + 2 * r)
+    ops = (q, data["p2"], data["coreu"], data["x"], data["h"])
+    before = fused_irt_sqr_cuda.launches
+    xk, lk = fused_irt_sqr_cuda(*ops)
+    torch.cuda.synchronize()
+    assert fused_irt_sqr_cuda.launches == before + 1
+    xr, lr = fused_irt_sqr_ref(*ops)
+    x64, l64 = fused_irt_sqr_ref(*(t.double() for t in ops))
+    assert bool(torch.isfinite(xk).all()) and bool(torch.isfinite(lk).all())
+    rows = xk.shape[0]
+    for k, r_, ref in ((xk, xr, x64), (lk, lr, l64)):
+        ek = (k.double() - ref).abs().reshape(rows, -1).amax(1)
+        er = (r_.double() - ref).abs().reshape(rows, -1).amax(1)
+        st = {"k50": float(ek.median()), "r50": float(er.median()),
+              "k99": float(torch.quantile(ek, 0.99)),
+              "r99": float(torch.quantile(er, 0.99)),
+              "kmax": float(ek.max()), "rmax": float(er.max())}
+        cut = 10.0 * st["r99"] + 1e-5
+        st["kout"] = int((ek > cut).sum())
+        st["rout"] = int((er > cut).sum())
+        assert st["k50"] <= 2.0 * st["r50"] + 1e-6, st
+        assert st["k99"] <= 2.0 * st["r99"] + 1e-6, st
+        assert st["kout"] <= 2 * st["rout"] + rows // 1000, st
+
+
+@pytest.mark.cuda
+def test_fused_irt_kernel_degenerate_rows_on_card():
+    """A TT with an identically zero core has no mass anywhere: every
+    dimension takes the uniform fix, samples are x0 + q (x_end - x0) and
+    the log-density is -d log(box width); seeds 0 and 1 give the box
+    corners."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    n, d = 9, 3
+    x = torch.linspace(-1.0, 3.0, n, dtype=torch.float64)
+    cores = [torch.ones((1, n, 1), dtype=torch.float64),
+             torch.zeros((1, n, 1), dtype=torch.float64),
+             torch.ones((1, n, 1), dtype=torch.float64)]
+    q = torch.tensor([[0.0, 0.25, 1.0], [1.0, 0.5, 0.0], [0.3, 1.0, 0.7]],
+                     dtype=torch.float64)
+    xt, lt = tp.fused_irt_sqr([x] * d, tp.TT(cores), q)
+    assert xt.is_cuda
+    assert float((xt.double().cpu() - (-1.0 + 4.0 * q)).abs().max()) < 1e-6
+    assert float((lt.double().cpu() + 3 * np.log(4.0)).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_bad_operands():
+    """Wrong dtype, device, contiguity or an int64 i0 raise, also
+    through kernel_plan (an f64 tensor on the card is not sent to the
+    plain version); nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops import kernel_plan
+
+    phi, pmat, cmat, i0, la, lb = _step_operands(256, 17, 5, 1)
+    q, data = _fused_operands(256, 3, 17, 5, 2)
+    before = (gram_conditional_cuda.launches, condition_update_cuda.launches,
+              fused_irt_sqr_cuda.launches)
+    with pytest.raises(ValueError):
+        gram_conditional_cuda(phi.double(), pmat)
+    with pytest.raises(ValueError):
+        kernel_plan.gram_conditional(phi.double(), pmat.double())
+    with pytest.raises(ValueError):
+        kernel_plan.condition_update(phi.double(), i0, la.double(),
+                                     lb.double(), cmat.double())
+    with pytest.raises(ValueError):
+        gram_conditional_cuda(phi, pmat.cpu())
+    with pytest.raises(ValueError):
+        gram_conditional_cuda(phi, pmat.T.contiguous().T)
+    with pytest.raises(ValueError):
+        condition_update_cuda(phi, i0.long(), la, lb, cmat)
+    with pytest.raises(ValueError):
+        condition_update_cuda(phi, i0, la[:-1], lb, cmat)
+    with pytest.raises(ValueError):
+        fused_irt_sqr_cuda(q.double(), data["p2"], data["coreu"], data["x"],
+                           data["h"])
+    with pytest.raises(ValueError):
+        fused_irt_sqr_cuda(q, data["p2"], data["coreu"], data["x"],
+                           data["h"][:, :-1])
+    assert (gram_conditional_cuda.launches, condition_update_cuda.launches,
+            fused_irt_sqr_cuda.launches) == before
+
+
+@pytest.mark.cuda
+def test_kernel_plan_launches_on_the_card():
+    """tt_irt_sqr at 'f32' on the card goes through both step kernels
+    once per dimension and block, at 'f64' through neither."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(0)
+    d, n, r = 5, 17, 4
+    x = np.linspace(-2.0, 2.0, n)
+    cores = [np.exp(-(x[None, :, None] - 0.3) ** 2
+                    / rng.uniform(0.1, 0.5, (1 if k == 0 else r, 1,
+                                             1 if k == d - 1 else r)))
+             for k in range(d)]
+    tt = tp.TT([torch.from_numpy(np.ascontiguousarray(c)) for c in cores])
+    grids = [torch.from_numpy(x)] * d
+    q = torch.from_numpy(rng.uniform(size=(3000, d)))
+    g0, u0 = gram_conditional_cuda.launches, condition_update_cuda.launches
+    x64, l64 = tp.tt_irt_sqr(grids, tt, q, precision="f64")
+    assert (gram_conditional_cuda.launches, condition_update_cuda.launches) \
+        == (g0, u0)
+    x32, l32 = tp.tt_irt_sqr(grids, tt, q, precision="f32", block=1024)
+    assert gram_conditional_cuda.launches == g0 + 3 * d
+    assert condition_update_cuda.launches == u0 + 3 * d
+    assert x32.is_cuda
+    # as accurate as the same path through the plain versions on the CPU
+    xc, lc = tp.tt_irt_sqr(grids, tt, q, precision="f32", block=1024,
+                           device="cpu")
+    for got, cpu, ref in ((x32, xc, x64), (l32, lc, l64)):
+        e_card = float((got.double() - ref).abs().max())
+        e_cpu = float((cpu.double() - ref.cpu()).abs().max())
+        assert e_card <= 2.0 * e_cpu + 1e-6, (e_card, e_cpu)
+    f0 = fused_irt_sqr_cuda.launches
+    xf, lf = tp.fused_irt_sqr(grids, tt, q)
+    assert fused_irt_sqr_cuda.launches == f0 + 1
+    xfc, lfc = tp.fused_irt_sqr(grids, tt, q, device="cpu")
+    for got, cpu, ref in ((xf, xfc, x64), (lf, lfc, l64)):
+        e_card = torch.quantile((got.double() - ref).abs().reshape(
+            3000, -1).amax(1), 0.99)
+        e_cpu = torch.quantile((cpu.double() - ref.cpu()).abs().reshape(
+            3000, -1).amax(1), 0.99)
+        assert float(e_card) <= 2.0 * float(e_cpu) + 1e-6, (e_card, e_cpu)

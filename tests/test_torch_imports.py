@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the PyTorch port."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -9,6 +10,9 @@ import torch
 
 import tt_irt_tpu_torch as tp
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda
+from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_cuda
+from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                       gram_conditional_cuda)
 from tt_irt_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -16,15 +20,23 @@ DATA = os.path.join(ROOT, "examples", "data")
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """A fresh interpreter imports the port and chip_smoke (without
-    running it); neither pulls in jax or the JAX package."""
+    """A fresh interpreter imports every module of the port and
+    chip_smoke (without running it); none pulls in jax, the JAX package
+    or bench.py."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
-        "import tt_irt_tpu_torch, tt_irt_tpu_torch.samplers.serve\n"
-        "import tt_irt_tpu_torch.utils.checkpoint, chip_smoke\n"
+        "import pkgutil, importlib, tt_irt_tpu_torch\n"
+        "for m in pkgutil.walk_packages(tt_irt_tpu_torch.__path__,"
+        " 'tt_irt_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for need in ('ops.step', 'ops.fused_irt', 'ops.rowmath',"
+        " 'ops.kernel_plan', 'samplers.irt_scan', 'samplers.irt'):\n"
+        "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')]\n"
+        " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
+        " or m == 'bench']\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -32,6 +44,53 @@ def test_port_and_chip_smoke_import_no_jax():
                          text=True, timeout=120, cwd=ROOT, env=env)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
+
+
+def test_card_only_files_name_no_jax():
+    """chip_smoke.py, the card tests and every module of the port hold
+    no import of jax, the JAX package or bench.py."""
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "test_torch_cuda.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "tt_irt_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|tt_irt_tpu|bench)\b(?!_)",
+                     re.M)
+    for path in files:
+        with open(path) as fh:
+            hits = pat.findall(fh.read())
+        assert not hits, (path, hits)
+
+
+def _small_tt():
+    cores = [torch.rand((1, 9, 2), dtype=torch.float64) + 0.1,
+             torch.rand((2, 9, 1), dtype=torch.float64) + 0.1]
+    return (tp.TT(cores), [torch.linspace(-1, 1, 9, dtype=torch.float64)] * 2,
+            torch.rand((8, 2), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("entry", ["tt_irt_sqr", "tt_rt_sqr", "irt_scan",
+                                   "fused_irt_sqr", "IrtSampler"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Each entry point of the Gram slice runs on the card by default:
+    without one it raises (no CPU fallback), and device='cpu' runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tt, grids, q = _small_tt()
+    if entry == "irt_scan":
+        # operand-level: runs where its tensors lie; CPU tensors use the
+        # plain versions and count no launch
+        from tt_irt_tpu_torch.samplers.irt_scan import stack_padded
+        cs, xs = stack_padded(tt, grids)
+        x, lf = tp.irt_scan("sqr", cs, xs, q, 1024, "f32")
+        assert x.shape == (8, 2)
+        assert gram_conditional_cuda.launches == 0
+        return
+    fn = getattr(tp, entry)
+    call = (lambda **kw: fn(grids, tt, **kw)(q)) if entry == "IrtSampler" \
+        else (lambda **kw: fn(grids, tt, q, **kw))
+    with pytest.raises(RuntimeError, match="not available"):
+        call()
+    x, lf = call(device="cpu")
+    assert x.shape == (8, 2) and bool(torch.isfinite(lf).all())
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):
@@ -52,6 +111,10 @@ def test_cpu_serve_launches_no_kernel():
     stack = tp.load_dirt(os.path.join(DATA, "lz10_ck"), device="cpu")
     g = torch.Generator().manual_seed(0)
     q = tp.randref(stack.reference, g, (64, stack.d))
-    z, lf = tp.DirtSampler(stack, precision="hi", device="cpu")(q)
-    assert z.shape == (64, stack.d) and bool(torch.isfinite(lf).all())
+    for precision in ("hi", "f32"):
+        z, lf = tp.DirtSampler(stack, precision=precision, device="cpu")(q)
+        assert z.shape == (64, stack.d) and bool(torch.isfinite(lf).all())
     assert dim_step_cuda.launches == 0
+    assert gram_conditional_cuda.launches == 0
+    assert condition_update_cuda.launches == 0
+    assert fused_irt_sqr_cuda.launches == 0

@@ -75,8 +75,7 @@ def test_irt_sampler_blocks_and_shared_grid():
         assert float((a - b).abs().max()) < 1e-12
 
 
-@pytest.mark.parametrize("precision", ["f64", "f32", "mixed", "hid", "ds",
-                                       "gs"])
+@pytest.mark.parametrize("precision", ["hid", "ds", "gs"])
 def test_unported_precisions_raise(precision):
     cores, x = _mk_cores(d=3, n=9, r=2)
     ttt = tp.TT([torch.from_numpy(c) for c in cores])

@@ -1,0 +1,99 @@
+"""The plain versions of the two Gram-step contractions
+(tt_irt_tpu_torch/ops/step.py) against the JAX package's Pallas kernels
+(ops/pallas_step.py, interpret mode on the CPU) on the same numpy-made
+operands."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tt_irt_tpu.ops.pallas_step import condition_update, gram_conditional
+from tt_irt_tpu_torch.ops import kernel_plan
+from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                       condition_update_ref,
+                                       gram_conditional_cuda,
+                                       gram_conditional_ref)
+
+
+def _operands(m, r, n, seed, edge=False, free_lb=False):
+    """phi, a general (non-symmetric) P, a core, brackets and weights as
+    tests/test_fused_step.py::test_kernels_match_numpy makes them."""
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((m, r)).astype(np.float32)
+    pmat = rng.standard_normal((r, r, n)).astype(np.float32).reshape(
+        r * r, n)
+    core = rng.standard_normal((r, n, r)).astype(np.float32)
+    cmat = np.transpose(core, (1, 0, 2)).reshape(n, r * r).copy()
+    i0 = rng.integers(0, n - 1, size=m).astype(np.int32)
+    if edge:
+        i0[: m // 2] = n - 2
+    la = rng.uniform(size=m).astype(np.float32)
+    lb = (rng.uniform(size=m).astype(np.float32) if free_lb
+          else (1.0 - la).astype(np.float32))
+    return phi, pmat, cmat, i0, la, lb
+
+
+# (m, r, n, i0 pinned at n-2 on half the rows, lb drawn independently)
+CASES = [(256, 23, 33, False, False), (64, 1, 9, False, False),
+         (128, 5, 17, True, False), (128, 7, 17, False, True)]
+
+
+@pytest.mark.parametrize("m,r,n,edge,free_lb", CASES)
+def test_gram_conditional_ref_matches_jax_kernel(m, r, n, edge, free_lb):
+    """1e-5 of the largest |fk|, the JAX test's own bar: two f32 sums of
+    r^2 terms in different orders."""
+    phi, pmat, _, _, _, _ = _operands(m, r, n, 0, edge, free_lb)
+    fj = np.asarray(gram_conditional(jnp.asarray(phi), jnp.asarray(pmat)))
+    ft = gram_conditional_ref(torch.from_numpy(phi),
+                              torch.from_numpy(pmat)).numpy()
+    ref = np.einsum("mi,ijx,mj->mx", phi.astype(np.float64),
+                    pmat.reshape(r, r, n).astype(np.float64),
+                    phi.astype(np.float64))
+    scale = np.max(np.abs(ref))
+    assert np.max(np.abs(ft - fj)) / scale < 1e-5
+    assert np.max(np.abs(ft - ref)) / scale < 1e-5
+
+
+@pytest.mark.parametrize("m,r,n,edge,free_lb", CASES)
+def test_condition_update_ref_matches_jax_kernel(m, r, n, edge, free_lb):
+    """1e-5 absolute on the max-normalised prefix, the JAX test's bar."""
+    phi, _, cmat, i0, la, lb = _operands(m, r, n, 1, edge, free_lb)
+    pj = np.asarray(condition_update(
+        jnp.asarray(phi), jnp.asarray(i0), jnp.asarray(la), jnp.asarray(lb),
+        jnp.asarray(cmat)))
+    pt = condition_update_ref(*(torch.from_numpy(a) for a in
+                                (phi, i0, la, lb, cmat))).numpy()
+    c64 = cmat.astype(np.float64).reshape(n, r, r)
+    g = (la[:, None, None] * c64[i0] + lb[:, None, None] * c64[i0 + 1])
+    ref = np.einsum("mi,mij->mj", phi.astype(np.float64), g)
+    ref = ref / np.maximum(np.max(np.abs(ref), axis=1, keepdims=True), 1e-30)
+    assert np.max(np.abs(pt - pj)) < 1e-5
+    assert np.max(np.abs(pt - ref)) < 1e-5
+    assert np.max(np.abs(pt)) == pytest.approx(1.0, abs=1e-6)
+
+
+def test_kernel_plan_routes_cpu_and_f64_to_plain():
+    """On CPU tensors kernel_plan runs the plain versions, and for an
+    f64 contraction gram_step hands out the plain pair itself: no launch
+    is counted; the CUDA wrappers raise on CPU tensors instead of
+    falling back."""
+    phi, pmat, cmat, i0, la, lb = (
+        torch.from_numpy(a) for a in _operands(32, 4, 9, 2))
+    before = (gram_conditional_cuda.launches, condition_update_cuda.launches)
+    fk = kernel_plan.gram_conditional(phi, pmat)
+    pn = kernel_plan.condition_update(phi, i0, la, lb, cmat)
+    assert torch.equal(fk, gram_conditional_ref(phi, pmat))
+    assert torch.equal(pn, condition_update_ref(phi, i0, la, lb, cmat))
+    f64 = kernel_plan.gram_conditional(phi.double(), pmat.double())
+    assert f64.dtype == torch.float64
+    assert kernel_plan.gram_step(torch.float64) == (
+        gram_conditional_ref, condition_update_ref)
+    assert kernel_plan.gram_step(torch.float32) == (
+        kernel_plan.gram_conditional, kernel_plan.condition_update)
+    assert (gram_conditional_cuda.launches,
+            condition_update_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_conditional_cuda(phi, pmat)
+    with pytest.raises(ValueError, match="CUDA"):
+        condition_update_cuda(phi, i0, la, lb, cmat)

@@ -33,18 +33,11 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <mutex>
+#include "row_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxN = 64;
-constexpr int kMaxR = 64;
-constexpr int kMaxDevices = 64;
-constexpr int kCacheSize = 16;   // launch configurations kept per instance
+using namespace ttirt;
 
 __device__ __forceinline__ float invert_quadratic(float f1, float f2,
                                                   float c1, float q,
@@ -193,36 +186,12 @@ dim_step_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
 
     // ---- prefix update from the two bracketing core slices ----
     const float* ca = cmat + static_cast<size_t>(i0) * r * r;
-    const float* cb = ca + r * r;
     float acc[RMAX];
-#pragma unroll
-    for (int j = 0; j < RMAX; ++j) acc[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < RMAX; ++i) {
-      if (i < r) {
-#pragma unroll
-        for (int j = 0; j < RMAX; ++j) {
-          if (j < r) {
-            const float b = la * ca[i * r + j] + lb * cb[i * r + j];
-            acc[j] = fmaf(p[i], b, acc[j]);
-          }
-        }
-      }
-    }
-    float scale = 0.0f;
+    prefix_update<RMAX>(p, la, lb, ca, ca + r * r, r, acc);
 #pragma unroll
     for (int j = 0; j < RMAX; ++j)
-      if (j < r) scale = fmaxf(scale, fabsf(acc[j]));
-    const float denom = fmaxf(scale, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < RMAX; ++j)
-      if (j < r) phin[static_cast<size_t>(row) * r + j] = acc[j] / denom;
+      if (j < r) phin[static_cast<size_t>(row) * r + j] = acc[j];
   }
-}
-
-// Rank tier of the kernel instantiated for rank r (r <= kMaxR).
-int rank_tier(int r) {
-  return r <= 8 ? 8 : r <= 16 ? 16 : r <= 24 ? 24 : r <= 32 ? 32 : kMaxR;
 }
 
 // Dynamic shared memory of one block: B padded to the rank tier, plus
@@ -232,53 +201,6 @@ size_t smem_bytes(int n, int r) {
           + static_cast<size_t>(n) * kThreads) * sizeof(float);
 }
 
-// Grid size of one kernel instance on one device at one shared-memory
-// size: resident blocks per SM times SMs (persistent blocks).  The
-// shared-memory attribute and the residency depend only on (RMAX, RT,
-// smem) and the device, so they are asked once and kept, not on every
-// launch.  The attribute is raised to the largest size seen on the
-// device, so it covers every cached size.
-template <int RMAX, bool RT>
-cudaError_t grid_cap(int device, size_t smem, int* cap) {
-  struct Entry {
-    int device;
-    size_t smem;
-    int cap;
-  };
-  static std::mutex mu;
-  static Entry table[kCacheSize];
-  static int used = 0, next = 0;
-  static size_t attr[kMaxDevices] = {};
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i) {
-    if (table[i].device == device && table[i].smem == smem) {
-      *cap = table[i].cap;
-      return cudaSuccess;
-    }
-  }
-  auto kern = dim_step_kernel<RMAX, RT>;
-  cudaError_t e;
-  if (smem > attr[device]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    attr[device] = smem;
-  }
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  table[next] = Entry{device, smem, per_sm * sms};
-  next = (next + 1) % kCacheSize;
-  used = used < kCacheSize ? used + 1 : kCacheSize;
-  *cap = per_sm * sms;
-  return cudaSuccess;
-}
-
 template <int RMAX, bool RT>
 cudaError_t launch(const float* phi, const float* qp, const float* um,
                    const float* bmat, const float* cmat, const float* h,
@@ -286,7 +208,9 @@ cudaError_t launch(const float* phi, const float* qp, const float* um,
                    int r, int device, cudaStream_t stream) {
   const size_t smem = smem_bytes(n, r);
   int cap = 0;
-  cudaError_t e = grid_cap<RMAX, RT>(device, smem, &cap);
+  cudaError_t e = grid_cap(
+      reinterpret_cast<const void*>(&dim_step_kernel<RMAX, RT>), device, smem,
+      &cap);
   if (e != cudaSuccess) return e;
   const int tiles = (m + kThreads - 1) / kThreads;
   const int grid = tiles < cap ? tiles : cap;

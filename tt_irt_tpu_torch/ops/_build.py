@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/kernels/`` at the root of the checkout (a
-git-ignored directory), named by a hash of the source so an edited
-kernel is rebuilt.  Nothing is built at import time: the first launch
+git-ignored directory), named by a hash of the source and of the shared
+headers ``csrc/*.cuh`` so an edited kernel or header is rebuilt.  Nothing is built at import time: the first launch
 on a CUDA tensor builds its library, and ``build_all`` builds several
 sources at once (one ``nvcc`` process each, all started together).
 """
@@ -39,9 +39,13 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    sha = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{name}_{sha.hexdigest()[:16]}.so")
 
 
 def build_all(names) -> dict:

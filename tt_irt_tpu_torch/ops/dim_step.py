@@ -21,34 +21,30 @@ Returns phi_next (M, r) and out9 (M, 9) with columns
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
 
 from ._build import load_library
+from .rowmath import (SMEM_LIMIT, check_cuda_operands, cumsum_rows,
+                      full_f32_matmul, invert_quadratic)
 
 __all__ = ["dim_step_cuda", "dim_step_ref", "SMEM_LIMIT"]
-
-# Dynamic shared memory one block may use on Hopper (232,448 bytes).
-SMEM_LIMIT = 232448
 
 
 def _cdf_rows32(mode, fk, x32, xlo, h32, qp32, um32):
     """f32 trapezoid CDF from both sides, count-based bracket, readout
     and the f32 weight of the sample in its cell.  Returns
     (out9, i0, la)."""
-    from ..samplers.irt import _invert_quadratic
-
     m, n = fk.shape
     dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h32
     bad = torch.sum(dc, dim=1, keepdim=True) <= 0.0
     dc = torch.where(bad, h32.expand_as(dc), dc)
     fk = torch.where(bad, torch.ones_like(fk), fk)
     zero = torch.zeros((m, 1), dtype=fk.dtype, device=fk.device)
-    ck = torch.cat([zero, torch.cumsum(dc, dim=1)], dim=1)
-    cr = torch.cat([torch.flip(torch.cumsum(torch.flip(dc, [1]), dim=1),
-                               [1]), zero], dim=1)
+    ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
+    cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
+                    zero], dim=1)
     tot = ck[:, -1]
     if mode == "rt":
         i0 = torch.sum(x32[None, :] < qp32[:, None], dim=1) - 1
@@ -77,36 +73,23 @@ def _cdf_rows32(mode, fk, x32, xlo, h32, qp32, um32):
     if mode == "rt":
         xk = qp32
     else:
-        xl_ = _invert_quadratic(f1, f2, c1, qt, x1, x2)
-        xr_ = -_invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
+        xl_ = invert_quadratic(f1, f2, c1, qt, x1, x2)
+        xr_ = -invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
         xk = torch.where(right, xr_, xl_)
     la = torch.clamp((x2 - xk) / (x2 - x1), 0.0, 1.0)
     return out9, i0, la
-
-
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """f32 matmuls in full f32 inside the block; the caller's setting is
-    restored on exit.  TF32 keeps ~10 mantissa bits, far above the 1e-6
-    sample-parity budget of the 'hi' path."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     """Plain PyTorch version of the kernel (same operands and outputs)."""
     m, r = phi.shape
     n = cmat.shape[0]
-    with _full_f32_matmul():
+    with full_f32_matmul():
         v = torch.matmul(phi, bmat).reshape(m, n, r)
     fk = torch.sum(v * v, dim=2)
     out9, i0, la = _cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
     b = (la[:, None] * cmat[i0] + (1.0 - la)[:, None] * cmat[i0 + 1])
-    with _full_f32_matmul():
+    with full_f32_matmul():
         phin = torch.bmm(phi[:, None, :], b.reshape(m, r, r))[:, 0, :]
     scale = torch.amax(torch.abs(phin), dim=1, keepdim=True)
     return phin / torch.clamp(scale, min=1e-30), out9
@@ -132,22 +115,16 @@ def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     ``dim_step_cuda.launches`` counts kernel launches."""
     if mode not in ("irt", "rt"):
         raise ValueError(f"unknown mode {mode!r}")
-    if phi.device.type != "cuda":
-        raise ValueError(f"dim_step_cuda: needs CUDA tensors, got "
-                         f"{phi.device}")
+    if phi.ndim != 2 or cmat.ndim != 2:
+        raise ValueError("dim_step_cuda: phi and cmat must be matrices")
     m, r = phi.shape
     n = cmat.shape[0]
-    shapes = {"phi": (phi, (m, r)), "qp32": (qp32, (m,)),
-              "um32": (um32, (m,)), "bmat": (bmat, (r, n * r)),
-              "cmat": (cmat, (n, r * r)), "hrow": (hrow, (n - 1,)),
-              "xg": (xg, (2, n))}
-    for name, (t, shape) in shapes.items():
-        if t.device != phi.device or t.dtype != torch.float32:
-            raise ValueError(f"dim_step_cuda: {name} must be f32 on {phi.device}"
-                             f", got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"dim_step_cuda: {name} must be contiguous "
-                             f"{shape}, got {tuple(t.shape)}")
+    f32 = torch.float32
+    check_cuda_operands("dim_step_cuda", phi.device, {
+        "phi": (phi, f32, (m, r)), "qp32": (qp32, f32, (m,)),
+        "um32": (um32, f32, (m,)), "bmat": (bmat, f32, (r, n * r)),
+        "cmat": (cmat, f32, (n, r * r)), "hrow": (hrow, f32, (n - 1,)),
+        "xg": (xg, f32, (2, n))})
     lib = _lib()
     if not (2 <= n <= lib.dim_step_max_n() and 1 <= r <= lib.dim_step_max_r()):
         raise ValueError(f"dim_step_cuda: n={n}, r={r} outside the kernel's caps "

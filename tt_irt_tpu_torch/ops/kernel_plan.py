@@ -4,16 +4,27 @@
 The JAX package keeps its Pallas kernels opt-in because each lost an
 A/B test on the TPU; that verdict does not carry over to the card.  Here
 the choice follows the tensor's device alone: CUDA tensors go to the
-hand-written kernel, CPU tensors to its plain PyTorch version.  There is
-no switch that turns a kernel off on the card, and no other module
-chooses between a kernel and its plain version.
+hand-written kernel, which launches or raises (on an f64 tensor too);
+CPU tensors go to its plain PyTorch version.  The kernels are f32 (as
+the TPU kernels are), so the 'f64' precision, the oracle of the others,
+has none: ``gram_step`` hands the Gram forward pass the plain pair for
+an f64 contraction, chosen by the precision of the prepared operands
+and not by whatever dtype a tensor arrives in.  There is no switch that
+turns a kernel off on the card, and no other module chooses between a
+kernel and its plain version.
 """
 
 from __future__ import annotations
 
-from .dim_step import dim_step_cuda, dim_step_ref
+import torch
 
-__all__ = ["dim_step"]
+from .dim_step import dim_step_cuda, dim_step_ref
+from .fused_irt import fused_irt_sqr_cuda, fused_irt_sqr_ref
+from .step import (condition_update_cuda, condition_update_ref,
+                   gram_conditional_cuda, gram_conditional_ref)
+
+__all__ = ["dim_step", "gram_conditional", "condition_update",
+           "gram_step", "fused_irt_rows"]
 
 
 def dim_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
@@ -23,3 +34,40 @@ def dim_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     if phi.device.type == "cpu":
         return dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode)
     return dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode)
+
+
+def gram_conditional(phi, pmat):
+    """fk[m, x] = phi[m] P_x phi[m]^T (ops/step.py): the CUDA kernel on
+    CUDA tensors, which launches or raises; the plain version on CPU
+    tensors."""
+    if phi.device.type == "cpu":
+        return gram_conditional_ref(phi, pmat)
+    return gram_conditional_cuda(phi, pmat)
+
+
+def condition_update(phi, i0, la, lb, cmat):
+    """The normalised prefix update from (i0, la, lb) (ops/step.py): the
+    CUDA kernel on CUDA tensors (f32, i0 int32), which launches or
+    raises; the plain version on CPU tensors."""
+    if phi.device.type == "cpu":
+        return condition_update_ref(phi, i0, la, lb, cmat)
+    return condition_update_cuda(phi, i0, la, lb, cmat)
+
+
+def gram_step(contraction_dtype):
+    """The (gram_conditional, condition_update) pair of a Gram forward
+    pass whose prepared operands have ``contraction_dtype``: the plain
+    versions at 'f64', which has no kernel; the device's choice above
+    at 'f32' and 'mixed'."""
+    if contraction_dtype == torch.float64:
+        return gram_conditional_ref, condition_update_ref
+    return gram_conditional, condition_update
+
+
+def fused_irt_rows(q, p2, coreu, x, h):
+    """The whole f32 transform on prepared operands
+    (ops/fused_irt.py): the CUDA kernel on CUDA tensors, which launches
+    or raises; the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return fused_irt_sqr_ref(q, p2, coreu, x, h)
+    return fused_irt_sqr_cuda(q, p2, coreu, x, h)

@@ -11,7 +11,7 @@ import torch
 
 from ..ops.tt import TT
 from .irt import _canon_grid
-from .irt_scan import _prep, can_use_scan, stack_padded
+from .irt_scan import _prep, can_use_scan, prep_level, stack_padded
 from .reference import reference_sigma
 
 __all__ = ["DIRT", "serve_precision"]
@@ -23,7 +23,8 @@ RAGGED_STEP = 4
 
 def serve_precision(dirt: "DIRT") -> str:
     """Dimension-aware default serving precision: 'hi' (factor-form
-    conditionals) at d >= 40, 'f32' below, as in the JAX package."""
+    conditionals) at d >= 40, 'f32' below, as in the JAX package (the
+    f32 Gram form's tail error compounds along the dimension chain)."""
     return "hi" if dirt.d >= 40 else "f32"
 
 
@@ -92,15 +93,15 @@ def _resolve_precision(dirt: DIRT, precision):
     return "f64" if dirt.f0.dtype == torch.float64 else "f32"
 
 
-def _prepare_level_preps(dirt: DIRT):
-    """Per-level 'hi' forward preparations of the spline upper levels,
-    batched per rank bucket.
+def _prepare_level_preps(dirt: DIRT, precision: str = "hi"):
+    """Per-level forward preparations of the spline upper levels at
+    ``precision``, batched per rank bucket.
 
     Levels are zero-padded to their rank rounded up to a multiple of
     ``RAGGED_STEP`` (capped at the stack max) and prepared together per
     bucket, exactly as the JAX package buckets them (padding changes
-    the f64 prep only at working precision, so both packages must pad
-    alike to compare).  Returns a per-level list of FactorPrep, or None
+    the prep only at working precision, so both packages must pad
+    alike to compare).  Returns a per-level list of preps, or None
     when the stack is not scan-eligible."""
     if dirt.nlevels < 1:
         return None
@@ -127,7 +128,7 @@ def _prepare_level_preps(dirt: DIRT):
                 cs = torch.nn.functional.pad(cs, (0, rb - r, 0, 0,
                                                   0, rb - r))
             padded.append(cs)
-        preps = _prep(torch.stack(padded, dim=0), xstack)
+        preps = _prep(torch.stack(padded, dim=0), xstack, precision)
         for pos, (j, _) in enumerate(items):
-            per_level[j] = preps.level(pos)
+            per_level[j] = prep_level(preps, pos)
     return per_level

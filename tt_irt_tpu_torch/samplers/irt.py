@@ -1,9 +1,10 @@
 """Shared pieces of the inverse Rosenblatt transforms (counterpart of
 the helpers in ``tt_irt_tpu/samplers/irt.py``).
 
-Only what the rank-padded serve path needs is ported: block sizing,
-grid spacings, the citardauq quadratic inversion, row padding, boundary
-extrapolation and grid canonicalisation.
+Ported: block sizing, grid spacings, row padding, boundary
+extrapolation, grid canonicalisation, and the public ``tt_irt_sqr`` /
+``tt_rt_sqr`` on the rank-padded scan path (samplers/irt_scan.py).  The
+general unrolled path and ``tt_irt_lin`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,8 +12,9 @@ from __future__ import annotations
 import torch
 
 from ..ops.tt import TT
+from ..utils.device import resolve_device
 
-__all__ = ["auto_block"]
+__all__ = ["auto_block", "tt_irt_sqr", "tt_rt_sqr"]
 
 _MAX_BLOCK = 1 << 18
 _MIN_BLOCK = 1 << 10
@@ -33,22 +35,6 @@ def _grid_spacings(x: torch.Tensor) -> torch.Tensor:
     """h[..., 0] = 0, h[..., i] = x[..., i] - x[..., i-1]."""
     zero = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
     return torch.cat([zero, torch.diff(x, dim=-1)], dim=-1)
-
-
-def _invert_quadratic(f1, f2, c1, q, x1, x2):
-    """Solve A (x-x1)^2 + f1 (x-x1) = q - c1 on [x1, x2] in the
-    citardauq form 2t / (f1 + sqrt(f1^2 + 4At)), which needs no A == 0
-    special case and does not cancel on flat cells; clipped into
-    [x1, x2].  Works in the inputs' dtype."""
-    h3 = x2 - x1
-    aq = 0.5 * (f2 - f1) / h3
-    t = q - c1
-    dq = f1 * f1 + 4.0 * aq * t
-    den = f1 + torch.sqrt(torch.clamp(dq, min=0.0))
-    bad = den <= 0.0
-    safe = torch.where(bad, torch.ones_like(den), den)
-    xk = torch.where(bad, x1, x1 + 2.0 * t / safe)
-    return torch.minimum(torch.maximum(xk, x1), x2)
 
 
 def _num_blocks(m: int, mb: int) -> int:
@@ -104,3 +90,49 @@ def _canon_grid(grid, tt: TT):
             gs = [g] * d
     cores = [_extrapolate_boundary(c, x) for c, x in zip(tt.cores, gs)]
     return gs, TT(cores)
+
+
+def _dispatch(mode, grid, f, q, block, precision, device):
+    """Run the rank-padded scan path on ``device``; a TT it does not
+    cover (non-uniform grid sizes, boundary ranks above 1, a marginal of
+    the first D < d variables) raises."""
+    from .irt_scan import can_use_scan, irt_scan, stack_padded
+
+    dev = resolve_device(device)
+    q = torch.as_tensor(q, device=dev)
+    grids, f = _canon_grid(grid, f.to(dev))
+    if not can_use_scan(f, grids, min(f.d, q.shape[1])):
+        raise NotImplementedError(
+            "only the rank-padded scan path (uniform grid sizes, boundary "
+            "ranks 1, all d variables) is ported (see ROADMAP.md)")
+    if precision is None:
+        precision = "f64" if f.dtype == torch.float64 else "f32"
+    cstack, xstack = stack_padded(f, grids)
+    return irt_scan(mode, cstack, xstack, q,
+                    auto_block(q.shape[0], block), precision)
+
+
+def tt_irt_sqr(grid, f: TT, q, block: int | None = None,
+               precision: str | None = None, device="cuda"):
+    """SIRT: inverse Rosenblatt transform through sqrt(density) in TT.
+
+    Args:
+      grid: list of d grid vectors (with boundaries), one shared vector,
+        or the per-dim grids concatenated.
+      f: TT of sqrt(PDF) on the grid (boundary points may be missing;
+        they are restored by linear extrapolation).
+      q: (M, d) seeds in [0, 1]^d.
+      block: forward block size (default auto_block).
+      precision: 'f64', 'f32', 'mixed' or 'hi' (samplers/irt_scan.py);
+        default by the cores' dtype.
+      device: where the transform runs (default "cuda").
+    Returns:
+      (xq, lFapp): samples (M, d) and log approximate density (M,).
+    """
+    return _dispatch("sqr", grid, f, q, block, precision, device)
+
+
+def tt_rt_sqr(grid, f: TT, x, block: int | None = None,
+              precision: str | None = None, device="cuda"):
+    """Forward Rosenblatt transform (x -> u), inverse of tt_irt_sqr."""
+    return _dispatch("rt", grid, f, x, block, precision, device)

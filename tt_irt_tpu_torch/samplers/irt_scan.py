@@ -1,20 +1,34 @@
-"""Rank-padded serve path of the IRT/RT transforms, 'hi' precision
-(counterpart of the factor-form 'serveb' subset of
-``tt_irt_tpu/samplers/irt_scan.py``).
+"""Rank-padded scan path of the IRT/RT transforms (counterpart of
+``tt_irt_tpu/samplers/irt_scan.py``): precisions 'f64', 'f32', 'mixed'
+(Gram form) and 'hi' (factor form), modes 'sqr' and 'rt'.
 
 All TT ranks are zero-padded to the maximum rank so every dimension has
 the same shape (exact: every contraction is linear in the padded
-entries).  The backward pass (``_prepare_scan_factor``) carries the
-suffix Gram in f64 and emits the factors ``B_k = C_k L_k``; the forward
-pass runs one ``dim_step`` per dimension (the CUDA kernel on the card,
-its plain version on the CPU, see ops/kernel_plan.py), collecting the
-nine bracket scalars per row, and one batched f64 epilogue
-(``_serve_solve``) turns them into samples and log-densities.
+entries).
+
+* Gram family ('f64'/'f32'/'mixed').  The backward pass
+  (``_prepare_scan``) emits the semi-marginal fields P_k, with the QR
+  carry (``stable=True``, the default of every entry point) or the Gram
+  carry.  The forward pass runs, per dimension, the conditional
+  fk = (phi x phi) P_k, the two-sided CDF inversion ``_cdf_invert`` in
+  the CDF dtype, and the prefix update.  At 'f32'/'mixed' the two
+  contractions are the CUDA kernels of ops/step.py on the card and their
+  plain versions on the CPU; at 'f64' they are plain PyTorch on either
+  device (the kernels are f32), which makes 'f64' the oracle of the rest.
+  'mixed' is f32 contractions with the CDF in native f64.
+* 'hi'.  ``_prepare_scan_factor`` carries the suffix Gram in f64 and
+  emits the factors B_k = C_k L_k; the forward pass runs one ``dim_step``
+  per dimension, collecting nine bracket scalars per row, and one batched
+  f64 epilogue (``_serve_solve``) turns them into samples and
+  log-densities.
+
+Which of a kernel and its plain version runs is decided in
+ops/kernel_plan.py alone.
 
 TPU workarounds of the JAX module that are not ported: the bf16
-K-packing of the big matmuls, the double-single epilogue and CDF rows,
-and 0/1 structure matmuls in place of cumsums and gathers.  FP64 is
-native on the card, so the epilogue is plain f64.
+K-packing of the big matmuls, the double-single epilogue and CDF rows
+(``_cdf_invert_fast``), and 0/1 structure matmuls in place of cumsums and
+gathers.  FP64 is native on the card, so those parts are plain f64.
 """
 
 from __future__ import annotations
@@ -23,14 +37,28 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.kernel_plan import dim_step
+from ..ops import kernel_plan
+from ..ops.rowmath import cumsum_rows, full_f32_matmul
+from ..ops.rowmath import invert_quadratic as _invert_quadratic
 from ..ops.tt import TT
-from .irt import _grid_spacings, _invert_quadratic, _num_blocks, _pad_rows
+from .irt import _grid_spacings, _num_blocks, _pad_rows
 
-__all__ = ["stack_padded", "can_use_scan", "FactorPrep", "fwd_blocked"]
+__all__ = ["stack_padded", "can_use_scan", "FactorPrep", "GramPrep",
+           "fwd_blocked", "irt_scan"]
 
-PRECISIONS = ("f64", "f32", "mixed", "hi", "hid", "ds", "gs")
-PORTED_PRECISIONS = ("hi",)
+# name -> (contraction dtype, CDF dtype, family), as the JAX package's
+# table; the families of 'hid', 'ds' and 'gs' are not ported yet.
+_PRECISIONS = {
+    "f64": (torch.float64, torch.float64, "gram"),
+    "f32": (torch.float32, torch.float32, "gram"),
+    "mixed": (torch.float32, torch.float64, "gram"),
+    "hi": (torch.float32, torch.float64, "factor"),
+    "hid": (torch.float32, torch.float64, "factor"),
+    "ds": (torch.float32, torch.float64, "ds"),
+    "gs": (torch.float32, torch.float64, "gramb"),
+}
+PRECISIONS = tuple(_PRECISIONS)
+PORTED_PRECISIONS = ("f64", "f32", "mixed", "hi")
 
 
 def check_precision(precision) -> None:
@@ -40,7 +68,11 @@ def check_precision(precision) -> None:
     if precision not in PORTED_PRECISIONS:
         raise NotImplementedError(
             f"precision {precision!r} is not ported to PyTorch yet; only "
-            f"{PORTED_PRECISIONS} runs (see ROADMAP.md)")
+            f"{PORTED_PRECISIONS} run (see ROADMAP.md)")
+
+
+def _family(precision) -> str:
+    return _PRECISIONS[precision][2]
 
 
 def can_use_scan(tt: TT, grids, dsample: int) -> bool:
@@ -70,6 +102,55 @@ def _trapz_w2(hstack):
     return 0.5 * torch.cat([hstack[:, 1:2],
                             hstack[:, 1:-1] + hstack[:, 2:],
                             hstack[:, -1:]], dim=1)
+
+
+def _prepare_scan(cstack, xstack, stable: bool = False):
+    """Backward semi-marginalisation in Gram form, in cstack's dtype.
+
+    cstack (..., d, r, n, r) — any leading batch dims (levels) — and
+    xstack (d, n).  Two carries for the integral over x_{>k}:
+    * stable=True: the thin R factor of a QR (full working precision
+      even for ill-conditioned semi-marginals).  Rank padding leaves
+      exact-zero columns, so 1e-14 * scale * I rows are appended as the
+      JAX package does (there for the gradient; here so that the values
+      match);
+    * stable=False: the Gram matrix G = R R^T itself, renormalised by
+      its max (squares the condition number).
+    Returns (pstack (..., d, r, r, n), hstack (d, n)) with
+    pstack[k, i, j, x] = P_k(x)[i, j]."""
+    dt = cstack.dtype
+    xstack = xstack.to(dt)
+    d, r, n = cstack.shape[-4], cstack.shape[-3], cstack.shape[-2]
+    hstack = _grid_spacings(xstack)
+    w2 = _trapz_w2(hstack)
+    batch = tuple(cstack.shape[:-4])
+    eye = torch.eye(r, dtype=dt, device=cstack.device)
+    carry = eye.expand(batch + (r, r))
+
+    def amax(t):
+        return torch.clamp(torch.amax(torch.abs(t), dim=(-2, -1),
+                                      keepdim=True), min=1e-300)
+
+    out = [None] * d
+    with full_f32_matmul():
+        for k in range(d - 1, -1, -1):
+            core = cstack[..., k, :, :, :]
+            if stable:
+                b = torch.einsum("...anb,...bc->...anc", core, carry)
+                pk = torch.einsum("...anc,...bnc->...abn", b, b)
+                wb = b * torch.sqrt(w2[k])[:, None]
+                mat = wb.reshape(batch + (r, n * r)).transpose(-1, -2)
+                mat = torch.cat([mat, (1e-14 * amax(mat)) * eye], dim=-2)
+                rnew = torch.linalg.qr(mat, mode="r").R.transpose(-1, -2)
+                carry = rnew / amax(rnew)
+            else:
+                t = torch.einsum("...anc,...cd->...and", core, carry)
+                pk = torch.einsum("...and,...bnd->...abn", t, core)
+                gnew = torch.einsum("...abn,n->...ab", pk, w2[k])
+                gnew = 0.5 * (gnew + gnew.transpose(-1, -2))
+                carry = gnew / amax(gnew)
+            out[k] = pk
+    return torch.stack(out, dim=-4), hstack
 
 
 def _chol_jittered(gram):
@@ -129,13 +210,25 @@ class FactorPrep(NamedTuple):
     xg: torch.Tensor      # (d, 2, n) f32 pair of the grids
     hrow: torch.Tensor    # (d, n-1) f32 spacings
 
-    def level(self, j: int) -> "FactorPrep":
-        return FactorPrep(*(t[j].contiguous() for t in self))
+
+class GramPrep(NamedTuple):
+    """Per-dimension operands of the Gram-family forward pass (one TT).
+    pmat and cmat carry the contraction dtype, xs and hs the CDF dtype;
+    together they identify the precision ('f64', 'f32' or 'mixed')."""
+
+    pmat: torch.Tensor    # (d, r*r, n), pmat[k, i*r + j, x] = P_k(x)[i, j]
+    cmat: torch.Tensor    # (d, n, r*r), C_k unfolded
+    xs: torch.Tensor      # (d, n) grids
+    hs: torch.Tensor      # (d, n) spacings, hs[:, 0] = 0
 
 
-def _prep(cstack, xstack) -> FactorPrep:
-    """Backward preparation for precision 'hi'.  cstack may carry a
-    leading level dimension; every field then carries it too."""
+def prep_level(prep, j: int):
+    """Level j of a prep whose fields carry a leading level axis."""
+    return type(prep)(*(t[j].contiguous() for t in prep))
+
+
+def _prep_factor(cstack, xstack) -> FactorPrep:
+    """Backward preparation for precision 'hi'."""
     bstack, hstack = _prepare_scan_factor(cstack, xstack)
     *lead, d, r, n, _ = bstack.shape
     lead = tuple(lead)
@@ -154,6 +247,93 @@ def _prep(cstack, xstack) -> FactorPrep:
     return FactorPrep(bmat.to(torch.float32).contiguous(),
                       cmat.to(torch.float32).contiguous(),
                       per_level(xg), per_level(hrow))
+
+
+def _prep_gram(cstack, xstack, precision, stable) -> GramPrep:
+    """Backward preparation for 'f64', 'f32' and 'mixed': the whole
+    pass runs in the contraction dtype, the grids and spacings are then
+    carried in the CDF dtype (as the JAX package does)."""
+    cdt, pdt, _ = _PRECISIONS[precision]
+    cs = cstack.to(cdt)
+    pstack, hstack = _prepare_scan(cs, xstack.to(cdt), stable=stable)
+    *lead, d, r, n, _ = cs.shape
+    lead = tuple(lead)
+
+    def per_level(t):
+        return t.expand(lead + tuple(t.shape)).contiguous()
+
+    return GramPrep(pstack.reshape(lead + (d, r * r, n)).contiguous(),
+                    cs.transpose(-3, -2).reshape(
+                        lead + (d, n, r * r)).contiguous(),
+                    per_level(xstack.to(pdt)), per_level(hstack.to(pdt)))
+
+
+def _prep(cstack, xstack, precision: str = "hi", stable: bool = True):
+    """Backward preparation: everything the forward pass needs except
+    the seeds.  cstack may carry a leading level dimension; every field
+    then carries it too (``prep_level`` picks one)."""
+    check_precision(precision)
+    if _family(precision) == "gram":
+        return _prep_gram(cstack, xstack, precision, stable)
+    return _prep_factor(cstack, xstack)
+
+
+def _cdf_invert(mode, fk, xp, h, qp):
+    """CDF build, bracket and in-cell quadratic solve in fk's dtype.
+
+    TWO-SIDED: seeds past the median invert against the right-tail mass
+    (a reversed cumsum of only-small terms), so the perturbation stays at
+    eps * (local tail mass) in both tails.  fk (M, n) unnormalised,
+    xp (n,) grid, h (n,) spacings with h[0] = 0, qp (M,) seeds (x values
+    in 'rt' mode).  Returns (out, dlf, la, lb, i0)."""
+    n = fk.shape[-1]
+    dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h[1:]
+    total = torch.sum(dc, dim=-1, keepdim=True)
+    # degenerate rows (no mass) fall back to the uniform density
+    bad = total <= 0.0
+    dc = torch.where(bad, (xp[1:] - xp[:-1]).expand_as(dc), dc)
+    fk = torch.where(bad, torch.ones_like(fk), fk)
+    total = torch.sum(dc, dim=-1, keepdim=True)
+    dc = dc / total
+    fk = fk / total
+    zero = torch.zeros((fk.shape[0], 1), dtype=fk.dtype, device=fk.device)
+    ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
+    cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
+                    zero], dim=1)
+    if mode == "rt":
+        i0 = torch.sum(xp[None, :] < qp[:, None], dim=1) - 1
+    else:
+        right = qp > 0.5
+        i0l = torch.sum(ck < qp[:, None], dim=1) - 1
+        i0r = torch.sum(cr > (1.0 - qp)[:, None], dim=1) - 1
+        i0 = torch.where(right, i0r, i0l)
+    i0 = torch.clamp(i0, 0, n - 2)
+    i1 = i0 + 1
+
+    def read(rows, idx):
+        return torch.gather(rows, 1, idx[:, None])[:, 0]
+
+    c1 = read(ck, i0)
+    cr2 = read(cr, i1)
+    f1 = read(fk, i0)
+    f2 = read(fk, i1)
+    x1, x2 = xp[i0], xp[i1]
+    if mode == "rt":
+        xk = qp
+        aq = 0.5 * (f2 - f1) / (x2 - x1)
+        cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
+        yk = x2 - xk
+        cr_ = 1.0 - (f2 * yk - aq * yk * yk + cr2)
+        out = torch.where(cl_ > 0.5, cr_, cl_)
+    else:
+        xl_ = _invert_quadratic(f1, f2, c1, qp, x1, x2)
+        xr_ = -_invert_quadratic(f2, f1, cr2, 1.0 - qp, -x2, -x1)
+        xk = torch.where(right, xr_, xl_)
+        out = xk
+    la = (x2 - xk) / (x2 - x1)
+    lb = (xk - x1) / (x2 - x1)
+    dlf = torch.log(f1 * la + f2 * lb)
+    return out, dlf, la, lb, i0
 
 
 def _serve_solve(mode, out9, qp):
@@ -196,11 +376,10 @@ def _serve_solve(mode, out9, qp):
     return out, dlf
 
 
-def _fwd(mode, prep: FactorPrep, q, step=None):
-    """Forward pass over one block of rows: d dimension steps, then one
-    batched f64 epilogue.  Returns (samples (M, d) f64, lf (M,) f64).
-    ``step`` defaults to the device's choice (ops/kernel_plan.py); the
-    chip smoke test passes the plain version to compare on the card."""
+def _fwd_factor(mode, prep: FactorPrep, q, step=None):
+    """'hi' forward pass over one block of rows: d dimension steps,
+    then one batched f64 epilogue.  ``step`` defaults to the device's
+    choice (ops/kernel_plan.py)."""
     d = prep.bmat.shape[0]
     r = prep.bmat.shape[1]
     mb = q.shape[0]
@@ -210,7 +389,7 @@ def _fwd(mode, prep: FactorPrep, q, step=None):
     phi = torch.zeros((mb, r), dtype=torch.float32, device=q.device)
     phi[:, 0] = 1.0
     if step is None:
-        step = dim_step
+        step = kernel_plan.dim_step
     kmode = "rt" if mode == "rt" else "irt"
     outs9 = torch.empty((d, mb, 9), dtype=torch.float32, device=q.device)
     for k in range(d):
@@ -223,7 +402,49 @@ def _fwd(mode, prep: FactorPrep, q, step=None):
     return out.reshape(d, mb).T, lf
 
 
-def fwd_blocked(mode, prep: FactorPrep, q, block: int):
+def _fwd_gram(mode, prep: GramPrep, q, step=None):
+    """Gram-family forward pass over one block of rows.  Per dimension:
+    the conditional, ``_cdf_invert`` in the CDF dtype (at 'mixed' on fk
+    clamped at 0, as the JAX package does before its f64 CDF; at 'f32'
+    fk may come out slightly negative by cancellation and is left so),
+    and the prefix update.  ``step`` is the pair (gram_conditional,
+    condition_update) and defaults to the choice of ops/kernel_plan.py.
+    Samples and log-density come back in the CDF dtype."""
+    d, rr, n = prep.pmat.shape
+    r = int(round(rr ** 0.5))
+    cdt, pdt = prep.pmat.dtype, prep.xs.dtype
+    mixed = cdt != pdt
+    mb = q.shape[0]
+    qs = q.to(pdt).T.contiguous()                          # (d, mb)
+    gram, update = (step if step is not None
+                    else kernel_plan.gram_step(cdt))
+    phi = torch.zeros((mb, r), dtype=cdt, device=q.device)
+    phi[:, 0] = 1.0
+    lf = torch.zeros((mb,), dtype=pdt, device=q.device)
+    outs = torch.empty((d, mb), dtype=pdt, device=q.device)
+    for k in range(d):
+        fk = gram(phi, prep.pmat[k])
+        if mixed:
+            fk = torch.clamp(fk, min=0.0)
+        outs[k], dlf, la, lb, i0 = _cdf_invert(
+            mode, fk.to(pdt), prep.xs[k], prep.hs[k], qs[k])
+        lf = lf + dlf
+        phi = update(phi, i0.to(torch.int32), la.to(cdt), lb.to(cdt),
+                     prep.cmat[k])
+    return outs.T, lf
+
+
+def _fwd(mode, prep, q, step=None):
+    """Forward pass over one block of rows for either family.  Returns
+    (samples (M, d), lf (M,)).  ``step`` replaces the kernel-plan choice
+    of the per-dimension functions; the chip smoke test passes the plain
+    versions to compare on the card."""
+    if isinstance(prep, GramPrep):
+        return _fwd_gram(mode, prep, q, step)
+    return _fwd_factor(mode, prep, q, step)
+
+
+def fwd_blocked(mode, prep, q, block: int):
     """Block loop over the forward pass: rows are zero-padded to a whole
     number of blocks when there is more than one."""
     m = q.shape[0]
@@ -237,3 +458,19 @@ def fwd_blocked(mode, prep: FactorPrep, q, block: int):
         xs_parts.append(xb)
         lf_parts.append(lb)
     return (torch.cat(xs_parts, dim=0)[:m], torch.cat(lf_parts, dim=0)[:m])
+
+
+def _irt_scan_one(mode, cstack, xstack, q, precision="f64", stable=False):
+    """One-shot transform of a single block of rows (for tests)."""
+    return _fwd(mode, _prep(cstack, xstack, precision, stable), q)
+
+
+def irt_scan(mode, cstack, xstack, q, block, precision="f64"):
+    """Blocked scan transform, mode in {'sqr', 'rt'}: the backward
+    preparation runs once (QR-stabilised for the Gram family), then the
+    forward pass runs block by block."""
+    if mode not in ("sqr", "rt"):
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported to PyTorch yet (see ROADMAP.md)")
+    prep = _prep(cstack, xstack, precision, stable=True)
+    return fwd_blocked(mode, prep, q, block)

@@ -4,8 +4,8 @@
     sampler = DirtSampler(load_dirt(path), precision="auto")
     z, lfapp = sampler(q)        # forward passes only
 
-Only precision 'hi' on spline stacks is ported; the other precision
-modes raise NotImplementedError.
+Precisions 'f64', 'f32', 'mixed' and 'hi' on spline stacks are ported;
+'hid', 'ds' and 'gs' raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class IrtSampler:
       f: TT of sqrt(PDF) on the grid.
       mode: 'sqr' (inverse Rosenblatt, seeds -> samples) or 'rt'
         (forward Rosenblatt, samples -> seeds).
-      precision: 'hi' (the only ported mode).
+      precision: 'f64', 'f32', 'mixed' or 'hi'; None = by the cores'
+        dtype.
       block: forward block size (default auto_block).
       device: where the transform runs (default "cuda").
     """
@@ -63,7 +64,7 @@ class IrtSampler:
         self.precision = precision
         self.block = block
         cs, xs = stack_padded(fc, grids)
-        self._prep = _prep(cs, xs)
+        self._prep = _prep(cs, xs, precision)
 
     def sample(self, q):
         """Transform seeds ('sqr') or samples ('rt'); returns (x, lf)."""
@@ -80,8 +81,8 @@ class DirtSampler:
     Args:
       dirt: a DIRT stack (built or loaded from a checkpoint); it is
         moved to ``device``.
-      precision: 'hi', 'auto' (serve_precision: 'hi' at d >= 40) or
-        None (the dtype default); modes other than 'hi' raise.
+      precision: 'f64', 'f32', 'mixed', 'hi', 'auto' (serve_precision:
+        'hi' at d >= 40, 'f32' below) or None (by the cores' dtype).
       block: forward block size (default auto_block).
       device: where the stack is served (default "cuda").
     """
@@ -101,7 +102,7 @@ class DirtSampler:
         self._sigma = self.dirt.sigma
         self._upper = []
         if self.dirt.nlevels:
-            self._upper = _prepare_level_preps(self.dirt)
+            self._upper = _prepare_level_preps(self.dirt, self.precision)
             if self._upper is None:
                 raise NotImplementedError(
                     "only scan-eligible level TTs are ported "
@@ -110,7 +111,7 @@ class DirtSampler:
         if not can_use_scan(f0c, gs0, f0c.d):
             raise NotImplementedError(
                 "only a scan-eligible level-0 TT is ported (see ROADMAP.md)")
-        self._prep0 = _prep(*stack_padded(f0c, gs0))
+        self._prep0 = _prep(*stack_padded(f0c, gs0), self.precision)
 
     def sample(self, q, logpostfun=None):
         """Push reference seeds through levels L..1 and level 0; returns

@@ -1,7 +1,8 @@
 """DIRT checkpoints: the JAX package's ``.npz`` + ``.json`` format
 (counterpart of ``tt_irt_tpu/utils/checkpoint.py``), and
-``dirt_from_numpy``, which carries a stack given as numpy arrays into
-the port's ``DIRT`` on a device."""
+``dirt_from_numpy`` / ``tt_from_numpy``, which carry a stack or a
+single TT given as numpy arrays into the port's containers on a
+device."""
 
 from __future__ import annotations
 
@@ -15,7 +16,14 @@ from ..ops.tt import TT
 from ..samplers.dirt import DIRT
 from .device import resolve_device
 
-__all__ = ["save_dirt", "load_dirt", "dirt_from_numpy"]
+__all__ = ["save_dirt", "load_dirt", "dirt_from_numpy", "tt_from_numpy"]
+
+
+def tt_from_numpy(cores, device="cuda") -> TT:
+    """A TT on ``device`` from numpy cores (r_{k-1}, n_k, r_k); arrays
+    keep their dtype.  Tests hand the same arrays to the JAX package."""
+    dev = resolve_device(device)
+    return TT([torch.tensor(np.asarray(c), device=dev) for c in cores])
 
 
 def dirt_from_numpy(f0_cores, level_cores, x0, x, beta, lfshift=0.0,
@@ -28,8 +36,7 @@ def dirt_from_numpy(f0_cores, level_cores, x0, x, beta, lfshift=0.0,
     dev = resolve_device(device)
 
     def tt(cores):
-        return TT([torch.tensor(np.asarray(c), device=dev)
-                   for c in cores])
+        return tt_from_numpy(cores, dev)
 
     def vecs(gs):
         return [torch.tensor(np.asarray(g), device=dev) for g in gs]
