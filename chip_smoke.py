@@ -36,8 +36,29 @@ Phases (any failure raises; nothing falls back to the CPU):
      profiled call split by kernel name;
   7. path B: tt_irt_sqr(precision="f32") and fused_irt_sqr on the bench
      TT at 2^log2n seeds, each against the f64 path on the card;
-  8. time the three new kernels, their plain versions and, for
-     gram_conditional, the one einsum that computes the same function.
+  8. time those three kernels, their plain versions and, for
+     gram_conditional, the one einsum that computes the same function;
+  9. hold factor_conditional, cdf_bracket_factor and odim_step against
+     their plain versions at 2^18 rows, in 'irt' and 'rt' modes, at every
+     shape (n, r) that lz40n33_ck's rank buckets give them: per
+     dimension on identical inputs (with the bitwise equalities that tie
+     the three to dim_step), odim_step also through the last level; and
+     report what cdf_bracket_factor's f32 right-tail target costs on
+     seeds within 1e-7 of 1;
+ 10. path C: serve 2^log2n seeds through lz40n33_ck with
+     DirtSampler(precision="hi", hi_step="odim"): launch counts (every
+     step an odim_step, no dim_step), finite outputs, the CPU plain path
+     on the first rows, best of 3, one profiled call, N/ESS on the six
+     seed sets of phase 3, |log-weight - that of the "dim" serve| on the
+     same seeds, and "odim", "dim" and 'f64' side by side on the first
+     2^18 rows;
+ 11. path D: the split steps on lz40n33_ck: hi_step="bracket" at 2^log2n
+     seeds, hi_step="pair" and precision 'hid' at 2^18: launch counts,
+     one timed and one profiled call each, against the "dim" and 'f64'
+     serves of the same rows; then 'gs' and 'ds' through tt_irt_sqr on
+     the bench TT at 2^18 rows against the f64 path;
+ 12. time the three factor-family kernels at (n=33, r=23), their plain
+     versions and torch.matmul(phi, B) (a partial yardstick).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 The port only: this script imports neither jax nor the JAX package.
@@ -84,6 +105,13 @@ NONFINITE_ROWS_BAR = 16
 FUSED_COL0_BAR = 5e-5
 FUSED_X_SHARE = 0.999
 FUSED_LF_SHARE = 0.999
+
+
+def _lap(run, name):
+    """Record the seconds since the previous lap under rec["phase_s"]."""
+    now = time.perf_counter()
+    run.rec.setdefault("phase_s", {})[name] = now - run.t_lap
+    run.t_lap = now
 
 
 def _card():
@@ -133,6 +161,40 @@ def _errs(a, ref):
     return float(e.max()), float(torch.quantile(e.double().cpu(), 0.99))
 
 
+def _level_checks(prep, q, steps, rec, tag):
+    """One prepared level through the batched-epilogue forward pass with
+    each per-dimension step of ``steps`` ("plain", "kernel", "f64"), in
+    'sqr' mode on the seeds q and in 'rt' mode on the f64 run's samples.
+    Records max and 99th percentile of each f32 run's distance from the
+    f64 run under ``<tag>level_*`` and ``<tag>roundtrip_*`` and requires
+    the kernel's to be at most twice the plain version's plus 1e-6.
+    Returns (checks, the f64 run's samples)."""
+    from tt_irt_tpu_torch.samplers.irt_scan import _fwd
+
+    runs = {name: _fwd("sqr", prep, q, step=st) for name, st in steps.items()}
+    x64 = runs["f64"][0]
+    for name, st in steps.items():
+        runs[name] += _fwd("rt", prep, x64, step=st)
+    checks = {}
+    for i, what in enumerate(("x", "lf", "u", "lu")):
+        for name in ("plain", "kernel"):
+            mx, p99 = _errs(runs[name][i], runs["f64"][i])
+            rec[f"{tag}level_{what}_{name}_vs_f64_max"] = mx
+            rec[f"{tag}level_{what}_{name}_vs_f64_p99"] = p99
+        for stat in ("max", "p99"):
+            k = rec[f"{tag}level_{what}_kernel_vs_f64_{stat}"]
+            p = rec[f"{tag}level_{what}_plain_vs_f64_{stat}"]
+            checks[f"{tag}level_{what}_{stat}"] = k <= 2.0 * p + 1e-6
+    rec[f"{tag}level_x_kernel_vs_plain_max"] = float(
+        (runs["kernel"][0] - runs["plain"][0]).abs().max())
+    for name in ("plain", "kernel"):
+        rec[f"{tag}roundtrip_{name}"] = float(
+            (runs[name][2] - q).abs().max())
+    checks[f"{tag}roundtrip"] = (rec[f"{tag}roundtrip_kernel"]
+                                 <= 2.0 * rec[f"{tag}roundtrip_plain"] + 1e-6)
+    return checks, x64
+
+
 def _compare_level(prep, q, rec):
     """Kernel vs plain on one level at the production shape.
 
@@ -153,31 +215,10 @@ def _compare_level(prep, q, rec):
     import torch
 
     from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
-    from tt_irt_tpu_torch.samplers.irt_scan import _fwd
 
-    steps = {"plain": dim_step_ref, "kernel": dim_step_cuda,
-             "f64": _plain64}
-    runs = {name: _fwd("sqr", prep, q, step=st) for name, st in steps.items()}
-    x64 = runs["f64"][0]
-    for name, st in steps.items():
-        runs[name] += _fwd("rt", prep, x64, step=st)
-    checks = {}
-    for i, what in enumerate(("x", "lf", "u", "lu")):
-        for name in ("plain", "kernel"):
-            mx, p99 = _errs(runs[name][i], runs["f64"][i])
-            rec[f"level_{what}_{name}_vs_f64_max"] = mx
-            rec[f"level_{what}_{name}_vs_f64_p99"] = p99
-        for stat in ("max", "p99"):
-            k = rec[f"level_{what}_kernel_vs_f64_{stat}"]
-            p = rec[f"level_{what}_plain_vs_f64_{stat}"]
-            checks[f"level_{what}_{stat}"] = k <= 2.0 * p + 1e-6
-    rec["level_x_kernel_vs_plain_max"] = float(
-        (runs["kernel"][0] - runs["plain"][0]).abs().max())
-    for name in ("plain", "kernel"):
-        rec[f"roundtrip_{name}"] = float((runs[name][2] - q).abs().max())
-    checks["roundtrip"] = (rec["roundtrip_kernel"]
-                           <= 2.0 * rec["roundtrip_plain"] + 1e-6)
-
+    checks, x64 = _level_checks(
+        prep, q, {"plain": dim_step_ref, "kernel": dim_step_cuda,
+                  "f64": _plain64}, rec, "")
     d, r = prep.bmat.shape[0], prep.bmat.shape[1]
     m = q.shape[0]
     worst = {"agree": 1.0, "out9_rel": 0.0, "max_abs": 0.0,
@@ -241,15 +282,42 @@ def build_tt(d, n, rank, seed=0):
     return cores
 
 
-def _zero_counts():
+def _wrappers():
+    """name -> the wrapper that counts that kernel's launches."""
     from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda
     from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_cuda
-    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                           condition_update_cuda,
+                                           factor_conditional_cuda,
                                            gram_conditional_cuda)
 
-    for fn in (dim_step_cuda, gram_conditional_cuda, condition_update_cuda,
-               fused_irt_sqr_cuda):
+    return {"dim_step": dim_step_cuda, "odim_step": odim_step_cuda,
+            "cdf_bracket_factor": cdf_bracket_factor_cuda,
+            "factor_conditional": factor_conditional_cuda,
+            "gram_conditional": gram_conditional_cuda,
+            "condition_update": condition_update_cuda,
+            "fused_irt_sqr": fused_irt_sqr_cuda}
+
+
+def _zero_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
+
+
+def _counted(fn, expect):
+    """fn() with every launch count set to 0 just before it and read
+    just after it; the counts must equal ``expect`` (name -> launches;
+    a kernel not named must not have been launched).  Returns (seconds
+    to a forced host read, outputs)."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    float(out[0].sum()) + float(out[1].sum())      # forced host read
+    secs = time.perf_counter() - t0
+    got = {k: f.launches for k, f in _wrappers().items() if f.launches}
+    assert got == expect, (got, expect)
+    return secs, out
 
 
 def _ess_sets(tp, sampler, dirt, lp, first, seed, m, dev):
@@ -260,10 +328,10 @@ def _ess_sets(tp, sampler, dirt, lp, first, seed, m, dev):
     median.  Rows whose log-weight is not finite are counted, left out
     of the estimate, and their seeds kept (at most ESS_TOP a set).
     Returns (ess, largest weight share, heaviest rows, non-finite row
-    counts)."""
+    counts, log-weights of every row per set)."""
     import torch
 
-    ess, share, top, bad = [], [], {}, []
+    ess, share, top, bad, lws = [], [], {}, [], []
     for k in range(ESS_SETS):
         if k == 0:
             qk, zk, lk, lek = first
@@ -273,6 +341,7 @@ def _ess_sets(tp, sampler, dirt, lp, first, seed, m, dev):
             zk, lk = sampler(qk)
             lek = lp(zk)
         lw = lek - lk
+        lws.append(lw)
         sid = seed + k
         ok = torch.isfinite(lw)
         bad.append(int((~ok).sum()))
@@ -287,7 +356,7 @@ def _ess_sets(tp, sampler, dirt, lp, first, seed, m, dev):
                     f"lf{sid}": lk[idx], f"le{sid}": lek[idx],
                     f"dfmed{sid}": torch.median(lw),
                     f"n_over_ess{sid}": torch.tensor(ess[-1])})
-    return ess, share, top, bad
+    return ess, share, top, bad, lws
 
 
 def _trace_call(fn, names):
@@ -297,8 +366,9 @@ def _trace_call(fn, names):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording the host's operators as well makes
+    # the profiler's own processing the longest part of a host-bound call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         call_s = time.perf_counter() - t0
@@ -580,27 +650,14 @@ def _print_trace(rec, tag, label, best, busy, split, card):
 
 
 def _serve_best_of_3(sampler, seeds, expect):
-    """Warm-up, then best of 3 calls with a forced host read; the launch
-    counts are set to 0 just before each call, read just after it and
-    held against ``expect`` = (dim_step, gram_conditional,
-    condition_update, fused_irt_sqr)."""
-    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda
-    from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_cuda
-    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
-                                           gram_conditional_cuda)
-
+    """Warm-up, then best of 3 calls with a forced host read, each held
+    to the launch counts ``expect`` (see _counted)."""
     out = sampler(seeds)                           # warm-up
     float(out[0].sum())
     best = float("inf")
     for _ in range(3):
-        _zero_counts()
-        t0 = time.perf_counter()
-        out = sampler(seeds)
-        float(out[0].sum()) + float(out[1].sum())  # forced host read
-        best = min(best, time.perf_counter() - t0)
-        got = (dim_step_cuda.launches, gram_conditional_cuda.launches,
-               condition_update_cuda.launches, fused_irt_sqr_cuda.launches)
-        assert got == expect, (got, expect)
+        secs, out = _counted(lambda: sampler(seeds), expect)
+        best = min(best, secs)
     return best, out
 
 
@@ -616,6 +673,8 @@ def _lz40_path(run):
     serve at 'hi', and dim_step's timings.  Returns its kernels entry."""
     import numpy as np
     import torch
+
+    import types
 
     import tt_irt_tpu_torch as tp
     from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
@@ -647,7 +706,8 @@ def _lz40_path(run):
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeds = tp.randref(dirt.reference, gen, (m, dirt.d))
     launches = run.nblocks * (dirt.nlevels + 1) * dirt.d
-    best, (z, lfapp) = _serve_best_of_3(sampler, seeds, (launches, 0, 0, 0))
+    best, (z, lfapp) = _serve_best_of_3(sampler, seeds,
+                                        {"dim_step": launches})
     rec.update(serve_best_s=best, samples_per_s=m / best, rows=m,
                launches_per_call=launches)
     assert z.shape == (m, dirt.d)
@@ -671,8 +731,8 @@ def _lz40_path(run):
     mh = tp.mcmc_prune(z[:1 << 14], lfex[:1 << 14], lfapp[:1 << 14],
                        generator=torch.Generator(device=dev).manual_seed(2))
     rec["mh_reject_share"] = mh.num_rejects / ((1 << 14) - 1)
-    ess, share, top, bad = _ess_sets(tp, sampler, dirt, lp,
-                                     (seeds, z, lfapp, lfex), seed, m, dev)
+    ess, share, top, bad, run.lw_dim = _ess_sets(
+        tp, sampler, dirt, lp, (seeds, z, lfapp, lfex), seed, m, dev)
     assert not any(bad), bad
     np.savez(os.path.join(OUT_DIR, "ess_top.npz"),
              **{k: v.cpu().numpy() for k, v in top.items()})
@@ -705,6 +765,11 @@ def _lz40_path(run):
     rows = min(m, 1 << 18)
     z64, l64 = tp.DirtSampler(dirt, precision="f64", device=dev)(seeds[:rows])
     le64 = lp(z64)
+    # kept for paths C and D, which serve the same seeds
+    run.lz40 = types.SimpleNamespace(
+        dirt=dirt, lp=lp, seeds=seeds, rows=rows, z_dim=z[:rows].clone(),
+        z64=z64, lw64=le64 - l64, prep_last=prep, q_last=q, best_dim=best)
+    run.lz40.errs_dim = _f64_errs(z, lfex - lfapp, run.lz40)
     lw_d = ((lfex[:rows] - lfapp[:rows]) - (le64 - l64)).abs()
     rec.update(lz40_rows_f64_vs_hi=rows,
                lz40_n_over_ess_f64=float(tp.essinv(le64, l64)),
@@ -740,6 +805,7 @@ def _lz40_path(run):
     nbytes = 4 * (mb * r + 2 * mb + r * n * r + n * r * r + (n - 1)
                   + 2 * n + mb * r + 9 * mb)
     bound_ms, bound_by = _bound(flops, nbytes)
+    run.lz40.kargs, run.lz40.k_mid = kargs, k      # for phase 12
     rec.update(ms=ms, plain_ms=plain_ms, matmul_partial_ms=matmul_ms,
                bound_flops=flops, bound_bytes=nbytes, bound_ms=bound_ms,
                bound_by=bound_by)
@@ -773,8 +839,9 @@ def _path_a(run, dirt_a):
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeds = tp.randref(dirt_a.reference, gen, (m, dirt_a.d))
     launches = run.nblocks * (dirt_a.nlevels + 1) * dirt_a.d
-    best, (z, lfapp) = _serve_best_of_3(sampler, seeds,
-                                        (0, launches, launches, 0))
+    best, (z, lfapp) = _serve_best_of_3(
+        sampler, seeds, {"gram_conditional": launches,
+                         "condition_update": launches})
     assert z.shape == (m, dirt_a.d)
     assert bool(torch.isfinite(z).all())
     cpu = tp.DirtSampler(tp.load_dirt(CKPT_A, device="cpu"),
@@ -792,8 +859,8 @@ def _path_a(run, dirt_a):
     lp = prob.log_posterior_fn()
     lfex = lp(z)
     assert bool(torch.isfinite(lfex).all())
-    ess, share, top, bad = _ess_sets(tp, sampler, dirt_a, lp,
-                                     (seeds, z, lfapp, lfex), seed, m, dev)
+    ess, share, top, bad, _ = _ess_sets(
+        tp, sampler, dirt_a, lp, (seeds, z, lfapp, lfex), seed, m, dev)
     # the same seeds through the f64 Gram path on the card
     t0 = time.perf_counter()
     z64, l64 = tp.DirtSampler(dirt_a, precision="f64", device=dev)(seeds)
@@ -859,9 +926,9 @@ def _path_b(run, tt_b, grids_b):
     for name, fn, want in (
             ("irt_f32",
              lambda s: tp.tt_irt_sqr(grids_b, tt_b, s, precision="f32"),
-             (0, per_dim, per_dim, 0)),
+             {"gram_conditional": per_dim, "condition_update": per_dim}),
             ("fused", lambda s: tp.fused_irt_sqr(grids_b, tt_b, s),
-             (0, 0, 0, 1))):
+             {"fused_irt_sqr": 1})):
         best, (xo, lo) = _serve_best_of_3(fn, q, want)
         assert xo.shape == (m, db) and bool(torch.isfinite(xo).all())
         assert bool(torch.isfinite(lo).all())
@@ -869,14 +936,14 @@ def _path_b(run, tt_b, grids_b):
         dl, dl99 = _errs(lo.double(), l64)
         rec.update({f"b_{name}_best_s": best,
                     f"b_{name}_samples_per_s": m / best,
-                    f"b_{name}_launches": list(want),
+                    f"b_{name}_launches": want,
                     f"b_{name}_x_vs_f64_max": dx,
                     f"b_{name}_x_vs_f64_p99": dx99,
                     f"b_{name}_lf_vs_f64_max": dl,
                     f"b_{name}_lf_vs_f64_p99": dl99})
         print(f"path B {name}: {m} x d={db} (n={nb_}, r={rb}): best "
               f"{best:.4f} s ({m / best:.1f} samples/s, prepare "
-              f"included), launches dim_step/gram/update/fused {want}, vs "
+              f"included), launches {want}, vs "
               f"the f64 path on the card: samples max {dx:.3e} p99 "
               f"{dx99:.3e}, log-density max {dl:.3e} p99 {dl99:.3e} "
               f"({card})", flush=True)
@@ -977,7 +1044,8 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
     def worst(name):
         return max(rec[f"gram_{tag}_per_dim_{name}"] for tag in gram_tags)
 
-    b_gram, b_update = rec["b_irt_f32_launches"][1:3]
+    b_gram = rec["b_irt_f32_launches"]["gram_conditional"]
+    b_update = rec["b_irt_f32_launches"]["condition_update"]
     return [
         entry("gram_conditional", "step.cu", "pallas_step.py:188",
               {"A": launches_a, "B tt_irt_sqr": b_gram}, worst("fk_kp_abs"),
@@ -987,13 +1055,513 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
               {"A": launches_a, "B tt_irt_sqr": b_update}, worst("phin_kp"),
               u_ms, u_plain, u_bound, None),
         entry("fused_irt_sqr", "fused_irt.cu", "pallas_irt.py:182",
-              {"B fused_irt_sqr": rec["b_fused_launches"][3]},
+              {"B fused_irt_sqr": rec["b_fused_launches"]["fused_irt_sqr"]},
               rec["fused_lf_kernel_vs_plain_max"], f_ms, f_plain, f_bound,
               None, max_abs_err_of="log-density, all rows",
               samples_max_abs_err=rec["fused_x_kernel_vs_plain_max"],
               samples_rows_flipped=rec["fused_x_rows_flipped"],
               samples_within_1e4_where_well_conditioned=rec[
                   "fused_x_well_elements_kernel_within_1e4_of_plain"])]
+
+
+def _lz40_shapes(dirt):
+    """The transforms of lz40n33_ck as DirtSampler prepares them at 'hi'
+    (level 0 alone, the upper levels per rank bucket), grouped by the
+    shape (n, r) they give the factor-family kernels: {(n, r): (level,
+    raw-factor prep, orthonormal-core prep)}, the last level of each
+    shape."""
+    from tt_irt_tpu_torch.samplers.dirt import _prepare_level_preps
+    from tt_irt_tpu_torch.samplers.irt import _canon_grid
+    from tt_irt_tpu_torch.samplers.irt_scan import _prep, stack_padded
+
+    gs0, f0c = _canon_grid(dirt.x0, dirt.f0)
+    cs0, xs0 = stack_padded(f0c, gs0)
+    preps = [[_prep(cs0, xs0, "hi", hi_step=hs)]
+             + _prepare_level_preps(dirt, "hi", hs) for hs in ("dim", "odim")]
+    shapes = {}
+    for level, (raw, ortho) in enumerate(zip(*preps)):
+        shapes[(raw.cmat.shape[1], raw.bmat.shape[1])] = (level, raw, ortho)
+    return shapes
+
+
+def _odim64(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
+    """odim_step's plain version run in f64 on the same operands."""
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_ref
+
+    f = [t.double() for t in (psi, qp32, um32, qmat, hrow, xg)]
+    return odim_step_ref(*f, mode=mode)
+
+
+def _compare_factor_family(run, raw, ortho, q, tag):
+    """factor_conditional, cdf_bracket_factor and odim_step against
+    their plain versions on one prepared level of lz40n33_ck (``raw``
+    its raw-factor prep, ``ortho`` its orthonormal-core prep), and
+    condition_update at the shape the split steps give it there; the
+    record's keys start with fam_<tag>_.
+
+    Per dimension, in 'irt' and 'rt' modes, on identical inputs (the
+    plain f32 chains' phi and psi; the two bases cannot share a carry):
+      - factor_conditional: fk at most twice as far from the plain
+        version run in f64 as the plain f32 version plus 1e-6, relative
+        to the largest fk; and equal, bit for bit, to the f1 and f2 that
+        dim_step reads at its bracket;
+      - cdf_bracket_factor: brackets equal to the plain version's on
+        99.99% of rows, out9 to 1e-5 relative where they agree; and out9
+        and i0 equal to dim_step's out9 and bracket bit for bit wherever
+        um32 == 1 - qp32 in f32 (every row in 'rt' mode);
+      - odim_step: brackets and out9 as above; psi' at most four times
+        as far from the f64 run as the plain version's plus 1e-6 (the
+        rule of dim_step's phi');
+      - condition_update, on the bracket and the f64 node weights that
+        hi_step="bracket" gives it (cdf_bracket_factor, then
+        _serve_solve): phi' at most twice as far from the plain version
+        run in f64 as the plain f32 version plus 1e-6, the rule of
+        _compare_gram_level.
+    Through the level, odim_step is held to the rule of _level_checks.
+    Returns the largest |kernel - plain| per kernel."""
+    import torch
+
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                           cdf_bracket_factor_ref,
+                                           condition_update_cuda,
+                                           condition_update_ref,
+                                           factor_conditional_cuda,
+                                           factor_conditional_ref)
+    from tt_irt_tpu_torch.samplers.irt_scan import _serve_solve
+
+    rec = run.rec
+    key = f"fam_{tag}_"
+    checks, x64 = _level_checks(
+        ortho, q, {"plain": odim_step_ref, "kernel": odim_step_cuda,
+                   "f64": _odim64}, rec, key + "odim_")
+
+    d, r = raw.bmat.shape[:2]
+    n = raw.cmat.shape[1]
+    m = q.shape[0]
+    ix = torch.arange(m, device=q.device)
+    lo = {"bracket_agree": 1.0, "odim_agree": 1.0, "um_equal_share": 1.0}
+    hi = {k: 0.0 for k in (
+        "fk_kernel_rel", "fk_plain_rel", "fk_kp_abs", "fk_kp_rel",
+        "bracket_out9_rel", "bracket_kp_abs", "odim_out9_rel", "odim_kp_abs",
+        "odim_psin_kernel_vs_f64", "odim_psin_plain_vs_f64",
+        "update_phin_kernel_vs_f64", "update_phin_plain_vs_f64",
+        "update_kp_abs")}
+    bitwise = {"fk_equals_dim_step": True, "bracket_equals_dim_step": True}
+
+    def worse(name, value):
+        hi[name] = max(hi[name], float(value))
+
+    def less(name, value):
+        lo[name] = min(lo[name], float(value))
+
+    for mode, pts in (("irt", q), ("rt", x64)):
+        q64 = pts.T.contiguous()
+        qp32 = q64.to(torch.float32)
+        um32 = (1.0 - q64).to(torch.float32)
+        phi = torch.zeros((m, r), dtype=torch.float32, device=q.device)
+        phi[:, 0] = 1.0
+        psi = phi.clone()
+        for k in range(d):
+            qk, uk = qp32[k], um32[k]
+            bm, hrow, xg = raw.bmat[k], raw.hrow[k], raw.xg[k]
+            a = (phi, qk, uk, bm, raw.cmat[k], hrow, xg)
+            pr, _ = dim_step_ref(*a, mode=mode)
+            _, o1 = dim_step_cuda(*a, mode=mode)
+            i1 = torch.searchsorted(xg[0].contiguous(), o1[:, 4].contiguous())
+            assert bool((xg[0][i1] == o1[:, 4]).all())
+            # factor_conditional
+            fk = factor_conditional_cuda(phi, bm)
+            fkr = factor_conditional_ref(phi, bm)
+            fk64 = factor_conditional_ref(phi.double(), bm.double())
+            scale = float(fk64.max())
+            worse("fk_kernel_rel", (fk.double() - fk64).abs().max() / scale)
+            worse("fk_plain_rel", (fkr.double() - fk64).abs().max() / scale)
+            worse("fk_kp_abs", (fk - fkr).abs().max())
+            worse("fk_kp_rel", (fk - fkr).abs().max() / scale)
+            # rows without mass read f1 = f2 = 1 in place of fk
+            live = ~((o1[:, 2] == 1.0) & (o1[:, 3] == 1.0))
+            bitwise["fk_equals_dim_step"] &= (
+                torch.equal(fk[ix, i1][live], o1[:, 2][live])
+                and torch.equal(fk[ix, i1 + 1][live], o1[:, 3][live]))
+            # cdf_bracket_factor
+            o2, i2 = cdf_bracket_factor_cuda(phi, qk, bm, hrow, xg, mode=mode)
+            o2r, i2r = cdf_bracket_factor_ref(phi, qk, bm, hrow, xg,
+                                              mode=mode)
+            same = i2 == i2r
+            less("bracket_agree", same.double().mean())
+            worse("bracket_out9_rel", _rel(o2[same], o2r[same], 1e-30))
+            worse("bracket_kp_abs", (o2 - o2r)[same].abs().max())
+            eq = (uk == 1.0 - qk) if mode == "irt" else torch.ones_like(same)
+            less("um_equal_share", eq.double().mean())
+            bitwise["bracket_equals_dim_step"] &= (
+                torch.equal(o2[eq], o1[eq])
+                and torch.equal(i2[eq].long(), i1[eq]))
+            # condition_update, as hi_step="bracket" calls it
+            _, _, la, lb = _serve_solve(mode, o2r, q64[k])
+            cm = raw.cmat[k]
+            u3 = condition_update_cuda(phi, i2r, la.float(), lb.float(), cm)
+            u3r = condition_update_ref(phi, i2r, la.float(), lb.float(), cm)
+            u3d = condition_update_ref(phi.double(), i2r, la.float().double(),
+                                       lb.float().double(), cm.double())
+            worse("update_phin_kernel_vs_f64", (u3.double() - u3d).abs().max())
+            worse("update_phin_plain_vs_f64", (u3r.double() - u3d).abs().max())
+            worse("update_kp_abs", (u3 - u3r).abs().max())
+            # odim_step, on the orthonormal basis's own carry
+            b = (psi, qk, uk, ortho.qmat[k], ortho.hrow[k], ortho.xg[k])
+            p7, o7 = odim_step_cuda(*b, mode=mode)
+            p7r, o7r = odim_step_ref(*b, mode=mode)
+            p7d, o7d = _odim64(*b, mode=mode)
+            same = o7[:, 4] == o7r[:, 4]
+            less("odim_agree", same.double().mean())
+            worse("odim_out9_rel", _rel(o7[same], o7r[same], 1e-30))
+            worse("odim_kp_abs", max(float((o7 - o7r)[same].abs().max()),
+                                     float((p7 - p7r)[same].abs().max())))
+            all3 = same & (o7d[:, 4].float() == o7r[:, 4])
+            worse("odim_psin_kernel_vs_f64",
+                  (p7.double() - p7d)[all3].abs().max())
+            worse("odim_psin_plain_vs_f64",
+                  (p7r.double() - p7d)[all3].abs().max())
+            phi, psi = pr, p7r
+    rec.update({f"{key}per_dim_{k}": v
+                for k, v in {**lo, **hi, **bitwise}.items()})
+    checks.update(
+        fk_2x=hi["fk_kernel_rel"] <= 2.0 * hi["fk_plain_rel"] + 1e-6,
+        fk_equals_dim_step=bitwise["fk_equals_dim_step"],
+        bracket_agree=lo["bracket_agree"] >= 0.9999,
+        bracket_out9_rel=hi["bracket_out9_rel"] < 1e-5,
+        bracket_equals_dim_step=bitwise["bracket_equals_dim_step"],
+        um_equal_rows=lo["um_equal_share"] > 0.3,
+        odim_agree=lo["odim_agree"] >= 0.9999,
+        odim_out9_rel=hi["odim_out9_rel"] < 1e-5,
+        odim_psin=(hi["odim_psin_kernel_vs_f64"]
+                   <= 4.0 * hi["odim_psin_plain_vs_f64"] + 1e-6),
+        update_phin_2x=(hi["update_phin_kernel_vs_f64"]
+                        <= 2.0 * hi["update_phin_plain_vs_f64"] + 1e-6))
+    print("factor_conditional / cdf_bracket_factor / odim_step / "
+          "condition_update vs plain, %s "
+          "(n=%d, r=%d, d=%d, %d rows, 'irt' and 'rt'): %s" % (
+              tag, n, r, d, m, json.dumps(
+                  {k: v for k, v in rec.items() if k.startswith(key)})),
+          flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"factor-family kernels vs plain ({tag}) failed: {failed}"
+    return {"factor_conditional": hi["fk_kp_abs"],
+            "cdf_bracket_factor": hi["bracket_kp_abs"],
+            "odim_step": hi["odim_kp_abs"],
+            "condition_update": hi["update_kp_abs"]}
+
+
+def _bracket_right_tail(run, raw, tag):
+    """What cdf_bracket_factor's f32 right-tail target (1 - qp32) * tot
+    costs (a report, no gate): 2^14 rows through one level with one
+    coordinate a row set to 1 - 10^-u, u uniform in [7.5, 12] (so that
+    f32(seed) is 1 on most of them), through hi_step "bracket" and "dim"
+    on the card, each against the plain dim_step chain run in f64."""
+    import torch
+
+    from tt_irt_tpu_torch.samplers.irt_scan import _fwd
+
+    d = raw.bmat.shape[0]
+    rows = 1 << 14
+    qt = run.rng.uniform(size=(rows, d))
+    col = run.rng.integers(d, size=rows)
+    qt[range(rows), col] = 1.0 - 10.0 ** -run.rng.uniform(7.5, 12.0, rows)
+    qt = torch.from_numpy(qt).to(run.dev)
+    col = torch.from_numpy(col).to(run.dev)
+    x64, l64 = _fwd("sqr", raw, qt, step=_plain64)
+    out = {"rows": rows, "seeds_rounding_to_one": float(
+        (qt.float() == 1.0).any(1).double().mean())}
+    for name, prep in (("bracket", raw._replace(step="bracket")),
+                       ("dim", raw)):
+        x, lf = _fwd("sqr", prep, qt)
+        ex = (x - x64).abs().gather(1, col[:, None])[:, 0]
+        out[f"{name}_x_tail_coordinate_max"] = float(ex.max())
+        out[f"{name}_x_tail_coordinate_p99"] = float(
+            torch.quantile(ex.cpu(), 0.99))
+        out[f"{name}_x_all_max"] = float((x - x64).abs().max())
+        out[f"{name}_lf_max"] = float((lf - l64).abs().max())
+    run.rec[f"fam_{tag}_right_tail"] = out
+    print(f"cdf_bracket_factor's f32 right-tail target, {tag} (no gate): "
+          f"{json.dumps(out)}", flush=True)
+
+
+def _f64_errs(z, lw, lz40):
+    """max and 99th percentile of a serve's distance from the 'f64' serve
+    on the first ``lz40.rows`` rows: samples (row maximum) and
+    log-weight."""
+    n = lz40.rows
+    ex = _errs(z[:n].double(), lz40.z64)
+    el = _errs(lw[:n], lz40.lw64)
+    return {"x_max": ex[0], "x_p99": ex[1], "lw_max": el[0], "lw_p99": el[1]}
+
+
+def _path_c(run):
+    """Phase 10: serve lz40n33_ck at 'hi' through hi_step="odim".
+    Returns the odim_step launches of one call."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m, seed = run.rec, run.card, run.dev, run.m, run.seed
+    lz = run.lz40
+    dirt, lp, seeds = lz.dirt, lz.lp, lz.seeds
+    t0 = time.perf_counter()
+    sampler = tp.DirtSampler(dirt, precision="hi", hi_step="odim",
+                             device=dev)
+    torch.cuda.synchronize()
+    rec["c_prepare_s"] = time.perf_counter() - t0
+    launches = run.nblocks * (dirt.nlevels + 1) * dirt.d
+    best, (z, lfapp) = _serve_best_of_3(sampler, seeds,
+                                        {"odim_step": launches})
+    assert z.shape == (m, dirt.d)
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(lfapp).all())
+    cpu = tp.DirtSampler(tp.load_dirt(CKPT, device="cpu"), precision="hi",
+                         hi_step="odim", device="cpu")
+    zc, lc = cpu(seeds[:1024].cpu())
+    # the bars of the "dim" serve (_lz40_path)
+    _vs_cpu(rec, "c_", z[:1024], lfapp[:1024], zc, lc,
+            (1e-5, 1e-4, 1e-5, 1e-4))
+    lfex = lp(z)
+    assert bool(torch.isfinite(lfex).all())
+    ess, share, _, bad, lws = _ess_sets(
+        tp, sampler, dirt, lp, (seeds, z, lfapp, lfex), seed, m, dev)
+    assert not any(bad), bad
+    dlw = torch.cat([(a - b).abs() for a, b in zip(lws, run.lw_dim)]).cpu()
+    rec.update(
+        c_serve_best_s=best, c_samples_per_s=m / best,
+        c_launches_per_call=launches, c_n_over_ess_sets=ess,
+        c_n_over_ess_median=float(np.median(ess)),
+        c_max_weight_share_sets=share,
+        c_lw_vs_dim_p50=float(dlw.median()),
+        c_lw_vs_dim_p99=float(torch.quantile(dlw.float(), 0.99)),
+        c_lw_vs_dim_max=float(dlw.max()))
+    print(f"path C: served {m} x d={dirt.d} through {dirt.nlevels + 1} "
+          f"transforms at 'hi', hi_step=\"odim\": best {best:.4f} s "
+          f"({m / best:.1f} samples/s; prepare {rec['c_prepare_s']:.4f} s "
+          f"once; the \"dim\" serve {lz.best_dim:.4f} s), odim_step "
+          f"launches/call {launches}, dim_step 0, N/ESS of seed set {seed} "
+          f"alone {ess[0]:.4f}, per seed set {seed}..{seed + ESS_SETS - 1} "
+          f"{[round(e, 4) for e in ess]} (median "
+          f"{rec['c_n_over_ess_median']:.4f}; largest single-row weight "
+          f"share per set {[f'{w:.2e}' for w in share]}); |log-weight - "
+          f"that of the \"dim\" serve| over the six sets p50 "
+          f"{rec['c_lw_vs_dim_p50']:.3e}, p99 {rec['c_lw_vs_dim_p99']:.3e}, "
+          f"max {rec['c_lw_vs_dim_max']:.3e} ({card})", flush=True)
+    assert rec["c_n_over_ess_median"] < ESS_GATE, ess
+    rec["c_profiled_call_s"], busy, split, rec["c_trace_top_kernels_s"] = \
+        _trace_call(lambda: float(sampler(seeds)[0].sum()),
+                    ["odim_step_kernel"])
+    _print_trace(rec, "c_", "path C", best, busy, split, card)
+
+    # the two f32 bases side by side against 'f64' on the same rows
+    errs = _f64_errs(z, lfex - lfapp, lz)
+    rec.update(c_odim_vs_f64=errs, c_dim_vs_f64=lz.errs_dim)
+    print(f"lz40n33, seed set {seed}, first {lz.rows} rows against the "
+          f"'f64' serve: hi_step=\"odim\" samples max {errs['x_max']:.3e} "
+          f"p99 {errs['x_p99']:.3e}, log-weight max {errs['lw_max']:.3e} p99 "
+          f"{errs['lw_p99']:.3e}; hi_step=\"dim\" samples max "
+          f"{lz.errs_dim['x_max']:.3e} p99 {lz.errs_dim['x_p99']:.3e}, "
+          f"log-weight max {lz.errs_dim['lw_max']:.3e} p99 "
+          f"{lz.errs_dim['lw_p99']:.3e} ({card})", flush=True)
+    return launches
+
+
+def _path_d(run):
+    """Phase 11, first part: the split steps on lz40n33_ck.  Returns
+    {variant: {kernel: launches of one call}}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m = run.rec, run.card, run.dev, run.m
+    lz = run.lz40
+    dirt, lp = lz.dirt, lz.lp
+    by_path = {}
+    for tag, kw, rows, first in (
+            ("bracket", {"precision": "hi", "hi_step": "bracket"}, m,
+             "cdf_bracket_factor"),
+            ("pair", {"precision": "hi", "hi_step": "pair"}, lz.rows,
+             "factor_conditional"),
+            ("hid", {"precision": "hid"}, lz.rows, "factor_conditional")):
+        sampler = tp.DirtSampler(dirt, device=dev, **kw)
+        seeds = lz.seeds[:rows]
+        launches = -(-rows // run.mb) * (dirt.nlevels + 1) * dirt.d
+        by_path[tag] = {first: launches, "condition_update": launches}
+        float(sampler(seeds)[0].sum())                     # warm-up
+        secs, (z, lfapp) = _counted(lambda: sampler(seeds), by_path[tag])
+        assert z.shape == (rows, dirt.d)
+        assert bool(torch.isfinite(z).all())
+        assert bool(torch.isfinite(lfapp).all())
+        errs = _f64_errs(z, lp(z) - lfapp, lz)
+        dz = float((z[:lz.rows].double() - lz.z_dim.double()).abs().max())
+        rec.update({f"d_{tag}_rows": rows, f"d_{tag}_call_s": secs,
+                    f"d_{tag}_samples_per_s": rows / secs,
+                    f"d_{tag}_launches": by_path[tag],
+                    f"d_{tag}_vs_f64": errs, f"d_{tag}_x_vs_dim_max": dz})
+        print(f"path D {tag}: served {rows} x d={dirt.d} through "
+              f"{dirt.nlevels + 1} transforms with {kw}: one call "
+              f"{secs:.4f} s ({rows / secs:.1f} samples/s), launches "
+              f"{by_path[tag]}; first {lz.rows} rows against the 'f64' "
+              f"serve: samples max {errs['x_max']:.3e} p99 "
+              f"{errs['x_p99']:.3e}, log-weight max {errs['lw_max']:.3e} "
+              f"p99 {errs['lw_p99']:.3e} (the \"dim\" serve: "
+              f"{lz.errs_dim['x_max']:.3e}, {lz.errs_dim['x_p99']:.3e}, "
+              f"{lz.errs_dim['lw_max']:.3e}, {lz.errs_dim['lw_p99']:.3e}); "
+              f"samples against the \"dim\" serve max {dz:.3e} ({card})",
+              flush=True)
+        # as accurate as the "dim" serve at the 99th percentile
+        for what in ("x_p99", "lw_p99"):
+            assert errs[what] <= 3.0 * lz.errs_dim[what] + 1e-6, (tag, errs)
+        rec[f"d_{tag}_profiled_call_s"], busy, split, \
+            rec[f"d_{tag}_trace_top_kernels_s"] = _trace_call(
+                lambda: float(sampler(seeds)[0].sum()),
+                [first + "_kernel", "condition_update_kernel"])
+        _print_trace(rec, f"d_{tag}_", f"path D {tag}", secs, busy, split,
+                     card)
+        del sampler
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def _gs_ds(run, tt_b, grids_b, qb):
+    """Phase 11, second part: 'gs' and 'ds' through tt_irt_sqr on the
+    bench TT against the f64 path.  Returns {precision: launches}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec = run.rec
+    db, nb_, rb = BENCH_SHAPE
+    x64, l64 = tp.tt_irt_sqr(grids_b, tt_b, qb, precision="f64")
+    by_path = {"gs": {"gram_conditional": db, "condition_update": db},
+               "ds": {}}
+    # 'gs' carries f32 like 'f32' (the bars of path B); 'ds' carries f64
+    bars = {"gs": (5e-5, 5e-3), "ds": (1e-6, 1e-5)}
+    for name, expect in by_path.items():
+        def call():
+            return tp.tt_irt_sqr(grids_b, tt_b, qb, precision=name)
+
+        float(call()[0].sum())                             # warm-up
+        secs, (xo, lo) = _counted(call, expect)
+        assert bool(torch.isfinite(xo).all()) and bool(torch.isfinite(lo).all())
+        dx, dx99 = _errs(xo.double(), x64)
+        dl, dl99 = _errs(lo.double(), l64)
+        rec.update({f"d_{name}_call_s": secs, f"d_{name}_launches": expect,
+                    f"d_{name}_x_vs_f64_max": dx, f"d_{name}_x_vs_f64_p99": dx99,
+                    f"d_{name}_lf_vs_f64_max": dl,
+                    f"d_{name}_lf_vs_f64_p99": dl99})
+        print(f"'{name}' through tt_irt_sqr on the bench TT: {qb.shape[0]} x "
+              f"d={db} (n={nb_}, r={rb}): one call {secs:.4f} s (prepare "
+              f"included), launches {expect or 'none (plain f64)'}, vs the "
+              f"f64 path on the card: samples max {dx:.3e} p99 {dx99:.3e}, "
+              f"log-density max {dl:.3e} p99 {dl99:.3e} ({run.card})",
+              flush=True)
+        assert dx < bars[name][0] and dl < bars[name][1], (name, dx, dl)
+    return by_path
+
+
+def _factor_timings(run, ortho, kp_abs, launches):
+    """Phase 12: the three factor-family kernels at lz40n33_ck's shape
+    mid-stack, 2^18 rows: kernel, plain version, bound, and
+    torch.matmul(phi, B), a partial yardstick.  One PyTorch call computes
+    factor_conditional, the four-operand einsum "mi,ixj,mk,kxj->mx"; it
+    is timed as that kernel's library_ms (null, with the reason recorded,
+    if its intermediates do not fit the card's memory).  No single call
+    computes the other two.  ``kp_abs`` is the largest |kernel -
+    plain| per kernel from _compare_factor_family, ``launches`` maps each
+    kernel to {path: launches of one call}.  Returns their kernels
+    entries."""
+    import torch
+
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                           cdf_bracket_factor_ref,
+                                           factor_conditional_cuda,
+                                           factor_conditional_ref)
+
+    rec, card, mb = run.rec, run.card, run.mb
+    phi, qk, uk, bm, _, hrow, xg = run.lz40.kargs
+    k = run.lz40.k_mid
+    r, n = phi.shape[1], xg.shape[1]
+    q64 = run.lz40.q_last.T.contiguous()
+    psi = torch.zeros((mb, r), dtype=torch.float32, device=run.dev)
+    psi[:, 0] = 1.0
+    for j in range(k):
+        psi, _ = odim_step_ref(psi, q64[j].float(), (1.0 - q64[j]).float(),
+                               ortho.qmat[j], ortho.hrow[j], ortho.xg[j])
+    oargs = (psi, qk, uk, ortho.qmat[k], ortho.hrow[k], ortho.xg[k])
+    cond = 2 * n * r * r + 2 * n * r          # the conditional, per row
+    common = 4 * (mb * r + r * n * r)         # phi or psi, B or Q
+    grid = 4 * (mb + (n - 1) + 2 * n + 9 * mb)   # seed, spacings, grid, out9
+    cases = {
+        "factor_conditional": (
+            lambda: factor_conditional_cuda(phi, bm),
+            lambda: factor_conditional_ref(phi, bm), phi, bm,
+            _bound(mb * cond, common + 4 * mb * n)),
+        "cdf_bracket_factor": (
+            lambda: cdf_bracket_factor_cuda(phi, qk, bm, hrow, xg),
+            lambda: cdf_bracket_factor_ref(phi, qk, bm, hrow, xg), phi, bm,
+            _bound(mb * (cond + 6 * n), common + grid + 4 * mb)),
+        "odim_step": (
+            lambda: odim_step_cuda(*oargs), lambda: odim_step_ref(*oargs),
+            psi, ortho.qmat[k],
+            # the 2-point readout and the normalisation: 4r operations
+            _bound(mb * (cond + 6 * n + 4 * r),
+                   common + grid + 4 * (mb + mb * r)))}
+    sources = {"factor_conditional": ("factor_step.cu", "pallas_step.py:153"),
+               "cdf_bracket_factor": ("factor_step.cu", "pallas_step.py:386"),
+               "odim_step": ("odim_step.cu", "pallas_odim.py:230")}
+    b3 = bm.reshape(r, n, r)
+
+    def fk_einsum():
+        return torch.einsum("mi,ixj,mk,kxj->mx", phi, b3, phi, b3)
+
+    torch.cuda.empty_cache()
+    try:
+        fk_lib = fk_einsum()
+        lib_err = float((fk_lib - factor_conditional_ref(phi, bm))
+                        .abs().max() / fk_lib.max())
+        del fk_lib
+        library = {"factor_conditional": _time_ms(fk_einsum, 3)}
+        assert lib_err < 1e-5, lib_err
+        rec["factor_conditional_einsum"] = {
+            "ms": library["factor_conditional"], "rel_err_vs_plain": lib_err}
+        lib_note = (f"einsum \"mi,ixj,mk,kxj->mx\" "
+                    f"{library['factor_conditional']:.4f} ms")
+    except torch.cuda.OutOfMemoryError as exc:
+        library = {}
+        rec["factor_conditional_einsum"] = {"ms": None, "failed": str(exc)}
+        lib_note = "einsum \"mi,ixj,mk,kxj->mx\" ran out of memory"
+    torch.cuda.empty_cache()
+    entries, parts = [], []
+    for name, (kern, plain, lhs, rhs, bound) in cases.items():
+        ms = _time_ms(kern, 20)
+        plain_ms = _time_ms(plain, 5)
+        mm_ms = _time_ms(lambda: torch.matmul(lhs, rhs), 20)
+        rec[f"{name}_timing"] = {
+            "ms": ms, "plain_ms": plain_ms, "matmul_partial_ms": mm_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        parts.append(f"{name} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                     f"matmul alone {mm_ms:.4f} ms (partial), bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        by_path = launches[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "tt_irt_tpu_torch/csrc/" + sources[name][0],
+            "replaces": "tt_irt_tpu/ops/" + sources[name][1],
+            "launches": next(iter(by_path.values())),
+            "launches_by_path": by_path, "max_abs_err": kp_abs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library.get(name)})
+    print(f"at {mb} rows (lz40n33: n={n}, r={r}, dimension {k}): "
+          + "; ".join(parts) + f"; factor_conditional in one PyTorch call: "
+          f"{lib_note}; bounds against "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32 and "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s ({card})", flush=True)
+    return entries
 
 
 def main(argv=None):
@@ -1027,7 +1595,7 @@ def main(argv=None):
     run = types.SimpleNamespace(
         seed=args.seed, m=m, mb=1 << 18, nblocks=-(-m // (1 << 18)),
         dev=torch.device("cuda"), card=card,
-        rng=np.random.default_rng(args.seed),
+        rng=np.random.default_rng(args.seed), t_lap=t_start,
         rec={"card": card, "torch": torch.__version__,
              "cuda": torch.version.cuda})
     rec, dev, mb = run.rec, run.dev, run.mb
@@ -1036,7 +1604,8 @@ def main(argv=None):
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    reports = _build.build_all(["dim_step", "step", "fused_irt"])
+    reports = _build.build_all(["dim_step", "odim_step", "factor_step",
+                                "step", "fused_irt"])
     rec["build_s"] = time.perf_counter() - t0
     rec["ptxas"] = {name: [ln.strip() for ln in rep.splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -1046,10 +1615,12 @@ def main(argv=None):
     for name, lines in rec["ptxas"].items():
         for ln in lines:
             print(f"  {name}: {ln}")
+    _lap(run, "1 build")
 
     # ---- 2-4. dim_step and the lz40n33 serve at 'hi' ----
     kernels = [_lz40_path(run)]
     torch.cuda.empty_cache()
+    _lap(run, "2-4 dim_step, lz40n33 at 'hi'")
 
     # ---- 5. the Gram-step kernels and the whole-transform kernel
     #         against their plain versions, at every shape that paths A
@@ -1088,15 +1659,70 @@ def main(argv=None):
         flush=True)
     failed = [k for k, ok in checks.items() if not ok]
     assert not failed, f"fused kernel vs plain checks failed: {failed}"
+    _lap(run, "5 Gram-step and whole-transform kernels vs plain")
 
     # ---- 6-8. path A, path B, timings of the new kernels ----
     launches_a = _path_a(run, dirt_a)
     torch.cuda.empty_cache()
+    _lap(run, "6 path A")
     _path_b(run, tt_b, grids_b)
     torch.cuda.empty_cache()
+    _lap(run, "7 path B")
     kernels += _gram_timings(run, prep32, qa, qb, data_b, launches_a,
                              gram_tags)
+    del data_b, prep32, qa
+    _lap(run, "8 timings")
+
+    # ---- 9. the factor-family kernels against their plain versions, at
+    #         every shape that lz40n33_ck's transforms give them ----
+    lz = run.lz40
+    shapes_c = _lz40_shapes(lz.dirt)
+    rec["lz40_factor_kernel_shapes"] = {
+        f"n{n}_r{r}": level for (n, r), (level, _, _) in shapes_c.items()}
+    print(f"lz40n33_ck gives the factor-family kernels the shapes (n, r) "
+          f"{sorted(shapes_c)} over its {lz.dirt.nlevels + 1} transforms",
+          flush=True)
+    kp_abs = {}
+    for (n, r), (level, raw, ortho) in sorted(shapes_c.items()):
+        tag = f"lz40n33_level{level}_n{n}_r{r}"
+        for name, v in _compare_factor_family(run, raw, ortho, lz.q_last,
+                                              tag).items():
+            kp_abs[name] = max(kp_abs.get(name, 0.0), v)
+        _bracket_right_tail(run, raw, tag)
+    # the timings of phase 12 run at the shape of phase 4
+    ortho = shapes_c[(lz.kargs[6].shape[1], lz.kargs[0].shape[1])][2]
+    del shapes_c, raw
+    torch.cuda.empty_cache()
+    _lap(run, "9 factor-family kernels vs plain")
+
+    # ---- 10-12. path C, path D, timings of the factor-family kernels ----
+    launches_c = _path_c(run)
+    torch.cuda.empty_cache()
+    _lap(run, "10 path C")
+    by_d = _path_d(run)
+    by_d.update(_gs_ds(run, tt_b, grids_b, qb))
+    _lap(run, "11 path D")
+    kernels += _factor_timings(run, ortho, kp_abs, {
+        "odim_step": {"C": launches_c},
+        "cdf_bracket_factor": {
+            "D bracket": by_d["bracket"]["cdf_bracket_factor"]},
+        "factor_conditional": {
+            "D " + t: by_d[t]["factor_conditional"] for t in ("pair", "hid")}})
+    # the split steps also launch the kernels of the earlier slice;
+    # condition_update's error is the largest over their shape too
+    for entry in kernels:
+        if entry["name"] == "condition_update":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       kp_abs["condition_update"])
+        for tag, counts in by_d.items():
+            if entry["name"] in counts:
+                entry["launches_by_path"]["D " + tag] = counts[entry["name"]]
+    _lap(run, "12 timings")
+    rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start
+    print("seconds per phase: " + ", ".join(
+        f"{k}: {v:.1f}" for k, v in rec["phase_s"].items())
+        + f"; total {rec['total_s']:.1f}", flush=True)
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(rec, fh, indent=1)

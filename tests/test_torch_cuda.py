@@ -12,8 +12,13 @@ import torch
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
 from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
                                             fused_irt_sqr_ref)
-from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
+from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                       cdf_bracket_factor_ref,
+                                       condition_update_cuda,
                                        condition_update_ref,
+                                       factor_conditional_cuda,
+                                       factor_conditional_ref,
                                        gram_conditional_cuda,
                                        gram_conditional_ref)
 
@@ -325,3 +330,207 @@ def test_kernel_plan_launches_on_the_card():
         e_cpu = torch.quantile((cpu.double() - ref.cpu()).abs().reshape(
             3000, -1).amax(1), 0.99)
         assert float(e_card) <= 2.0 * float(e_cpu) + 1e-6, (e_card, e_cpu)
+
+
+FACTOR_SHAPES = [(17, 5), (17, 13), (33, 23)]
+
+
+def _card_operands(m, n, r, mode, seed):
+    ops = _operands(m=m, n=n, r=r, seed=seed)
+    if mode == "rt":
+        ops["qp32"] = np.random.default_rng(r).uniform(
+            -2.0, 2.0, ops["qp32"].shape).astype(np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in ops.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", FACTOR_SHAPES)
+def test_factor_conditional_kernel_matches_plain_on_card(n, r):
+    """fk from the kernel against the plain version run in f64 on the
+    same operands: 1e-6 of the largest fk (a sum of r squares of r-term
+    f32 sums), and no further from it than twice the plain f32 version
+    plus 1e-6 of that scale.  It equals, bit for bit, the f1 that
+    dim_step reads at its bracket."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    t = _card_operands(4096 + 7, n, r, "irt", n + r)
+    before = factor_conditional_cuda.launches
+    fk = factor_conditional_cuda(t["phi"], t["bmat"])
+    torch.cuda.synchronize()
+    assert factor_conditional_cuda.launches == before + 1
+    f64 = factor_conditional_ref(t["phi"].double(), t["bmat"].double())
+    scale = float(f64.max())
+    err_k = float((fk.double() - f64).abs().max()) / scale
+    err_p = float((factor_conditional_ref(t["phi"], t["bmat"]).double()
+                   - f64).abs().max()) / scale
+    assert err_k < 1e-6
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    _, o9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"])
+    _, i0 = cdf_bracket_factor_cuda(t["phi"], t["qp32"], t["bmat"],
+                                    t["hrow"], t["xg"])
+    rows = torch.arange(fk.shape[0], device=fk.device)
+    eq = t["um32"] == 1.0 - t["qp32"]
+    assert torch.equal(fk[rows, i0.long()][eq], o9[:, 2][eq])
+    assert torch.equal(fk[rows, i0.long() + 1][eq], o9[:, 3][eq])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["irt", "rt"])
+@pytest.mark.parametrize("n,r", FACTOR_SHAPES)
+def test_cdf_bracket_factor_kernel_matches_plain_on_card(mode, n, r):
+    """(out9, i0) from the kernel against the plain version: brackets
+    identical on at least 99.9% of rows, out9 within 1e-5 of each
+    column's scale where they agree; and, wherever um32 == 1 - qp32 in
+    f32 (every row in 'rt' mode, which reads no um32), out9 and the
+    bracket equal dim_step's bit for bit: both kernels run the same
+    device functions."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    t = _card_operands(4096 + 7, n, r, mode, n + r)
+    before = cdf_bracket_factor_cuda.launches
+    o9, i0 = cdf_bracket_factor_cuda(t["phi"], t["qp32"], t["bmat"],
+                                     t["hrow"], t["xg"], mode=mode)
+    torch.cuda.synchronize()
+    assert cdf_bracket_factor_cuda.launches == before + 1
+    assert i0.dtype == torch.int32
+    orf, irf = cdf_bracket_factor_ref(t["phi"], t["qp32"], t["bmat"],
+                                      t["hrow"], t["xg"], mode=mode)
+    same = i0 == irf
+    assert float(same.double().mean()) >= 0.999
+    scale = orf.abs().amax(0) + 1e-30
+    assert float(((o9 - orf).abs() / scale)[same].max()) < 1e-5
+    assert torch.equal(o9[:, 4], t["xg"][0][i0.long()])
+    _, d9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"], mode=mode)
+    eq = (t["um32"] == 1.0 - t["qp32"]) if mode == "irt" \
+        else torch.ones_like(same)
+    assert float(eq.double().mean()) > 0.3
+    assert torch.equal(o9[eq], d9[eq])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["irt", "rt"])
+@pytest.mark.parametrize("n,r", FACTOR_SHAPES)
+def test_odim_step_kernel_matches_plain_on_card(mode, n, r):
+    """The orthonormal-core kernel against its plain version: brackets
+    identical on at least 99.9% of rows, out9 within 1e-5 of each
+    column's scale where they agree, psi' as close to the plain version
+    run in f64 as the plain f32 version is (twice its error plus 1e-6;
+    see the dim_step test for why not 1e-5 between the two).  On the
+    same (psi, Q) operands its out9 equals dim_step's bit for bit: the
+    two differ only in the prefix update."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    t = _card_operands(4096 + 7, n, r, mode, n + r)
+    args = (t["phi"], t["qp32"], t["um32"], t["bmat"], t["hrow"], t["xg"])
+    before = odim_step_cuda.launches
+    pk, ok_ = odim_step_cuda(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert odim_step_cuda.launches == before + 1
+    pr, orf = odim_step_ref(*args, mode=mode)
+    p64, o64 = odim_step_ref(*(a.double() for a in args), mode=mode)
+    same = ok_[:, 4] == orf[:, 4]
+    assert float(same.double().mean()) >= 0.999
+    scale = orf.abs().amax(0) + 1e-30
+    assert float(((ok_ - orf).abs() / scale)[same].max()) < 1e-5
+    all3 = same & (o64[:, 4].float() == orf[:, 4])
+    err_k = float((pk.double() - p64)[all3].abs().max())
+    err_p = float((pr.double() - p64)[all3].abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    assert float(pk.abs().amax(1).min()) == 1.0
+    _, d9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"], mode=mode)
+    assert torch.equal(ok_, d9)
+
+
+@pytest.mark.cuda
+def test_factor_kernels_reject_bad_operands():
+    """An f64 or CPU tensor reaching a wrapper raises, also through
+    kernel_plan (an f64 tensor on the card is not sent to the plain
+    version), and so does a shape whose staged factor exceeds the
+    card's shared memory; nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops import kernel_plan
+
+    t = _card_operands(256, 17, 5, "irt", 1)
+    phi, qp, um, bm, h, xg = (t[k] for k in ("phi", "qp32", "um32", "bmat",
+                                             "hrow", "xg"))
+    fns = (odim_step_cuda, cdf_bracket_factor_cuda, factor_conditional_cuda)
+    before = tuple(f.launches for f in fns)
+    for bad_phi, bad_bm in ((phi.double(), bm), (phi, bm.cpu()),
+                            (phi, bm.double())):
+        with pytest.raises(ValueError):
+            odim_step_cuda(bad_phi, qp, um, bad_bm, h, xg)
+        with pytest.raises(ValueError):
+            cdf_bracket_factor_cuda(bad_phi, qp, bad_bm, h, xg)
+        with pytest.raises(ValueError):
+            factor_conditional_cuda(bad_phi, bad_bm)
+    with pytest.raises(ValueError):
+        kernel_plan.odim_step(phi.double(), qp.double(), um.double(),
+                              bm.double(), h.double(), xg.double())
+    with pytest.raises(ValueError):
+        kernel_plan.factor_conditional(phi.double(), bm.double())
+    with pytest.raises(ValueError):
+        kernel_plan.cdf_bracket_factor(phi.double(), qp.double(),
+                                       bm.double(), h.double(), xg.double())
+    with pytest.raises(ValueError):
+        odim_step_cuda(phi, qp[:-1], um, bm, h, xg)
+    # n=64, r=64: 64*64*64*4 bytes of staged factor alone is 1 MiB
+    big = _card_operands(128, 64, 64, "irt", 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        odim_step_cuda(big["phi"], big["qp32"], big["um32"], big["bmat"],
+                       big["hrow"], big["xg"])
+    with pytest.raises(ValueError, match="shared memory"):
+        cdf_bracket_factor_cuda(big["phi"], big["qp32"], big["bmat"],
+                                big["hrow"], big["xg"])
+    with pytest.raises(ValueError, match="shared memory"):
+        factor_conditional_cuda(big["phi"], big["bmat"])
+    assert tuple(f.launches for f in fns) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,hi_step,counts", [
+    ("hi", "odim", (0, 1, 0, 0, 0, 0)), ("hi", "bracket", (0, 0, 1, 0, 0, 1)),
+    ("hi", "pair", (0, 0, 0, 1, 0, 1)), ("hid", "dim", (0, 0, 0, 1, 0, 1)),
+    ("gs", "dim", (0, 0, 0, 0, 1, 1)), ("ds", "dim", (0, 0, 0, 0, 0, 0))])
+def test_hi_steps_launch_their_kernels_on_the_card(precision, hi_step, counts):
+    """tt_irt_sqr on the card goes through each variant's own kernels
+    once per dimension and block (counts: dim_step, odim_step,
+    cdf_bracket_factor, factor_conditional, gram_conditional,
+    condition_update; 'ds' is plain f64 and launches none), and is as
+    accurate against 'f64' as the same path through the plain versions
+    on the CPU (twice its error plus 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(0)
+    d, n, r = 5, 17, 4
+    x = np.linspace(-2.0, 2.0, n)
+    cores = [np.exp(-(x[None, :, None] - 0.3) ** 2
+                    / rng.uniform(0.1, 0.5, (1 if k == 0 else r, 1,
+                                             1 if k == d - 1 else r)))
+             for k in range(d)]
+    tt = tp.TT([torch.from_numpy(np.ascontiguousarray(c)) for c in cores])
+    grids = [torch.from_numpy(x)] * d
+    q = torch.from_numpy(rng.uniform(size=(3000, d)))
+    fns = (dim_step_cuda, odim_step_cuda, cdf_bracket_factor_cuda,
+           factor_conditional_cuda, gram_conditional_cuda,
+           condition_update_cuda)
+    x64, l64 = tp.tt_irt_sqr(grids, tt, q, precision="f64")
+    before = tuple(f.launches for f in fns)
+    xo, lo = tp.tt_irt_sqr(grids, tt, q, precision=precision, block=1024,
+                           hi_step=hi_step)
+    torch.cuda.synchronize()
+    got = tuple(f.launches - b for f, b in zip(fns, before))
+    assert got == tuple(3 * d * c for c in counts), got
+    assert xo.is_cuda and xo.dtype == torch.float64
+    xc, lc = tp.tt_irt_sqr(grids, tt, q, precision=precision, block=1024,
+                           hi_step=hi_step, device="cpu")
+    for card, cpu, ref in ((xo, xc, x64), (lo, lc, l64)):
+        e_card = float((card - ref).abs().max())
+        e_cpu = float((cpu - ref.cpu()).abs().max())
+        assert e_card <= 2.0 * e_cpu + 1e-6, (e_card, e_cpu)

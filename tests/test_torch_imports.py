@@ -11,7 +11,10 @@ import torch
 import tt_irt_tpu_torch as tp
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda
 from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_cuda
-from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda
+from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                       condition_update_cuda,
+                                       factor_conditional_cuda,
                                        gram_conditional_cuda)
 from tt_irt_tpu_torch.utils.device import resolve_device
 
@@ -32,7 +35,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for need in ('ops.step', 'ops.fused_irt', 'ops.rowmath',"
-        " 'ops.kernel_plan', 'samplers.irt_scan', 'samplers.irt'):\n"
+        " 'ops.odim_step', 'ops.kernel_plan', 'samplers.irt_scan',"
+        " 'samplers.irt'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
@@ -93,6 +97,25 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     assert x.shape == (8, 2) and bool(torch.isfinite(lf).all())
 
 
+@pytest.mark.parametrize("precision,hi_step", [
+    ("hi", "odim"), ("hi", "bracket"), ("hi", "pair"), ("hid", "dim"),
+    ("gs", "dim"), ("ds", "dim")])
+def test_new_variants_default_to_the_card(precision, hi_step, monkeypatch):
+    """Every hi_step and every precision of the factor family runs on the
+    card by default, through tt_irt_sqr and DirtSampler alike: without a
+    card it raises (no CPU fallback), device='cpu' runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tt, grids, q = _small_tt()
+    with pytest.raises(RuntimeError, match="not available"):
+        tp.tt_irt_sqr(grids, tt, q, precision=precision, hi_step=hi_step)
+    x, lf = tp.tt_irt_sqr(grids, tt, q, precision=precision,
+                          hi_step=hi_step, device="cpu")
+    assert x.shape == (8, 2) and bool(torch.isfinite(lf).all())
+    stack = tp.load_dirt(os.path.join(DATA, "lz10_ck"), device="cpu")
+    with pytest.raises(RuntimeError, match="not available"):
+        tp.DirtSampler(stack, precision=precision, hi_step=hi_step)
+
+
 def test_cuda_request_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="not available"):
@@ -106,15 +129,18 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
 
 
 def test_cpu_serve_launches_no_kernel():
-    """On the CPU the serve path runs the plain version: the kernel's
-    launch counter stays 0."""
+    """On the CPU every serve path (each precision family and each
+    hi_step) runs the plain versions: the launch counters stay 0."""
     stack = tp.load_dirt(os.path.join(DATA, "lz10_ck"), device="cpu")
     g = torch.Generator().manual_seed(0)
     q = tp.randref(stack.reference, g, (64, stack.d))
-    for precision in ("hi", "f32"):
-        z, lf = tp.DirtSampler(stack, precision=precision, device="cpu")(q)
+    for precision, hi_step in (("hi", "dim"), ("f32", "dim"), ("hi", "odim"),
+                               ("hi", "bracket"), ("hi", "pair"),
+                               ("hid", "dim"), ("gs", "dim"), ("ds", "dim")):
+        z, lf = tp.DirtSampler(stack, precision=precision, device="cpu",
+                               hi_step=hi_step)(q)
         assert z.shape == (64, stack.d) and bool(torch.isfinite(lf).all())
-    assert dim_step_cuda.launches == 0
-    assert gram_conditional_cuda.launches == 0
-    assert condition_update_cuda.launches == 0
-    assert fused_irt_sqr_cuda.launches == 0
+    for fn in (dim_step_cuda, odim_step_cuda, cdf_bracket_factor_cuda,
+               factor_conditional_cuda, gram_conditional_cuda,
+               condition_update_cuda, fused_irt_sqr_cuda):
+        assert fn.launches == 0, fn.__name__

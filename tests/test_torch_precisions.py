@@ -1,6 +1,6 @@
 """tt_irt_sqr / tt_rt_sqr / IrtSampler of the port at the Gram-family
-precisions ('f64', 'f32', 'mixed') against the JAX package and the numpy
-oracle, on the stress TT of tests/test_precision.py (narrow off-centre
+precisions ('f64', 'f32', 'mixed') and at 'hid', 'gs', 'ds' against the
+JAX package and the numpy oracle, on the stress TT of tests/test_precision.py (narrow off-centre
 conditionals, tail-heavy seeds), rebuilt here with numpy."""
 
 import jax.numpy as jnp
@@ -111,8 +111,39 @@ def test_reduced_precisions_meet_jax_bars(stress40, precision, xtol, ltol,
     assert dx < 1.5 * jx + 1e-7 and dl < 1.5 * jl + 1e-7
 
 
+@pytest.mark.parametrize("precision", ["hid", "gs", "ds"])
+def test_factor_family_precisions_meet_jax_bars(stress40, precision):
+    """'hid' (factor_conditional, the CDF in native f64, then
+    condition_update), 'gs' (Gram conditional on f64-prepared fields, f32
+    CDF rows, batched f64 epilogue) and 'ds' (factor form with an f64
+    carry) on the tail-heavy seeds: 1e-5 / 1e-4 against the f64 path, the
+    bars of tests/test_precision.py, and against the JAX run of the same
+    name.  The JAX package carries 'hid' rows and 'ds' operands as
+    double-single f32 pairs; the port uses native f64 there, so the port
+    must be no further from f64 than 1.5x the JAX package plus 1e-7."""
+    jtt, jg, ttt, tg, seeds, f64 = stress40
+    q = seeds["tail"]
+    xr, lr = f64["tail"]
+    xt, lt = tp.tt_irt_sqr(tg, ttt, torch.from_numpy(q),
+                           precision=precision, device="cpu")
+    assert xt.dtype == torch.float64 and lt.dtype == torch.float64
+    xj, lj = ti.tt_irt_sqr(jg, jtt, jnp.asarray(q), precision=precision)
+    xt, lt = xt.numpy(), lt.numpy()
+    dx, dl = np.max(np.abs(xt - xr)), np.max(np.abs(lt - lr))
+    jx = np.max(np.abs(np.asarray(xj) - xr))
+    jl = np.max(np.abs(np.asarray(lj) - lr))
+    px = np.max(np.abs(xt - np.asarray(xj)))
+    pl = np.max(np.abs(lt - np.asarray(lj)))
+    print(f"{precision}: port vs f64 {dx:.3g}/{dl:.3g}, JAX vs f64 "
+          f"{jx:.3g}/{jl:.3g}, port vs JAX {px:.3g}/{pl:.3g}")
+    assert dx < 1e-5 and dl < 1e-4
+    assert px < 1e-5 and pl < 1e-4
+    assert dx < 1.5 * jx + 1e-7 and dl < 1.5 * jl + 1e-7
+
+
 @pytest.mark.parametrize("precision,tol", [("f64", 1e-12), ("mixed", 1e-6),
-                                           ("f32", 1e-5)])
+                                           ("f32", 1e-5), ("hid", 1e-6),
+                                           ("gs", 1e-5), ("ds", 1e-12)])
 def test_rt_inverts_irt(stress40, precision, tol):
     """tt_rt_sqr(tt_irt_sqr(q)) == q on uniform seeds, to the working
     precision of the CDF."""
@@ -123,7 +154,8 @@ def test_rt_inverts_irt(stress40, precision, tol):
     assert float((qb.double() - q).abs().max()) < tol
 
 
-@pytest.mark.parametrize("precision", ["f64", "f32", "mixed", "hi"])
+@pytest.mark.parametrize("precision", ["f64", "f32", "mixed", "hi", "hid",
+                                       "gs", "ds"])
 @pytest.mark.parametrize("mode", ["sqr", "rt"])
 def test_irt_sampler_equals_functions(precision, mode):
     """IrtSampler (prepare once) returns exactly what tt_irt_sqr /
@@ -139,7 +171,7 @@ def test_irt_sampler_equals_functions(precision, mode):
     a = fn(tg, ttt, rows, precision=precision, device="cpu")
     b = tp.IrtSampler(tg, ttt, mode, precision=precision, device="cpu")(rows)
     c = fn(tg, ttt, rows, block=128, precision=precision, device="cpu")
-    tol = 1e-12 if precision == "f64" else 1e-5
+    tol = 1e-12 if precision in ("f64", "ds") else 1e-5
     for u, v, w in zip(a, b, c):
         assert torch.equal(u, v)
         assert u.shape == w.shape

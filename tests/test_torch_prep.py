@@ -94,8 +94,8 @@ def test_serve_solve_matches_jax_epilogues(mode, monkeypatch):
     else:
         qp = rng.uniform(0, 1, m)
         qp[:2] = [0.5, 0.5 + 2.0 ** -26]
-    ot, dt = tscan._serve_solve(mode, torch.from_numpy(out9),
-                                torch.from_numpy(qp))
+    ot, dt, _, _ = tscan._serve_solve(mode, torch.from_numpy(out9),
+                                      torch.from_numpy(qp))
     ods, _, _, _ = jscan._serve_solve(mode, jnp.asarray(out9), None,
                                       jnp.asarray(qp))
     assert np.max(np.abs(ot.numpy() - np.asarray(ods))) < 1e-8

@@ -76,15 +76,36 @@ def test_irt_sampler_blocks_and_shared_grid():
 
 
 @pytest.mark.parametrize("precision", ["hid", "ds", "gs"])
-def test_unported_precisions_raise(precision):
-    cores, x = _mk_cores(d=3, n=9, r=2)
-    ttt = tp.TT([torch.from_numpy(c) for c in cores])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.IrtSampler(torch.from_numpy(x), ttt, precision=precision,
-                      device="cpu")
+def test_factor_family_precisions_serve_lz10(precision):
+    """DirtSampler at 'hid', 'ds' and 'gs' on lz10_ck (12 tempered levels
+    plus level 0), 256 seeds, against the port's 'f64' serve: samples
+    1e-5, lfapp 1e-4."""
     stack = tp.load_dirt(os.path.join(DATA, "lz10_ck"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.DirtSampler(stack, precision=precision, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    q = tp.randref(stack.reference, g, (256, stack.d))
+    z64, l64 = tp.DirtSampler(stack, precision="f64", device="cpu")(q)
+    sampler = tp.DirtSampler(stack, precision=precision, device="cpu")
+    assert sampler.precision == precision and sampler.hi_step == "dim"
+    z, lf = sampler(q)
+    assert float((z - z64).abs().max()) < 1e-5
+    assert float((lf - l64).abs().max()) < 1e-4
+
+
+def test_resolved_serve_modes():
+    """The record of what is in force names the step, the dtypes, the
+    erf reference map and whether kernels carry the path."""
+    from tt_irt_tpu_torch.samplers.irt_scan import resolved_serve_modes
+
+    hi = resolved_serve_modes("hi", "odim", "cuda")
+    assert hi["hi_step"] == "odim" and hi["tnormal"] == "erf"
+    assert hi["contraction_dtype"] == "float32" and hi["kernels"]
+    assert hi["device"] == "cuda" and hi["epilogue"] == "f64"
+    ds = resolved_serve_modes("ds", device="cuda")
+    assert ds["hi_step"] is None and not ds["kernels"]
+    assert ds["contraction_dtype"] == "float64"
+    assert not resolved_serve_modes("hi", device="cpu")["kernels"]
+    with pytest.raises(ValueError):
+        resolved_serve_modes("f32", "pair")
 
 
 def _serve_both(name, m, seed):

@@ -5,7 +5,7 @@ The JAX package ``tt_irt_tpu`` stays the reference; this package imports
 neither it nor ``jax``.  Entry points take ``device=`` (default "cuda";
 pass "cpu" to run the plain PyTorch versions of the kernels).  Each
 kernel's wrapper and plain version (``*_cuda``, ``*_ref``) live in
-``ops.dim_step``, ``ops.step`` and ``ops.fused_irt``.
+``ops.dim_step``, ``ops.odim_step``, ``ops.step`` and ``ops.fused_irt``.
 """
 
 from .models.lorenz import LorenzProblem, lorenz_ll, lorenz_rhs
@@ -16,7 +16,7 @@ from .samplers.debias import mcmc_prune
 from .samplers.diagnostics import essinv
 from .samplers.dirt import DIRT, serve_precision
 from .samplers.irt import tt_irt_sqr, tt_rt_sqr
-from .samplers.irt_scan import irt_scan
+from .samplers.irt_scan import HI_STEPS, irt_scan, resolved_serve_modes
 from .samplers.reference import (randref, reference_sigma,
                                  tnormal_logdensity_shift,
                                  tnormal_to_uniform, uniform_to_tnormal)
@@ -25,7 +25,8 @@ from .utils.checkpoint import (dirt_from_numpy, load_dirt, save_dirt,
                                tt_from_numpy)
 
 __all__ = [
-    "TT", "DIRT", "DirtSampler", "IrtSampler", "LorenzProblem",
+    "TT", "DIRT", "DirtSampler", "HI_STEPS", "IrtSampler", "LorenzProblem",
+    "resolved_serve_modes",
     "build_fused_data", "condition_update", "dim_step", "dirt_from_numpy",
     "essinv", "fused_irt_sqr", "gram_conditional", "irt_scan", "load_dirt",
     "lorenz_ll",

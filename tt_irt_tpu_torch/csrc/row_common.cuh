@@ -1,7 +1,8 @@
-// Pieces shared by the port's row kernels (dim_step.cu, step.cu,
-// fused_irt.cu): the rank tiers, the Gram conditional and the prefix
-// update of one row, the shared-memory opt-in, and the cached launch
-// geometry of a persistent kernel.
+// Pieces shared by the port's row kernels (dim_step.cu, odim_step.cu,
+// factor_step.cu, step.cu, fused_irt.cu): the rank tiers, the factor and
+// Gram conditionals of one row, the two-sided CDF with its bracket and
+// readout, the f32 cell weight, the prefix update, the shared-memory
+// opt-in, and the cached launch geometry of a persistent kernel.
 
 #pragma once
 
@@ -23,6 +24,219 @@ constexpr size_t kSmemOptIn = 227 * 1024;
 // Rank tier of the kernel instantiated for rank r (r <= kMaxR).
 inline int rank_tier(int r) {
   return r <= 8 ? 8 : r <= 16 ? 16 : r <= 24 ? 24 : r <= 32 ? 32 : kMaxR;
+}
+
+// Run STMT with the constant TIER set to the rank tier of r.
+#define TTIRT_FOR_TIER(r, STMT)                                   \
+  switch (ttirt::rank_tier(r)) {                                  \
+    case 8: { constexpr int TIER = 8; STMT; } break;              \
+    case 16: { constexpr int TIER = 16; STMT; } break;            \
+    case 24: { constexpr int TIER = 24; STMT; } break;            \
+    case 32: { constexpr int TIER = 32; STMT; } break;            \
+    default: { constexpr int TIER = ttirt::kMaxR; STMT; } break;  \
+  }
+
+inline bool in_caps(int n, int r) {
+  return n >= 2 && n <= kMaxN && r >= 1 && r <= kMaxR;
+}
+
+// Grid of a persistent row kernel: one block per tile of kThreads rows,
+// at most `cap` blocks.
+inline int persistent_grid(int m, int cap) {
+  const int tiles = (m + kThreads - 1) / kThreads;
+  return tiles < cap ? tiles : cap;
+}
+
+// Stage a factor B (r, n*r) into shared memory transposed and
+// zero-padded to the rank tier: bs[col*RMAX + i] = B[i, col].  Reads
+// follow B's row-major order (coalesced).  The caller synchronises.
+template <int RMAX>
+__device__ __forceinline__ void stage_factor(float* bs, const float* bmat,
+                                             int n, int r) {
+  const int nr = n * r;
+  for (int idx = threadIdx.x; idx < r * nr; idx += blockDim.x) {
+    const int i = idx / nr;
+    const int col = idx - i * nr;
+    bs[col * RMAX + i] = bmat[idx];
+  }
+  for (int idx = threadIdx.x; idx < nr * (RMAX - r); idx += blockDim.x) {
+    const int col = idx / (RMAX - r);
+    const int i = r + (idx - col * (RMAX - r));
+    bs[col * RMAX + i] = 0.0f;
+  }
+}
+
+// One row's prefix into registers, zero beyond the true rank.
+template <int RMAX>
+__device__ __forceinline__ void load_row(float (&p)[RMAX], const float* phi,
+                                         size_t row, int r) {
+#pragma unroll
+  for (int i = 0; i < RMAX; ++i) p[i] = (i < r) ? phi[row * r + i] : 0.0f;
+}
+
+// v = p . B[:, col] against one staged column of RMAX entries, read as
+// float4 broadcasts.  Every caller that needs v again (the 2-point
+// readout of odim_step.cu) calls this same function, so the FMA order,
+// and with it the value, is the same bit for bit.
+template <int RMAX>
+__device__ __forceinline__ float factor_dot(const float* bcol,
+                                            const float (&p)[RMAX]) {
+  const float4* bc = reinterpret_cast<const float4*>(bcol);
+  float v = 0.0f;
+#pragma unroll
+  for (int i4 = 0; i4 < RMAX / 4; ++i4) {
+    const float4 b = bc[i4];
+    v = fmaf(p[4 * i4 + 0], b.x, v);
+    v = fmaf(p[4 * i4 + 1], b.y, v);
+    v = fmaf(p[4 * i4 + 2], b.z, v);
+    v = fmaf(p[4 * i4 + 3], b.w, v);
+  }
+  return v;
+}
+
+// The factor conditional of this thread's row into its shared column:
+// fcol[x * kThreads] = sum_j (p . B[:, x*r + j])^2 for every node x.
+template <int RMAX>
+__device__ __forceinline__ void factor_conditional_row(const float* bs,
+                                                       const float (&p)[RMAX],
+                                                       float* fcol, int n,
+                                                       int r) {
+  for (int x = 0; x < n; ++x) {
+    float f = 0.0f;
+    for (int j = 0; j < r; ++j) {
+      const float v = factor_dot<RMAX>(bs + (x * r + j) * RMAX, p);
+      f = fmaf(v, v, f);
+    }
+    fcol[x * kThreads] = f;
+  }
+}
+
+// Solve A (x-x1)^2 + f1 (x-x1) = q - c1 on [x1, x2] in the citardauq
+// form, clipped into the cell.
+__device__ __forceinline__ float invert_quadratic(float f1, float f2,
+                                                  float c1, float q,
+                                                  float x1, float x2) {
+  const float h3 = x2 - x1;
+  const float aq = 0.5f * (f2 - f1) / h3;
+  const float t = q - c1;
+  const float dq = f1 * f1 + 4.0f * aq * t;
+  const float den = f1 + sqrtf(fmaxf(dq, 0.0f));
+  const float xk = (den <= 0.0f) ? x1 : x1 + 2.0f * t / den;
+  return fminf(fmaxf(xk, x1), x2);
+}
+
+// What the two-sided CDF stage leaves of one row: the bracket, the nine
+// scalars of the f64 epilogue (the grid's low parts are read at i0 by
+// write_out9) and the f32 targets of the cell-weight solve.
+struct Bracket {
+  int i0;
+  bool right;
+  float qt, ut;              // f32 targets q * tot and um * tot
+  float c1, cr2, f1, f2, x1, x2, tot;
+};
+
+// Two-sided trapezoid CDF of the row whose conditional sits in the
+// shared column fcol (stride kThreads), count-based bracket and readout.
+// Degenerate rows (no mass) take the uniform density.  The CDF rows are
+// never stored: every pass rebuilds them by the same sequential sums,
+// and the _rn intrinsics keep those sums free of FMA contraction, so
+// the counting pass and the readout see bit-identical ck / cr values.
+// RT: the bracket is that of the point q on the grid; otherwise that of
+// the seed q, with um its complement (from the left for q <= 0.5, from
+// the right above it).
+template <bool RT>
+__device__ __forceinline__ Bracket cdf_bracket(const float* fcol,
+                                               const float* __restrict__ h,
+                                               const float* __restrict__ x32,
+                                               int n, float q, float um) {
+  auto cell = [&](float a, float b, int k) {
+    return __fmul_rn(__fmul_rn(0.5f, __fadd_rn(a, b)), h[k]);
+  };
+  float total = 0.0f;
+  for (int k = 0; k < n - 1; ++k)
+    total = __fadd_rn(total, cell(fcol[k * kThreads],
+                                  fcol[(k + 1) * kThreads], k));
+  const bool bad = total <= 0.0f;
+  auto fval = [&](int k) { return bad ? 1.0f : fcol[k * kThreads]; };
+  auto dcv = [&](int k) { return bad ? h[k] : cell(fval(k), fval(k + 1), k); };
+  Bracket b;
+  b.tot = 0.0f;                             // ck[n-1]
+  for (int k = 0; k < n - 1; ++k) b.tot = __fadd_rn(b.tot, dcv(k));
+
+  b.right = false;
+  b.qt = 0.0f;
+  b.ut = 0.0f;
+  int cnt = 0;
+  if (RT) {
+    for (int k = 0; k < n; ++k) cnt += (x32[k] < q) ? 1 : 0;
+  } else {
+    b.right = q > 0.5f;                     // the f32 seed, as the epilogue
+    b.qt = q * b.tot;
+    b.ut = um * b.tot;
+    if (b.right) {
+      float s = 0.0f;                       // cr[k], summed from the right
+      cnt = (s > b.ut) ? 1 : 0;             // cr[n-1] = 0
+      for (int k = n - 2; k >= 0; --k) {
+        s = __fadd_rn(s, dcv(k));
+        cnt += (s > b.ut) ? 1 : 0;
+      }
+    } else {
+      float c = 0.0f;                       // ck[k], summed from the left
+      for (int k = 0; k < n; ++k) {
+        cnt += (c < b.qt) ? 1 : 0;
+        if (k < n - 1) c = __fadd_rn(c, dcv(k));
+      }
+    }
+  }
+  b.i0 = min(max(cnt - 1, 0), n - 2);
+
+  // readout: the same sequential sums up to the bracket
+  b.c1 = 0.0f;
+  for (int k = 0; k < b.i0; ++k) b.c1 = __fadd_rn(b.c1, dcv(k));
+  b.cr2 = 0.0f;
+  for (int k = n - 2; k > b.i0; --k) b.cr2 = __fadd_rn(b.cr2, dcv(k));
+  b.f1 = fval(b.i0);
+  b.f2 = fval(b.i0 + 1);
+  b.x1 = x32[b.i0];
+  b.x2 = x32[b.i0 + 1];
+  return b;
+}
+
+// out9 = [c1, cr2, f1, f2, x1h, x1l, x2h, x2l, tot] of one row.
+__device__ __forceinline__ void write_out9(float* o, const Bracket& b,
+                                           const float* __restrict__ xlo) {
+  o[0] = b.c1;
+  o[1] = b.cr2;
+  o[2] = b.f1;
+  o[3] = b.f2;
+  o[4] = b.x1;
+  o[5] = xlo[b.i0];
+  o[6] = b.x2;
+  o[7] = xlo[b.i0 + 1];
+  o[8] = b.tot;
+}
+
+// f32 weight la of the left node of the bracket (for the prefix update
+// only; samples and log-density come from the f64 epilogue).  The right
+// node's weight is 1 - la, taken after the clip.
+template <bool RT>
+__device__ __forceinline__ float cell_weight(const Bracket& b, float q) {
+  float xk;
+  if (RT) {
+    xk = q;
+  } else if (b.right) {
+    xk = -invert_quadratic(b.f2, b.f1, b.cr2, b.ut, -b.x2, -b.x1);
+  } else {
+    xk = invert_quadratic(b.f1, b.f2, b.c1, b.qt, b.x1, b.x2);
+  }
+  return fminf(fmaxf((b.x2 - xk) / (b.x2 - b.x1), 0.0f), 1.0f);
+}
+
+// Dynamic shared memory of one block of a factor-form kernel: the
+// factor padded to the rank tier, plus one fk column per thread.
+inline size_t factor_smem_bytes(int n, int r) {
+  return (static_cast<size_t>(n) * r * rank_tier(r)
+          + static_cast<size_t>(n) * kThreads) * sizeof(float);
 }
 
 // Stage a Gram field P (r*r, n), P[i*r + j, x], into shared memory
@@ -78,6 +292,28 @@ __device__ __forceinline__ float gram_node(const float* pnode,
   return f;
 }
 
+// acc /= max|acc| over the true rank (floor 1e-30).
+template <int RMAX>
+__device__ __forceinline__ void normalize_row(float (&acc)[RMAX], int r) {
+  float scale = 0.0f;
+#pragma unroll
+  for (int j = 0; j < RMAX; ++j)
+    if (j < r) scale = fmaxf(scale, fabsf(acc[j]));
+  const float denom = fmaxf(scale, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < RMAX; ++j)
+    if (j < r) acc[j] = acc[j] / denom;
+}
+
+// One row's r entries back to global memory.
+template <int RMAX>
+__device__ __forceinline__ void store_row(float* out, size_t row, int r,
+                                          const float (&acc)[RMAX]) {
+#pragma unroll
+  for (int j = 0; j < RMAX; ++j)
+    if (j < r) out[row * r + j] = acc[j];
+}
+
 // acc = p (la Ca + lb Cb) / max|.| (floor 1e-30), where Ca and Cb are two
 // (r, r) row-major core slices (global or shared memory) and p holds the
 // row's prefix in its first r entries.  Entries j >= r of acc are 0.
@@ -100,14 +336,7 @@ __device__ __forceinline__ void prefix_update(const float (&p)[RMAX], float la,
       }
     }
   }
-  float scale = 0.0f;
-#pragma unroll
-  for (int j = 0; j < RMAX; ++j)
-    if (j < r) scale = fmaxf(scale, fabsf(acc[j]));
-  const float denom = fmaxf(scale, 1e-30f);
-#pragma unroll
-  for (int j = 0; j < RMAX; ++j)
-    if (j < r) acc[j] = acc[j] / denom;
+  normalize_row<RMAX>(acc, r);
 }
 
 // Allow kern (a __global__ function's address) `smem` bytes of dynamic

@@ -132,10 +132,6 @@ cudaError_t launch_update(const float* phi, const int* i0, const float* la,
   return cudaGetLastError();
 }
 
-bool in_caps(int n, int r) {
-  return n >= 2 && n <= kMaxN && r >= 1 && r <= kMaxR;
-}
-
 }  // namespace
 
 extern "C" {

@@ -4,7 +4,8 @@ Counterpart of ``tt_irt_tpu/ops/pallas_dim.py::dim_step``.
 ``dim_step_cuda`` launches the hand-written CUDA kernel
 ``csrc/dim_step.cu`` and takes CUDA tensors only; ``dim_step_ref`` is the
 same function in plain PyTorch (``irt_scan._step_factor_b`` +
-``_cdf_rows32`` of the JAX package).  Which of the two a tensor gets is
+``_cdf_rows32`` of the JAX package; the CDF part is
+``ops/rowmath.cdf_rows32``).  Which of the two a tensor gets is
 decided in one place, ``ops/kernel_plan.py``; there is no fallback from
 the kernel to the plain version on the card.
 
@@ -26,58 +27,10 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .rowmath import (SMEM_LIMIT, check_cuda_operands, cumsum_rows,
-                      full_f32_matmul, invert_quadratic)
+from .rowmath import (SMEM_LIMIT, cdf_rows32, check_cuda_operands,
+                      check_factor_caps, full_f32_matmul)
 
 __all__ = ["dim_step_cuda", "dim_step_ref", "SMEM_LIMIT"]
-
-
-def _cdf_rows32(mode, fk, x32, xlo, h32, qp32, um32):
-    """f32 trapezoid CDF from both sides, count-based bracket, readout
-    and the f32 weight of the sample in its cell.  Returns
-    (out9, i0, la)."""
-    m, n = fk.shape
-    dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h32
-    bad = torch.sum(dc, dim=1, keepdim=True) <= 0.0
-    dc = torch.where(bad, h32.expand_as(dc), dc)
-    fk = torch.where(bad, torch.ones_like(fk), fk)
-    zero = torch.zeros((m, 1), dtype=fk.dtype, device=fk.device)
-    ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
-    cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
-                    zero], dim=1)
-    tot = ck[:, -1]
-    if mode == "rt":
-        i0 = torch.sum(x32[None, :] < qp32[:, None], dim=1) - 1
-        right = torch.zeros_like(qp32, dtype=torch.bool)
-        qt = ut = torch.zeros_like(qp32)
-    else:
-        right = qp32 > 0.5
-        qt = qp32 * tot
-        ut = um32 * tot
-        i0l = torch.sum(ck < qt[:, None], dim=1) - 1
-        i0r = torch.sum(cr > ut[:, None], dim=1) - 1
-        i0 = torch.where(right, i0r, i0l)
-    i0 = torch.clamp(i0, 0, n - 2)
-    i1 = i0 + 1
-
-    def read(rows, idx):
-        return torch.gather(rows, 1, idx[:, None])[:, 0]
-
-    c1 = read(ck, i0)
-    cr2 = read(cr, i1)
-    f1 = read(fk, i0)
-    f2 = read(fk, i1)
-    x1, x2 = x32[i0], x32[i1]
-    out9 = torch.stack([c1, cr2, f1, f2, x1, xlo[i0], x2, xlo[i1], tot],
-                       dim=1)
-    if mode == "rt":
-        xk = qp32
-    else:
-        xl_ = invert_quadratic(f1, f2, c1, qt, x1, x2)
-        xr_ = -invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
-        xk = torch.where(right, xr_, xl_)
-    la = torch.clamp((x2 - xk) / (x2 - x1), 0.0, 1.0)
-    return out9, i0, la
 
 
 def dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
@@ -87,7 +40,7 @@ def dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     with full_f32_matmul():
         v = torch.matmul(phi, bmat).reshape(m, n, r)
     fk = torch.sum(v * v, dim=2)
-    out9, i0, la = _cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
+    out9, i0, la = cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
     b = (la[:, None] * cmat[i0] + (1.0 - la)[:, None] * cmat[i0 + 1])
     with full_f32_matmul():
         phin = torch.bmm(phi[:, None, :], b.reshape(m, r, r))[:, 0, :]
@@ -126,14 +79,8 @@ def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
         "cmat": (cmat, f32, (n, r * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
     lib = _lib()
-    if not (2 <= n <= lib.dim_step_max_n() and 1 <= r <= lib.dim_step_max_r()):
-        raise ValueError(f"dim_step_cuda: n={n}, r={r} outside the kernel's caps "
-                         f"n<={lib.dim_step_max_n()}, "
-                         f"r<={lib.dim_step_max_r()}")
-    smem = lib.dim_step_smem_bytes(n, r)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"dim_step_cuda: n={n}, r={r} needs {smem} bytes of "
-                         f"shared memory (limit {SMEM_LIMIT})")
+    check_factor_caps("dim_step_cuda", n, r, lib.dim_step_max_n(),
+                      lib.dim_step_max_r(), lib.dim_step_smem_bytes(n, r))
     phin = torch.empty((m, r), dtype=torch.float32, device=phi.device)
     out9 = torch.empty((m, 9), dtype=torch.float32, device=phi.device)
     with torch.cuda.device(phi.device):

@@ -8,8 +8,9 @@ hand-written kernel, which launches or raises (on an f64 tensor too);
 CPU tensors go to its plain PyTorch version.  The kernels are f32 (as
 the TPU kernels are), so the 'f64' precision, the oracle of the others,
 has none: ``gram_step`` hands the Gram forward pass the plain pair for
-an f64 contraction, chosen by the precision of the prepared operands
-and not by whatever dtype a tensor arrives in.  There is no switch that
+an f64 contraction, and ``factor_step`` does the same for the f64 carry
+of 'ds', chosen by the precision of the prepared operands and not by
+whatever dtype a tensor arrives in.  There is no switch that
 turns a kernel off on the card, and no other module chooses between a
 kernel and its plain version.
 """
@@ -20,11 +21,15 @@ import torch
 
 from .dim_step import dim_step_cuda, dim_step_ref
 from .fused_irt import fused_irt_sqr_cuda, fused_irt_sqr_ref
-from .step import (condition_update_cuda, condition_update_ref,
+from .odim_step import odim_step_cuda, odim_step_ref
+from .step import (cdf_bracket_factor_cuda, cdf_bracket_factor_ref,
+                   condition_update_cuda, condition_update_ref,
+                   factor_conditional_cuda, factor_conditional_ref,
                    gram_conditional_cuda, gram_conditional_ref)
 
-__all__ = ["dim_step", "gram_conditional", "condition_update",
-           "gram_step", "fused_irt_rows"]
+__all__ = ["dim_step", "odim_step", "cdf_bracket_factor",
+           "factor_conditional", "gram_conditional", "condition_update",
+           "gram_step", "factor_step", "fused_irt_rows"]
 
 
 def dim_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
@@ -34,6 +39,34 @@ def dim_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     if phi.device.type == "cpu":
         return dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode)
     return dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode)
+
+
+def odim_step(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
+    """One 'hi' dimension step on orthonormal cores (operands and
+    outputs as in ops/odim_step.py): the CUDA kernel on CUDA tensors,
+    which launches or raises; the plain version on CPU tensors."""
+    if psi.device.type == "cpu":
+        return odim_step_ref(psi, qp32, um32, qmat, hrow, xg, mode)
+    return odim_step_cuda(psi, qp32, um32, qmat, hrow, xg, mode)
+
+
+def cdf_bracket_factor(phi, qp32, bmat, hrow, xg, mode="irt"):
+    """Conditional, CDF, bracket and readout of one factor-form
+    dimension, (out9, i0) (ops/step.py): the CUDA kernel on CUDA
+    tensors, which launches or raises; the plain version on CPU
+    tensors."""
+    if phi.device.type == "cpu":
+        return cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode)
+    return cdf_bracket_factor_cuda(phi, qp32, bmat, hrow, xg, mode)
+
+
+def factor_conditional(phi, bmat):
+    """fk[m, x] = ||phi[m] B_x||^2 (ops/step.py): the CUDA kernel on
+    CUDA tensors, which launches or raises; the plain version on CPU
+    tensors."""
+    if phi.device.type == "cpu":
+        return factor_conditional_ref(phi, bmat)
+    return factor_conditional_cuda(phi, bmat)
 
 
 def gram_conditional(phi, pmat):
@@ -62,6 +95,17 @@ def gram_step(contraction_dtype):
     if contraction_dtype == torch.float64:
         return gram_conditional_ref, condition_update_ref
     return gram_conditional, condition_update
+
+
+def factor_step(contraction_dtype):
+    """The (factor_conditional, condition_update) pair of a split
+    factor-form forward pass whose prepared operands have
+    ``contraction_dtype``: the plain versions at f64 (precision 'ds',
+    whose carry is f64 and which has no kernel); the device's choice
+    above at f32 ('hi' at hi_step="pair", 'hid')."""
+    if contraction_dtype == torch.float64:
+        return factor_conditional_ref, condition_update_ref
+    return factor_conditional, condition_update
 
 
 def fused_irt_rows(q, p2, coreu, x, h):

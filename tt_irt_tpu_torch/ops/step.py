@@ -1,12 +1,16 @@
-"""The two contractions of one Gram-form IRT dimension ('f32'/'mixed').
+"""The per-dimension kernels of the split IRT steps: the two
+contractions of a Gram-form dimension ('f32'/'mixed'/'gs') and the two
+first halves of a split factor-form dimension ('hi' at
+``hi_step="pair"``/``"bracket"``, 'hid').
 
-Counterpart of ``tt_irt_tpu/ops/pallas_step.py::gram_conditional`` and
-``::condition_update``.  The ``*_cuda`` functions launch the hand-written
-kernels of ``csrc/step.cu`` and take CUDA tensors only; the ``*_ref``
-functions are the same functions in plain PyTorch (any float dtype, any
-device).  Which of the two a tensor gets is decided in
-``ops/kernel_plan.py``; there is no fallback from a kernel to its plain
-version on the card.
+Counterpart of ``tt_irt_tpu/ops/pallas_step.py``: ``gram_conditional``,
+``condition_update``, ``factor_conditional`` and ``cdf_bracket_factor``.
+The ``*_cuda`` functions launch the hand-written kernels of
+``csrc/step.cu`` (the first two) and ``csrc/factor_step.cu`` (the last
+two) and take CUDA tensors only; the ``*_ref`` functions are the same
+functions in plain PyTorch (any float dtype, any device).  Which of the
+two a tensor gets is decided in ``ops/kernel_plan.py``; there is no
+fallback from a kernel to its plain version on the card.
 
 Operands (f32 and contiguous for the kernels):
   phi (M, r)        prefix interface, max-normalised
@@ -14,9 +18,21 @@ Operands (f32 and contiguous for the kernels):
   cmat (n, r*r)     the core, cmat[x, i*r + j] = C[i, x, j]
   i0 (M,) int32     left node of each row's cell, 0 <= i0 <= n-2
   la, lb (M,)       interpolation weights of the two nodes
+  bmat (r, n*r)     the factor B = C L, unfolded
+  qp32 (M,)         the f32 seed (the point, in 'rt' mode)
+  hrow (n-1,)       grid spacings x[1:] - x[:-1]
+  xg (2, n)         the grid as an f32 pair: x = xg[0] + xg[1]
 ``gram_conditional``: fk[m, x] = phi[m] P_x phi[m]^T, (M, n).
 ``condition_update``: phi'[m] = phi[m] (la[m] C[i0[m]] + lb[m] C[i0[m]+1])
 divided by its largest absolute entry (floored at 1e-30), (M, r).
+``factor_conditional``: fk[m, x] = ||phi[m] B_x||^2, (M, n).
+``cdf_bracket_factor``: that conditional, the f32 trapezoid CDF from both
+sides, the count-based bracket and its readout: out9 (M, 9) =
+[c1, cr2, f1, f2, x1h, x1l, x2h, x2l, tot] and i0 (M,) int32.  Like the
+TPU kernel it takes no f32(1 - seed): the right-tail target is
+(1 - qp32) * tot formed in f32, which is 0 for a seed within 2^-25 of 1
+(``dim_step`` and ``odim_step`` take ``um32`` for that reason); the f64
+epilogue that follows uses (1 - q) * tot in f64.
 """
 
 from __future__ import annotations
@@ -26,10 +42,13 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .rowmath import SMEM_LIMIT, check_cuda_operands, full_f32_matmul
+from .rowmath import (cdf_rows32, check_cuda_operands, check_factor_caps,
+                      full_f32_matmul)
 
 __all__ = ["gram_conditional_cuda", "gram_conditional_ref",
-           "condition_update_cuda", "condition_update_ref"]
+           "condition_update_cuda", "condition_update_ref",
+           "factor_conditional_cuda", "factor_conditional_ref",
+           "cdf_bracket_factor_cuda", "cdf_bracket_factor_ref"]
 
 
 def gram_conditional_ref(phi, pmat):
@@ -68,12 +87,6 @@ def _lib():
     return lib
 
 
-def _check_caps(fn, lib, n, r):
-    if not (2 <= n <= lib.step_max_n() and 1 <= r <= lib.step_max_r()):
-        raise ValueError(f"{fn}: n={n}, r={r} outside the kernel's caps "
-                         f"n<={lib.step_max_n()}, r<={lib.step_max_r()}")
-
-
 def gram_conditional_cuda(phi, pmat):
     """fk through the CUDA kernel; raises on anything but f32 CUDA
     tensors of the documented shapes.
@@ -87,11 +100,8 @@ def gram_conditional_cuda(phi, pmat):
     check_cuda_operands(fn, phi.device, {"phi": (phi, f32, (m, r)),
                                          "pmat": (pmat, f32, (r * r, n))})
     lib = _lib()
-    _check_caps(fn, lib, n, r)
-    smem = lib.gram_conditional_smem_bytes(n, r)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{fn}: n={n}, r={r} needs {smem} bytes of shared "
-                         f"memory (limit {SMEM_LIMIT})")
+    check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
+                      lib.gram_conditional_smem_bytes(n, r))
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -124,7 +134,8 @@ def condition_update_cuda(phi, i0, la, lb, cmat):
         "la": (la, f32, (m,)), "lb": (lb, f32, (m,)),
         "cmat": (cmat, f32, (n, r * r))})
     lib = _lib()
-    _check_caps(fn, lib, n, r)
+    # the kernel stages nothing: it reads the two core slices from cmat
+    check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(), 0)
     phin = torch.empty((m, r), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -139,3 +150,108 @@ def condition_update_cuda(phi, i0, la, lb, cmat):
 
 
 condition_update_cuda.launches = 0
+
+
+def factor_conditional_ref(phi, bmat):
+    """Plain PyTorch version: v = phi B, squared and summed per node."""
+    m, r = phi.shape
+    with full_f32_matmul():
+        v = torch.matmul(phi, bmat).reshape(m, bmat.shape[1] // r, r)
+    return torch.sum(v * v, dim=2)
+
+
+def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
+    """Plain PyTorch version: the conditional, then the CDF rows of
+    ``rowmath.cdf_rows32`` with the kernel's own right-tail target."""
+    fk = factor_conditional_ref(phi, bmat)
+    out9, i0, _ = cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, 1.0 - qp32)
+    return out9, i0.to(torch.int32)
+
+
+def _factor_lib():
+    lib = load_library("factor_step")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.factor_conditional_launch.argtypes = [p, p, p, i, i, i, i, p]
+        lib.factor_conditional_launch.restype = i
+        lib.cdf_bracket_factor_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.cdf_bracket_factor_launch.restype = i
+        for f in ("factor_step_max_n", "factor_step_max_r"):
+            getattr(lib, f).restype = i
+        lib.factor_step_smem_bytes.argtypes = [i, i]
+        lib.factor_step_smem_bytes.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
+def _check_factor_shape(fn, lib, n, r):
+    check_factor_caps(fn, n, r, lib.factor_step_max_n(),
+                      lib.factor_step_max_r(),
+                      lib.factor_step_smem_bytes(n, r))
+
+
+def factor_conditional_cuda(phi, bmat):
+    """fk through the CUDA kernel; raises on anything but f32 CUDA
+    tensors of the documented shapes.
+    ``factor_conditional_cuda.launches`` counts kernel launches."""
+    fn = "factor_conditional_cuda"
+    if phi.ndim != 2 or bmat.ndim != 2 or bmat.shape[1] % phi.shape[1]:
+        raise ValueError(f"{fn}: phi (M, r) and bmat (r, n*r) must be "
+                         "matrices")
+    m, r = phi.shape
+    n = bmat.shape[1] // r
+    f32 = torch.float32
+    check_cuda_operands(fn, phi.device, {"phi": (phi, f32, (m, r)),
+                                         "bmat": (bmat, f32, (r, n * r))})
+    lib = _factor_lib()
+    _check_factor_shape(fn, lib, n, r)
+    fk = torch.empty((m, n), dtype=f32, device=phi.device)
+    with torch.cuda.device(phi.device):
+        stream = torch.cuda.current_stream(phi.device).cuda_stream
+        err = lib.factor_conditional_launch(
+            phi.data_ptr(), bmat.data_ptr(), fk.data_ptr(), m, n, r,
+            phi.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"factor_conditional kernel launch failed: "
+                           f"cudaError {err}")
+    factor_conditional_cuda.launches += 1
+    return fk
+
+
+factor_conditional_cuda.launches = 0
+
+
+def cdf_bracket_factor_cuda(phi, qp32, bmat, hrow, xg, mode="irt"):
+    """(out9, i0) through the CUDA kernel; raises on anything but f32
+    CUDA tensors of the documented shapes.
+    ``cdf_bracket_factor_cuda.launches`` counts kernel launches."""
+    fn = "cdf_bracket_factor_cuda"
+    if mode not in ("irt", "rt"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if phi.ndim != 2 or xg.ndim != 2:
+        raise ValueError(f"{fn}: phi and xg must be matrices")
+    m, r = phi.shape
+    n = xg.shape[1]
+    f32 = torch.float32
+    check_cuda_operands(fn, phi.device, {
+        "phi": (phi, f32, (m, r)), "qp32": (qp32, f32, (m,)),
+        "bmat": (bmat, f32, (r, n * r)), "hrow": (hrow, f32, (n - 1,)),
+        "xg": (xg, f32, (2, n))})
+    lib = _factor_lib()
+    _check_factor_shape(fn, lib, n, r)
+    out9 = torch.empty((m, 9), dtype=f32, device=phi.device)
+    i0 = torch.empty((m,), dtype=torch.int32, device=phi.device)
+    with torch.cuda.device(phi.device):
+        stream = torch.cuda.current_stream(phi.device).cuda_stream
+        err = lib.cdf_bracket_factor_launch(
+            phi.data_ptr(), qp32.data_ptr(), bmat.data_ptr(),
+            hrow.data_ptr(), xg.data_ptr(), out9.data_ptr(), i0.data_ptr(),
+            m, n, r, int(mode == "rt"), phi.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"cdf_bracket_factor kernel launch failed: "
+                           f"cudaError {err}")
+    cdf_bracket_factor_cuda.launches += 1
+    return out9, i0
+
+
+cdf_bracket_factor_cuda.launches = 0

@@ -93,9 +93,10 @@ def _resolve_precision(dirt: DIRT, precision):
     return "f64" if dirt.f0.dtype == torch.float64 else "f32"
 
 
-def _prepare_level_preps(dirt: DIRT, precision: str = "hi"):
+def _prepare_level_preps(dirt: DIRT, precision: str = "hi",
+                         hi_step: str = "dim"):
     """Per-level forward preparations of the spline upper levels at
-    ``precision``, batched per rank bucket.
+    ``precision`` (and, at 'hi', ``hi_step``), batched per rank bucket.
 
     Levels are zero-padded to their rank rounded up to a multiple of
     ``RAGGED_STEP`` (capped at the stack max) and prepared together per
@@ -128,7 +129,8 @@ def _prepare_level_preps(dirt: DIRT, precision: str = "hi"):
                 cs = torch.nn.functional.pad(cs, (0, rb - r, 0, 0,
                                                   0, rb - r))
             padded.append(cs)
-        preps = _prep(torch.stack(padded, dim=0), xstack, precision)
+        preps = _prep(torch.stack(padded, dim=0), xstack, precision,
+                      hi_step=hi_step)
         for pos, (j, _) in enumerate(items):
             per_level[j] = prep_level(preps, pos)
     return per_level

@@ -92,7 +92,7 @@ def _canon_grid(grid, tt: TT):
     return gs, TT(cores)
 
 
-def _dispatch(mode, grid, f, q, block, precision, device):
+def _dispatch(mode, grid, f, q, block, precision, device, hi_step):
     """Run the rank-padded scan path on ``device``; a TT it does not
     cover (non-uniform grid sizes, boundary ranks above 1, a marginal of
     the first D < d variables) raises."""
@@ -109,11 +109,12 @@ def _dispatch(mode, grid, f, q, block, precision, device):
         precision = "f64" if f.dtype == torch.float64 else "f32"
     cstack, xstack = stack_padded(f, grids)
     return irt_scan(mode, cstack, xstack, q,
-                    auto_block(q.shape[0], block), precision)
+                    auto_block(q.shape[0], block), precision, hi_step)
 
 
 def tt_irt_sqr(grid, f: TT, q, block: int | None = None,
-               precision: str | None = None, device="cuda"):
+               precision: str | None = None, device="cuda",
+               hi_step: str = "dim"):
     """SIRT: inverse Rosenblatt transform through sqrt(density) in TT.
 
     Args:
@@ -123,16 +124,20 @@ def tt_irt_sqr(grid, f: TT, q, block: int | None = None,
         they are restored by linear extrapolation).
       q: (M, d) seeds in [0, 1]^d.
       block: forward block size (default auto_block).
-      precision: 'f64', 'f32', 'mixed' or 'hi' (samplers/irt_scan.py);
-        default by the cores' dtype.
+      precision: 'f64', 'f32', 'mixed', 'hi', 'hid', 'ds' or 'gs'
+        (samplers/irt_scan.py); default by the cores' dtype.
       device: where the transform runs (default "cuda").
+      hi_step: the algorithm of the 'hi' per-dimension step: "dim",
+        "odim", "bracket" or "pair" (samplers/irt_scan.py); only legal
+        with precision 'hi'.
     Returns:
       (xq, lFapp): samples (M, d) and log approximate density (M,).
     """
-    return _dispatch("sqr", grid, f, q, block, precision, device)
+    return _dispatch("sqr", grid, f, q, block, precision, device, hi_step)
 
 
 def tt_rt_sqr(grid, f: TT, x, block: int | None = None,
-              precision: str | None = None, device="cuda"):
+              precision: str | None = None, device="cuda",
+              hi_step: str = "dim"):
     """Forward Rosenblatt transform (x -> u), inverse of tt_irt_sqr."""
-    return _dispatch("rt", grid, f, x, block, precision, device)
+    return _dispatch("rt", grid, f, x, block, precision, device, hi_step)

@@ -1,6 +1,7 @@
 """Rank-padded scan path of the IRT/RT transforms (counterpart of
-``tt_irt_tpu/samplers/irt_scan.py``): precisions 'f64', 'f32', 'mixed'
-(Gram form) and 'hi' (factor form), modes 'sqr' and 'rt'.
+``tt_irt_tpu/samplers/irt_scan.py``): every precision name of the JAX
+package ('f64', 'f32', 'mixed', 'hi', 'hid', 'ds', 'gs'), modes 'sqr' and
+'rt'.
 
 All TT ranks are zero-padded to the maximum rank so every dimension has
 the same shape (exact: every contraction is linear in the padded
@@ -17,17 +18,32 @@ entries).
   device (the kernels are f32), which makes 'f64' the oracle of the rest.
   'mixed' is f32 contractions with the CDF in native f64.
 * 'hi'.  ``_prepare_scan_factor`` carries the suffix Gram in f64 and
-  emits the factors B_k = C_k L_k; the forward pass runs one ``dim_step``
-  per dimension, collecting nine bracket scalars per row, and one batched
-  f64 epilogue (``_serve_solve``) turns them into samples and
-  log-densities.
+  emits the factors B_k = C_k L_k.  The keyword ``hi_step`` names the
+  algorithm of the per-dimension step; each value has its own kernel(s)
+  on the card and its own plain version on the CPU:
+    "dim"      one ``dim_step`` per dimension, nine bracket scalars per
+               row, one batched f64 epilogue ``_serve_solve`` (default);
+    "odim"     the same on the weighted-orthonormal cores
+               Q_k = L_k^{-1} B_k (``_prepare_scan_factor(ortho=True)``):
+               one ``odim_step`` per dimension, whose prefix update is a
+               2-point readout of the conditional matrix;
+    "bracket"  ``cdf_bracket_factor`` -> per-dimension f64
+               ``_serve_solve`` -> ``condition_update``;
+    "pair"     ``factor_conditional`` -> ``_cdf_invert_serve`` (f32 rows,
+               f64 bracket scalars) -> ``condition_update``.
+* 'hid' is "pair" with the CDF in native f64 (``_cdf_invert`` on
+  fk.double()); 'ds' is the factor form with an f64 carry, plain PyTorch
+  on either device; 'gs' is the Gram conditional on f64-prepared,
+  f32-cast fields with the f32 CDF rows of 'hi' and the batched f64
+  epilogue.
 
 Which of a kernel and its plain version runs is decided in
 ops/kernel_plan.py alone.
 
 TPU workarounds of the JAX module that are not ported: the bf16
-K-packing of the big matmuls, the double-single epilogue and CDF rows
-(``_cdf_invert_fast``), and 0/1 structure matmuls in place of cumsums and
+K-packing of the big matmuls, the double-single epilogue, CDF rows and
+carries (``_cdf_invert_fast``, ``_serve_solve_ds``, ``_step_ds``), the
+two-stream scan, and 0/1 structure matmuls in place of cumsums and
 gathers.  FP64 is native on the card, so those parts are plain f64.
 """
 
@@ -38,37 +54,42 @@ from typing import NamedTuple
 import torch
 
 from ..ops import kernel_plan
-from ..ops.rowmath import cumsum_rows, full_f32_matmul
+from ..ops.rowmath import (cdf_rows32, cdf_sums32, cumsum_rows,
+                           full_f32_matmul)
 from ..ops.rowmath import invert_quadratic as _invert_quadratic
 from ..ops.tt import TT
 from .irt import _grid_spacings, _num_blocks, _pad_rows
 
-__all__ = ["stack_padded", "can_use_scan", "FactorPrep", "GramPrep",
-           "fwd_blocked", "irt_scan"]
+__all__ = ["stack_padded", "can_use_scan", "FactorPrep", "OrthoPrep",
+           "GramPrep", "GramBPrep", "fwd_blocked", "irt_scan", "HI_STEPS",
+           "resolved_serve_modes"]
 
 # name -> (contraction dtype, CDF dtype, family), as the JAX package's
-# table; the families of 'hid', 'ds' and 'gs' are not ported yet.
+# table, except that 'ds' contracts in native f64 here (there: f32 pairs).
 _PRECISIONS = {
     "f64": (torch.float64, torch.float64, "gram"),
     "f32": (torch.float32, torch.float32, "gram"),
     "mixed": (torch.float32, torch.float64, "gram"),
     "hi": (torch.float32, torch.float64, "factor"),
     "hid": (torch.float32, torch.float64, "factor"),
-    "ds": (torch.float32, torch.float64, "ds"),
+    "ds": (torch.float64, torch.float64, "ds"),
     "gs": (torch.float32, torch.float64, "gramb"),
 }
 PRECISIONS = tuple(_PRECISIONS)
-PORTED_PRECISIONS = ("f64", "f32", "mixed", "hi")
+# The algorithms of the 'hi' per-dimension step (module docstring).
+HI_STEPS = ("dim", "odim", "bracket", "pair")
 
 
-def check_precision(precision) -> None:
-    """Raise for precision modes that the port does not run yet."""
+def check_precision(precision, hi_step: str = "dim") -> None:
+    """Raise ValueError for an unknown precision or ``hi_step``, and for
+    a non-default ``hi_step`` with a precision other than 'hi'."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
-    if precision not in PORTED_PRECISIONS:
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported to PyTorch yet; only "
-            f"{PORTED_PRECISIONS} run (see ROADMAP.md)")
+    if hi_step not in HI_STEPS:
+        raise ValueError(f"unknown hi_step {hi_step!r}: one of {HI_STEPS}")
+    if hi_step != "dim" and precision != "hi":
+        raise ValueError(f"hi_step={hi_step!r} names an algorithm of "
+                         f"precision 'hi'; got precision {precision!r}")
 
 
 def _family(precision) -> str:
@@ -174,13 +195,20 @@ def _chol_jittered(gram):
     return out
 
 
-def _prepare_scan_factor(cstack, xstack):
+def _prepare_scan_factor(cstack, xstack, ortho: bool = False):
     """Backward semi-marginalisation in factor form, f64 throughout.
 
     cstack (..., d, r, n, r) — any leading batch dims (levels) — and
     xstack (d, n).  Carries the suffix Gram G_k (renormalised by its
-    max) and emits B_k = C_k L_k with G_k = L_k L_k^T.  Returns
-    (bstack (..., d, r, n, r), hstack (d, n))."""
+    max) and emits B_k = C_k L_k with G_k = L_k L_k^T.  With
+    ``ortho=True`` it emits the weighted-right-orthonormal cores
+    Q_k = L_new^{-1} B_k instead, L_new the jittered Cholesky factor of
+    the renormalised Gram after the update, so that
+    sum_x w2[x] Q_k(x) Q_k(x)^T = I up to the jitter; the forward carry
+    is then psi_k = phi_k L_k.  Rank-padded rows of Q_k are exact zeros
+    (B's padded rows are zero and L_new is block diagonal there).  The
+    jitter tier of each Cholesky is chosen per batch entry.  Returns
+    (bstack or qstack (..., d, r, n, r), hstack (d, n))."""
     cstack = cstack.to(torch.float64)
     xstack = xstack.to(torch.float64)
     d, r = cstack.shape[-4], cstack.shape[-3]
@@ -198,15 +226,45 @@ def _prepare_scan_factor(cstack, xstack):
         gnew = 0.5 * (gnew + gnew.transpose(-1, -2))
         scale = torch.amax(torch.abs(gnew), dim=(-2, -1), keepdim=True)
         gram = gnew / torch.clamp(scale, min=1e-300)
+        if ortho:
+            n = b.shape[-2]
+            b = torch.linalg.solve_triangular(
+                _chol_jittered(gram), b.reshape(batch + (r, n * r)),
+                upper=False).reshape(batch + (r, n, r))
         out[k] = b
     return torch.stack(out, dim=-4), hstack
 
 
 class FactorPrep(NamedTuple):
-    """Per-dimension operands of the 'hi' forward pass (one TT)."""
+    """Per-dimension operands of the raw-factor forward passes (one
+    TT).  ``step`` names the forward pass: the ``hi_step`` values "dim",
+    "bracket", "pair" of 'hi', "hid", or "ds" (whose bmat and cmat are
+    f64)."""
 
-    bmat: torch.Tensor    # (d, r, n*r) f32, B_k unfolded
-    cmat: torch.Tensor    # (d, n, r*r) f32, C_k unfolded
+    bmat: torch.Tensor    # (d, r, n*r) B_k unfolded
+    cmat: torch.Tensor    # (d, n, r*r) C_k unfolded
+    xg: torch.Tensor      # (d, 2, n) f32 pair of the grids
+    hrow: torch.Tensor    # (d, n-1) f32 spacings
+    xs: torch.Tensor      # (d, n) f64 grids
+    hs: torch.Tensor      # (d, n) f64 spacings, hs[:, 0] = 0
+    step: str = "dim"
+
+
+class OrthoPrep(NamedTuple):
+    """Per-dimension operands of the orthonormal-core 'hi' forward pass
+    (``hi_step="odim"``, one TT)."""
+
+    qmat: torch.Tensor    # (d, r, n*r) f32, Q_k unfolded
+    xg: torch.Tensor      # (d, 2, n) f32 pair of the grids
+    hrow: torch.Tensor    # (d, n-1) f32 spacings
+
+
+class GramBPrep(NamedTuple):
+    """Per-dimension operands of the 'gs' forward pass (one TT): Gram
+    fields prepared in f64 and cast to f32."""
+
+    pmat: torch.Tensor    # (d, r*r, n) f32
+    cmat: torch.Tensor    # (d, n, r*r) f32
     xg: torch.Tensor      # (d, 2, n) f32 pair of the grids
     hrow: torch.Tensor    # (d, n-1) f32 spacings
 
@@ -223,30 +281,64 @@ class GramPrep(NamedTuple):
 
 
 def prep_level(prep, j: int):
-    """Level j of a prep whose fields carry a leading level axis."""
-    return type(prep)(*(t[j].contiguous() for t in prep))
+    """Level j of a prep whose tensor fields carry a leading level
+    axis."""
+    return type(prep)(*(t[j].contiguous() if torch.is_tensor(t) else t
+                        for t in prep))
 
 
-def _prep_factor(cstack, xstack) -> FactorPrep:
-    """Backward preparation for precision 'hi'."""
-    bstack, hstack = _prepare_scan_factor(cstack, xstack)
-    *lead, d, r, n, _ = bstack.shape
-    lead = tuple(lead)
-    bmat = bstack.reshape(lead + (d, r, n * r))
-    cmat = cstack.to(torch.float64).transpose(-3, -2).reshape(
-        lead + (d, n, r * r))
+def _per_level(lead, t):
+    """t repeated over the leading level axes ``lead``."""
+    return t.expand(tuple(lead) + tuple(t.shape)).contiguous()
+
+
+def _grid_pair(xstack, hstack):
+    """(xg (d, 2, n), hrow (d, n-1)): the f64 grids as f32 pairs
+    x = xg[:, 0] + xg[:, 1], and the f32 spacings."""
     xs = xstack.to(torch.float64)
     x32 = xs.to(torch.float32)
     xlo = (xs - x32.to(torch.float64)).to(torch.float32)
-    xg = torch.stack([x32, xlo], dim=1)
-    hrow = hstack.to(torch.float32)[:, 1:]
+    return torch.stack([x32, xlo], dim=1), hstack.to(torch.float32)[:, 1:]
 
-    def per_level(t):
-        return t.expand(lead + tuple(t.shape)).contiguous()
 
-    return FactorPrep(bmat.to(torch.float32).contiguous(),
-                      cmat.to(torch.float32).contiguous(),
-                      per_level(xg), per_level(hrow))
+def _unfold_cores(cstack):
+    """cmat (..., d, n, r*r) with cmat[x, i*r + j] = C[i, x, j]."""
+    *lead, d, r, n, _ = cstack.shape
+    return cstack.transpose(-3, -2).reshape(tuple(lead) + (d, n, r * r))
+
+
+def _prep_factor(cstack, xstack, step: str = "dim"):
+    """Backward preparation for the factor families: 'hi' (``step`` one
+    of HI_STEPS), 'hid' and 'ds'.  The pass runs in f64; the emitted
+    factor is cast to f32 except for "ds"."""
+    bstack, hstack = _prepare_scan_factor(cstack, xstack,
+                                          ortho=step == "odim")
+    *lead, d, r, n, _ = bstack.shape
+    lead = tuple(lead)
+    cdt = _PRECISIONS["ds" if step == "ds" else "hi"][0]
+    bmat = bstack.reshape(lead + (d, r, n * r)).to(cdt).contiguous()
+    xg, hrow = _grid_pair(xstack, hstack)
+    if step == "odim":
+        return OrthoPrep(bmat, _per_level(lead, xg), _per_level(lead, hrow))
+    cmat = _unfold_cores(cstack.to(torch.float64)).to(cdt).contiguous()
+    return FactorPrep(bmat, cmat, _per_level(lead, xg),
+                      _per_level(lead, hrow),
+                      _per_level(lead, xstack.to(torch.float64)),
+                      _per_level(lead, hstack), step)
+
+
+def _prep_gramb(cstack, xstack, stable) -> GramBPrep:
+    """Backward preparation for 'gs': the Gram pass in f64, its fields
+    and the cores cast to f32."""
+    pstack, hstack = _prepare_scan(cstack.to(torch.float64),
+                                   xstack.to(torch.float64), stable=stable)
+    *lead, d, r, _, n = pstack.shape
+    lead = tuple(lead)
+    xg, hrow = _grid_pair(xstack, hstack)
+    return GramBPrep(
+        pstack.reshape(lead + (d, r * r, n)).to(torch.float32).contiguous(),
+        _unfold_cores(cstack.to(torch.float32)).contiguous(),
+        _per_level(lead, xg), _per_level(lead, hrow))
 
 
 def _prep_gram(cstack, xstack, precision, stable) -> GramPrep:
@@ -258,24 +350,28 @@ def _prep_gram(cstack, xstack, precision, stable) -> GramPrep:
     pstack, hstack = _prepare_scan(cs, xstack.to(cdt), stable=stable)
     *lead, d, r, n, _ = cs.shape
     lead = tuple(lead)
-
-    def per_level(t):
-        return t.expand(lead + tuple(t.shape)).contiguous()
-
     return GramPrep(pstack.reshape(lead + (d, r * r, n)).contiguous(),
-                    cs.transpose(-3, -2).reshape(
-                        lead + (d, n, r * r)).contiguous(),
-                    per_level(xstack.to(pdt)), per_level(hstack.to(pdt)))
+                    _unfold_cores(cs).contiguous(),
+                    _per_level(lead, xstack.to(pdt)),
+                    _per_level(lead, hstack.to(pdt)))
 
 
-def _prep(cstack, xstack, precision: str = "hi", stable: bool = True):
+def _prep(cstack, xstack, precision: str = "hi", stable: bool = True,
+          hi_step: str = "dim"):
     """Backward preparation: everything the forward pass needs except
-    the seeds.  cstack may carry a leading level dimension; every field
-    then carries it too (``prep_level`` picks one)."""
-    check_precision(precision)
-    if _family(precision) == "gram":
+    the seeds; the type of the result (and a FactorPrep's ``step``)
+    names the forward pass.  cstack may carry a leading level dimension;
+    every tensor field then carries it too (``prep_level`` picks one)."""
+    check_precision(precision, hi_step)
+    family = _family(precision)
+    if family == "gram":
         return _prep_gram(cstack, xstack, precision, stable)
-    return _prep_factor(cstack, xstack)
+    if family == "gramb":
+        return _prep_gramb(cstack, xstack, stable)
+    if family == "ds":
+        return _prep_factor(cstack, xstack, "ds")
+    return _prep_factor(cstack, xstack,
+                        "hid" if precision == "hid" else hi_step)
 
 
 def _cdf_invert(mode, fk, xp, h, qp):
@@ -336,10 +432,66 @@ def _cdf_invert(mode, fk, xp, h, qp):
     return out, dlf, la, lb, i0
 
 
+def _cdf_invert_serve(mode, fk, xp, h32, qp):
+    """Two-sided CDF inversion with f32 rows and f64 restricted to the
+    per-row bracket scalars (the in-loop CDF of ``hi_step="pair"``).
+
+    The two-sided scheme sums the CDF from the near side, so the
+    rounding floor of a bracket value is eps_f32 times the mass on the
+    near side of the bracket.  fk (M, n) f32 unnormalised, xp (n,) f64
+    grid, h32 (n-1,) f32 spacings, qp (M,) f64 seeds (points in 'rt'
+    mode).  The bracket targets are q * tot and (1 - q) * tot formed in
+    f64 and rounded to f32.  Returns (out, dlf, la, lb, i0) with f64
+    scalars."""
+    n = fk.shape[1]
+    f64 = torch.float64
+    fk, ck, cr = cdf_sums32(fk, h32)
+    tot = ck[:, -1].to(f64)
+    if mode == "rt":
+        x32 = xp.to(torch.float32)
+        i0 = torch.sum(x32[None, :] < qp.to(torch.float32)[:, None],
+                       dim=1) - 1
+    else:
+        right = qp > 0.5
+        qt = qp * tot
+        ut = (1.0 - qp) * tot
+        i0l = torch.sum(ck < qt.to(torch.float32)[:, None], dim=1) - 1
+        i0r = torch.sum(cr > ut.to(torch.float32)[:, None], dim=1) - 1
+        i0 = torch.where(right, i0r, i0l)
+    i0 = torch.clamp(i0, 0, n - 2)
+    i1 = i0 + 1
+
+    def read64(rows, idx):
+        return torch.gather(rows, 1, idx[:, None])[:, 0].to(f64)
+
+    c1 = read64(ck, i0)
+    cr2 = read64(cr, i1)
+    f1 = read64(fk, i0)
+    f2 = read64(fk, i1)
+    x1, x2 = xp[i0], xp[i1]
+    if mode == "rt":
+        xk = qp
+        yk = x2 - xk
+        aq = 0.5 * (f2 - f1) / (x2 - x1)
+        cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
+        cr_ = tot - (f2 * yk - aq * yk * yk + cr2)
+        out = torch.where(cl_ > 0.5 * tot, cr_, cl_) / tot
+    else:
+        xl_ = _invert_quadratic(f1, f2, c1, qt, x1, x2)
+        xr_ = -_invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
+        xk = torch.where(right, xr_, xl_)
+        out = xk
+    la = (x2 - xk) / (x2 - x1)
+    lb = (xk - x1) / (x2 - x1)
+    dlf = torch.log(f1 * la + f2 * lb) - torch.log(tot)
+    return out, dlf, la, lb, i0
+
+
 def _serve_solve(mode, out9, qp):
     """f64 epilogue: the within-cell quadratic inversion (or, in 'rt'
     mode, the CDF evaluation) and the per-dim log-density from the nine
-    bracket scalars.  Returns (out, dlf), both f64."""
+    bracket scalars.  Returns (out, dlf, la, lb), all f64: la and lb are
+    the weights of the bracket's two nodes at the sample."""
     f64 = torch.float64
     c1 = out9[:, 0].to(f64)
     cr2 = out9[:, 1].to(f64)
@@ -373,33 +525,116 @@ def _serve_solve(mode, out9, qp):
     la = (x2 - xk) * inv21
     lb = (xk - x1) * inv21
     dlf = torch.log((f1 * la + f2 * lb) / tot)
-    return out, dlf
+    return out, dlf, la, lb
 
 
-def _fwd_factor(mode, prep: FactorPrep, q, step=None):
-    """'hi' forward pass over one block of rows: d dimension steps,
-    then one batched f64 epilogue.  ``step`` defaults to the device's
-    choice (ops/kernel_plan.py)."""
-    d = prep.bmat.shape[0]
-    r = prep.bmat.shape[1]
+def _fwd_serveb(mode, q, d, r, step_k):
+    """The batched-epilogue forward pass over one block of rows:
+    ``step_k(k, carry, qp32_k, um32_k) -> (carry, out9)`` runs once per
+    dimension on an f32 carry (M, r) that starts at e_0, then one
+    batched f64 epilogue turns the (d, M, 9) bracket scalars into
+    samples and log-densities."""
     mb = q.shape[0]
     q64 = q.to(torch.float64).T.contiguous()               # (d, mb)
     qp32 = q64.to(torch.float32)
     um32 = (1.0 - q64).to(torch.float32)
-    phi = torch.zeros((mb, r), dtype=torch.float32, device=q.device)
-    phi[:, 0] = 1.0
-    if step is None:
-        step = kernel_plan.dim_step
-    kmode = "rt" if mode == "rt" else "irt"
+    carry = torch.zeros((mb, r), dtype=torch.float32, device=q.device)
+    carry[:, 0] = 1.0
     outs9 = torch.empty((d, mb, 9), dtype=torch.float32, device=q.device)
     for k in range(d):
-        phi, outs9[k] = step(phi, qp32[k], um32[k], prep.bmat[k],
-                             prep.cmat[k], prep.hrow[k], prep.xg[k],
-                             mode=kmode)
-    out, dlf = _serve_solve(mode, outs9.reshape(d * mb, 9),
-                            q64.reshape(d * mb))
+        carry, outs9[k] = step_k(k, carry, qp32[k], um32[k])
+    out, dlf, _, _ = _serve_solve(mode, outs9.reshape(d * mb, 9),
+                                  q64.reshape(d * mb))
     lf = torch.sum(dlf.reshape(d, mb), dim=0)
     return out.reshape(d, mb).T, lf
+
+
+def _kmode(mode):
+    return "rt" if mode == "rt" else "irt"
+
+
+def _fwd_dim(mode, prep: FactorPrep, q, step=None):
+    """'hi' at hi_step="dim": one ``dim_step`` per dimension.  ``step``
+    defaults to the device's choice (ops/kernel_plan.py)."""
+    step = step if step is not None else kernel_plan.dim_step
+    d, r = prep.bmat.shape[:2]
+    return _fwd_serveb(mode, q, d, r, lambda k, phi, qk, uk: step(
+        phi, qk, uk, prep.bmat[k], prep.cmat[k], prep.hrow[k], prep.xg[k],
+        mode=_kmode(mode)))
+
+
+def _fwd_ortho(mode, prep: OrthoPrep, q, step=None):
+    """'hi' at hi_step="odim": one ``odim_step`` per dimension on the
+    orthonormal cores; the carry is psi_k = phi_k L_k."""
+    step = step if step is not None else kernel_plan.odim_step
+    d, r = prep.qmat.shape[:2]
+    return _fwd_serveb(mode, q, d, r, lambda k, psi, qk, uk: step(
+        psi, qk, uk, prep.qmat[k], prep.hrow[k], prep.xg[k],
+        mode=_kmode(mode)))
+
+
+def _fwd_gramb(mode, prep: GramBPrep, q, step=None):
+    """'gs': per dimension the Gram conditional clamped at 0, the f32
+    CDF rows of 'hi' in plain PyTorch, and the prefix update; then the
+    batched f64 epilogue.  ``step`` is the pair (gram_conditional,
+    condition_update)."""
+    gram, update = (step if step is not None
+                    else kernel_plan.gram_step(prep.pmat.dtype))
+    d, rr, _ = prep.pmat.shape
+
+    def step_k(k, phi, qk, uk):
+        fk = torch.clamp(gram(phi, prep.pmat[k]), min=0.0)
+        out9, i0, la = cdf_rows32(_kmode(mode), fk, prep.xg[k, 0],
+                                  prep.xg[k, 1], prep.hrow[k], qk, uk)
+        return update(phi, i0.to(torch.int32), la, 1.0 - la,
+                      prep.cmat[k]), out9
+
+    return _fwd_serveb(mode, q, d, int(round(rr ** 0.5)), step_k)
+
+
+def _fwd_split(mode, prep: FactorPrep, q, step=None):
+    """The split factor-form forward passes over one block of rows: a
+    first kernel, the CDF inversion with f64 scalars, and
+    ``condition_update``, per dimension, with the log-density carried
+    through the loop.  By ``prep.step``:
+      "bracket"  ``cdf_bracket_factor`` -> f64 ``_serve_solve``;
+      "pair"     ``factor_conditional`` -> ``_cdf_invert_serve``;
+      "hid"      ``factor_conditional`` -> ``_cdf_invert`` in f64;
+      "ds"       as "hid" on an f64 carry and f64 operands.
+    ``step`` is the pair (first kernel, condition_update) and defaults
+    to the choice of ops/kernel_plan.py."""
+    d, r = prep.bmat.shape[:2]
+    cdt = prep.bmat.dtype
+    mb = q.shape[0]
+    q64 = q.to(torch.float64).T.contiguous()               # (d, mb)
+    if step is not None:
+        first, update = step
+    elif prep.step == "bracket":
+        first, update = (kernel_plan.cdf_bracket_factor,
+                         kernel_plan.condition_update)
+    else:
+        first, update = kernel_plan.factor_step(cdt)
+    phi = torch.zeros((mb, r), dtype=cdt, device=q.device)
+    phi[:, 0] = 1.0
+    lf = torch.zeros((mb,), dtype=torch.float64, device=q.device)
+    outs = torch.empty((d, mb), dtype=torch.float64, device=q.device)
+    for k in range(d):
+        if prep.step == "bracket":
+            out9, i0 = first(phi, q64[k].to(torch.float32), prep.bmat[k],
+                             prep.hrow[k], prep.xg[k], mode=_kmode(mode))
+            outs[k], dlf, la, lb = _serve_solve(mode, out9, q64[k])
+        elif prep.step == "pair":
+            fk = first(phi, prep.bmat[k])
+            outs[k], dlf, la, lb, i0 = _cdf_invert_serve(
+                mode, fk, prep.xs[k], prep.hrow[k], q64[k])
+        else:
+            fk = first(phi, prep.bmat[k])
+            outs[k], dlf, la, lb, i0 = _cdf_invert(
+                mode, fk.to(torch.float64), prep.xs[k], prep.hs[k], q64[k])
+        lf = lf + dlf
+        phi = update(phi, i0.to(torch.int32), la.to(cdt), lb.to(cdt),
+                     prep.cmat[k])
+    return outs.T, lf
 
 
 def _fwd_gram(mode, prep: GramPrep, q, step=None):
@@ -435,13 +670,20 @@ def _fwd_gram(mode, prep: GramPrep, q, step=None):
 
 
 def _fwd(mode, prep, q, step=None):
-    """Forward pass over one block of rows for either family.  Returns
-    (samples (M, d), lf (M,)).  ``step`` replaces the kernel-plan choice
-    of the per-dimension functions; the chip smoke test passes the plain
-    versions to compare on the card."""
+    """Forward pass over one block of rows; the prep's type (and a
+    FactorPrep's ``step``) names it.  Returns (samples (M, d), lf (M,)).
+    ``step`` replaces the kernel-plan choice of the per-dimension
+    functions; the chip smoke test passes the plain versions to compare
+    on the card."""
     if isinstance(prep, GramPrep):
         return _fwd_gram(mode, prep, q, step)
-    return _fwd_factor(mode, prep, q, step)
+    if isinstance(prep, GramBPrep):
+        return _fwd_gramb(mode, prep, q, step)
+    if isinstance(prep, OrthoPrep):
+        return _fwd_ortho(mode, prep, q, step)
+    if prep.step == "dim":
+        return _fwd_dim(mode, prep, q, step)
+    return _fwd_split(mode, prep, q, step)
 
 
 def fwd_blocked(mode, prep, q, block: int):
@@ -460,17 +702,44 @@ def fwd_blocked(mode, prep, q, block: int):
     return (torch.cat(xs_parts, dim=0)[:m], torch.cat(lf_parts, dim=0)[:m])
 
 
-def _irt_scan_one(mode, cstack, xstack, q, precision="f64", stable=False):
+def _irt_scan_one(mode, cstack, xstack, q, precision="f64", stable=False,
+                  hi_step="dim"):
     """One-shot transform of a single block of rows (for tests)."""
-    return _fwd(mode, _prep(cstack, xstack, precision, stable), q)
+    return _fwd(mode, _prep(cstack, xstack, precision, stable, hi_step), q)
 
 
-def irt_scan(mode, cstack, xstack, q, block, precision="f64"):
+def irt_scan(mode, cstack, xstack, q, block, precision="f64",
+             hi_step="dim"):
     """Blocked scan transform, mode in {'sqr', 'rt'}: the backward
     preparation runs once (QR-stabilised for the Gram family), then the
-    forward pass runs block by block."""
+    forward pass runs block by block.  ``hi_step`` names the algorithm
+    of the 'hi' step (module docstring)."""
     if mode not in ("sqr", "rt"):
         raise NotImplementedError(
             f"mode {mode!r} is not ported to PyTorch yet (see ROADMAP.md)")
-    prep = _prep(cstack, xstack, precision, stable=True)
+    prep = _prep(cstack, xstack, precision, stable=True, hi_step=hi_step)
     return fwd_blocked(mode, prep, q, block)
+
+
+def resolved_serve_modes(precision: str = "hi", hi_step: str = "dim",
+                         device="cuda") -> dict:
+    """What is in force for a serve at ``precision`` / ``hi_step`` on
+    ``device``, so that a record can carry it (counterpart of the JAX
+    package's ``resolved_serve_modes``; the port has no environment
+    knobs, so everything here follows from the arguments)."""
+    check_precision(precision, hi_step)
+    cdt, pdt, family = _PRECISIONS[precision]
+    dev = torch.device(device)
+    return {
+        "precision": precision,
+        "hi_step": hi_step if precision == "hi" else None,
+        "family": family,
+        "contraction_dtype": str(cdt).replace("torch.", ""),
+        "cdf_dtype": str(pdt).replace("torch.", ""),
+        "epilogue": "f64",
+        "tnormal": "erf",
+        "kernels": (dev.type == "cuda"
+                    and precision not in ("f64", "ds")),
+        "backend": "torch",
+        "device": dev.type,
+    }

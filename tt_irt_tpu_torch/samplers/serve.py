@@ -4,8 +4,8 @@
     sampler = DirtSampler(load_dirt(path), precision="auto")
     z, lfapp = sampler(q)        # forward passes only
 
-Precisions 'f64', 'f32', 'mixed' and 'hi' on spline stacks are ported;
-'hid', 'ds' and 'gs' raise NotImplementedError.
+Every precision name runs on spline stacks; ``hi_step`` names the
+algorithm of the 'hi' per-dimension step (samplers/irt_scan.py).
 """
 
 from __future__ import annotations
@@ -36,15 +36,17 @@ class IrtSampler:
       f: TT of sqrt(PDF) on the grid.
       mode: 'sqr' (inverse Rosenblatt, seeds -> samples) or 'rt'
         (forward Rosenblatt, samples -> seeds).
-      precision: 'f64', 'f32', 'mixed' or 'hi'; None = by the cores'
-        dtype.
+      precision: 'f64', 'f32', 'mixed', 'hi', 'hid', 'ds' or 'gs'; None
+        = by the cores' dtype.
       block: forward block size (default auto_block).
       device: where the transform runs (default "cuda").
+      hi_step: "dim", "odim", "bracket" or "pair"; only legal with
+        precision 'hi'.
     """
 
     def __init__(self, grid, f, mode: str = "sqr",
                  precision: str | None = None, block: int | None = None,
-                 device="cuda"):
+                 device="cuda", hi_step: str = "dim"):
         if mode not in ("sqr", "rt", "lin"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "lin":
@@ -55,16 +57,17 @@ class IrtSampler:
         grids, fc = _canon_grid(grid, f)
         if precision is None:
             precision = "f64" if fc.dtype == torch.float64 else "f32"
-        check_precision(precision)
+        check_precision(precision, hi_step)
         if not can_use_scan(fc, grids, fc.d):
             raise NotImplementedError(
                 "only the rank-padded scan path (uniform grid sizes, "
                 "boundary ranks 1) is ported (see ROADMAP.md)")
         self.mode = mode
         self.precision = precision
+        self.hi_step = hi_step
         self.block = block
         cs, xs = stack_padded(fc, grids)
-        self._prep = _prep(cs, xs, precision)
+        self._prep = _prep(cs, xs, precision, hi_step=hi_step)
 
     def sample(self, q):
         """Transform seeds ('sqr') or samples ('rt'); returns (x, lf)."""
@@ -81,19 +84,25 @@ class DirtSampler:
     Args:
       dirt: a DIRT stack (built or loaded from a checkpoint); it is
         moved to ``device``.
-      precision: 'f64', 'f32', 'mixed', 'hi', 'auto' (serve_precision:
-        'hi' at d >= 40, 'f32' below) or None (by the cores' dtype).
+      precision: any of the seven precision names, 'auto'
+        (serve_precision: 'hi' at d >= 40, 'f32' below) or None (by the
+        cores' dtype).
       block: forward block size (default auto_block).
       device: where the stack is served (default "cuda").
+      hi_step: "dim", "odim", "bracket" or "pair"; only legal with
+        precision 'hi'.  Level 0 and the rank-bucketed upper levels are
+        all prepared with it.
     """
 
     def __init__(self, dirt: DIRT, precision: str | None = None,
-                 block: int | None = None, device="cuda"):
+                 block: int | None = None, device="cuda",
+                 hi_step: str = "dim"):
         self.device = resolve_device(device)
         if precision == "auto":
             precision = serve_precision(dirt)
         self.precision = _resolve_precision(dirt, precision)
-        check_precision(self.precision)
+        check_precision(self.precision, hi_step)
+        self.hi_step = hi_step
         if dirt.nlevels and not str(dirt.interpolation).startswith("s"):
             raise NotImplementedError(
                 "only spline DIRT stacks are ported (see ROADMAP.md)")
@@ -102,7 +111,8 @@ class DirtSampler:
         self._sigma = self.dirt.sigma
         self._upper = []
         if self.dirt.nlevels:
-            self._upper = _prepare_level_preps(self.dirt, self.precision)
+            self._upper = _prepare_level_preps(self.dirt, self.precision,
+                                               hi_step)
             if self._upper is None:
                 raise NotImplementedError(
                     "only scan-eligible level TTs are ported "
@@ -111,7 +121,8 @@ class DirtSampler:
         if not can_use_scan(f0c, gs0, f0c.d):
             raise NotImplementedError(
                 "only a scan-eligible level-0 TT is ported (see ROADMAP.md)")
-        self._prep0 = _prep(*stack_padded(f0c, gs0), self.precision)
+        self._prep0 = _prep(*stack_padded(f0c, gs0), self.precision,
+                            hi_step=hi_step)
 
     def sample(self, q, logpostfun=None):
         """Push reference seeds through levels L..1 and level 0; returns
