@@ -1,0 +1,243 @@
+"""A CPU model of the 3xTF32 arithmetic of the tensor-core factor
+conditional (tt_irt_tpu_torch/csrc/tc_conditional.cuh), held to the
+accuracy rule the card holds the kernels to: the model's fk no further
+from the f64 fk than twice the plain f32 version's error plus 1e-6 of
+the largest fk, and a whole level with the modelled conditional as
+accurate as the plain f32 chain against the f64 chain.
+
+The model, ``tc_conditional_model``, follows the kernel step by step:
+  - each f32 operand split as hi = tf32(x) (round to nearest, ties to
+    even, 10 explicit mantissa bits) and lo = x - hi, exact in f32,
+    which the tensor core reads truncated to tf32;
+  - the products of a k-step of 8 are exact in the tensor core; a step
+    adds their sum to its accumulator and truncates the result toward
+    zero to f32 (the tensor core does not round to nearest);
+  - lo.hi and hi.lo over every k-step into one accumulator, hi.hi of
+    each k-step into an accumulator of its own (starting from zero), and
+    v = ((small + P_0) + P_1) ... in f32 with rounding to nearest;
+  - fk = sum_j v_j^2 in the kernel's order: per lane fmaf over its two
+    columns of each 8-column group, then two lane-shuffle sums.
+That fk picks the bracket, sums the CDF cells and gives f1 and f2, except
+where f1 or f2 is below 2^-8 of the row's largest fk: the kernel then
+recomputes it in plain f32 (``_model_step`` takes it from the plain f32
+conditional).  Nothing here needs a card."""
+
+RECOMPUTE = 2.0 ** -8         # tc_conditional.cuh: kRecompute
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
+from tt_irt_tpu_torch.ops.rowmath import cdf_rows32, invert_quadratic
+from tt_irt_tpu_torch.ops.step import factor_conditional_ref
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "examples", "data")
+
+
+def tf32_round(x):
+    """f32 -> the nearest tf32 value (ties to even), as an f32 tensor."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def tf32_truncate(x):
+    """f32 -> tf32 by dropping the 13 low mantissa bits (toward zero)."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def split_tf32(x):
+    """(hi, lo) with hi + lo = x exactly in f32."""
+    hi = tf32_round(x)
+    return hi, x - hi
+
+
+def _to_f32_toward_zero(s):
+    y = s.float()
+    over = y.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def rank_tier(r):
+    return 8 if r <= 8 else 16 if r <= 16 else 24 if r <= 24 else \
+        32 if r <= 32 else 64
+
+
+def tc_conditional_model(phi, bmat):
+    """fk (M, n) as the tensor-core conditional computes it, from f32
+    phi (M, r) and bmat (r, n*r)."""
+    m, r = phi.shape
+    n = bmat.shape[1] // r
+    kp = -(-r // 8) * 8
+    a = torch.zeros((m, kp), dtype=torch.float32)
+    a[:, :r] = phi
+    b = torch.zeros((kp, n * r), dtype=torch.float32)
+    b[:r] = bmat
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    al, bl = tf32_truncate(al), tf32_truncate(bl)   # as the tensor core reads
+
+    def kstep(x, y, s, acc):
+        prod = x[:, 8 * s:8 * s + 8].double() @ y[8 * s:8 * s + 8].double()
+        return _to_f32_toward_zero(prod if acc is None
+                                   else acc.double() + prod)
+
+    small = None
+    for x, y in ((al, bh), (ah, bl)):
+        for s in range(kp // 8):
+            small = kstep(x, y, s, small)
+    v = small
+    for s in range(kp // 8):
+        v = v + kstep(ah, bh, s, None)
+    # the kernel's per-node column blocks, padded to the rank tier
+    tier = rank_tier(r)
+    vp = torch.zeros((m, n, tier), dtype=torch.float32)
+    vp[:, :, :r] = v.reshape(m, n, r)
+    lanes = []
+    for t in range(4):
+        acc = torch.zeros((m, n), dtype=torch.float32)
+        for c in range(tier // 8):
+            for e in range(2):
+                x = vp[:, :, 8 * c + 2 * t + e].double()
+                acc = (x * x + acc.double()).float()
+        lanes.append(acc)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def _errors(phi, bmat):
+    """(model, plain f32) max |fk - fk64| relative to the largest fk64."""
+    f64 = factor_conditional_ref(phi.double(), bmat.double())
+    scale = float(f64.max())
+    em = float((tc_conditional_model(phi, bmat).double() - f64).abs().max())
+    ep = float((factor_conditional_ref(phi, bmat).double() - f64).abs().max())
+    return em / scale, ep / scale
+
+
+@pytest.mark.parametrize("bits", [0x3F800000, 0x3F801000, 0x3F803000,
+                                  0x3F802FFF, 0xBF801001, 0x20001234])
+def test_tf32_round_is_nearest_even_at_ten_bits(bits):
+    """hi keeps 10 explicit mantissa bits, rounded to nearest with ties
+    to even (0x3F801000 is a tie that rounds down to the even 1.0,
+    0x3F803000 one that rounds up); hi + lo gives x back exactly, and the
+    tensor core's view of them within 2^-21 of x."""
+    x = torch.tensor([bits], dtype=torch.int64)
+    x = torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32).view(
+        torch.float32)
+    hi, lo = split_tf32(x)
+    assert int(hi.view(torch.int32)) & 0x1FFF == 0
+    half_ulp = 2.0 ** (np.floor(np.log2(abs(float(x)))) - 11)
+    assert abs(float(x.double() - hi.double())) <= half_ulp
+    assert float(hi.double() + lo.double()) == float(x)
+    if bits == 0x3F801000:
+        assert float(hi) == 1.0
+    if bits == 0x3F803000:
+        assert int(hi.view(torch.int32)) == 0x3F804000
+    lo_t = tf32_truncate(lo)
+    assert float((hi.double() + lo_t.double() - x.double()).abs()) \
+        <= 2.0 ** -21 * abs(float(x))
+
+
+@pytest.mark.parametrize("n,r", [(17, 5), (33, 23), (9, 40)])
+def test_model_meets_the_card_rule_on_random_operands(n, r):
+    """Random operands as the card tests make them: the modelled fk at
+    most twice as far from the f64 fk as the plain f32 version plus 1e-6
+    of the largest fk."""
+    rng = np.random.default_rng(n + r)
+    phi = rng.uniform(0.05, 1.0, (2048, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    bmat = rng.standard_normal((r, n * r)).astype(np.float32)
+    em, ep = _errors(torch.from_numpy(phi), torch.from_numpy(bmat))
+    assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+@pytest.fixture(scope="module")
+def lz40():
+    """The last level of lz40n33_ck as DirtSampler prepares it at 'hi',
+    and 2^12 rows of seeds."""
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.dirt import _prepare_level_preps
+
+    dirt = tp.load_dirt(os.path.join(DATA, "lz40n33_ck"), device="cpu")
+    prep = _prepare_level_preps(dirt, "hi")[-1]
+    q = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(1 << 12, dirt.d)))
+    return prep, q
+
+
+@pytest.mark.parametrize("k", [0, 20, 39])
+def test_model_meets_the_card_rule_on_lz40n33(lz40, k):
+    """lz40n33_ck's own factor at dimensions 0, 20 and 39 of its last
+    level, on the carry the plain f32 chain reaches there from 2^12
+    seeds."""
+    prep, q = lz40
+    r = prep.bmat.shape[1]
+    qs = q.T.contiguous()
+    phi = torch.zeros((q.shape[0], r), dtype=torch.float32)
+    phi[:, 0] = 1.0
+    for j in range(k):
+        phi, _ = dim_step_ref(phi, qs[j].float(), (1.0 - qs[j]).float(),
+                              prep.bmat[j], prep.cmat[j], prep.hrow[j],
+                              prep.xg[j])
+    em, ep = _errors(phi, prep.bmat[k])
+    assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+def _model_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
+    """dim_step_ref with the modelled conditional, and f1 or f2 (and with
+    them the cell weight) from the plain f32 conditional where the kernel
+    recomputes them."""
+    m, r = phi.shape
+    fk = tc_conditional_model(phi, bmat)
+    out9, i0, _ = cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
+    flat = torch.sum(0.5 * (fk[:, :-1] + fk[:, 1:]) * hrow, dim=1) <= 0.0
+    tiny = RECOMPUTE * fk.amax(1)
+    fkp = factor_conditional_ref(phi, bmat)
+    rows = torch.arange(m)
+    for col, at in ((2, i0), (3, i0 + 1)):
+        redo = ~flat & (out9[:, col] < tiny)
+        out9[:, col] = torch.where(redo, fkp[rows, at], out9[:, col])
+    c1, cr2, f1, f2, x1, _, x2, _, tot = out9.unbind(1)
+    if mode == "rt":
+        xk = qp32
+    else:
+        xl = invert_quadratic(f1, f2, c1, qp32 * tot, x1, x2)
+        xr = -invert_quadratic(f2, f1, cr2, um32 * tot, -x2, -x1)
+        xk = torch.where(qp32 > 0.5, xr, xl)
+    la = torch.clamp((x2 - xk) / (x2 - x1), 0.0, 1.0)
+    b = la[:, None] * cmat[i0] + (1.0 - la)[:, None] * cmat[i0 + 1]
+    phin = torch.bmm(phi[:, None, :], b.reshape(m, r, r))[:, 0, :]
+    scale = torch.amax(torch.abs(phin), dim=1, keepdim=True)
+    return phin / torch.clamp(scale, min=1e-30), out9
+
+
+def _plain64(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
+    return dim_step_ref(*(t.double() for t in (phi, qp32, um32, bmat, cmat,
+                                               hrow, xg)), mode=mode)
+
+
+def test_model_level_meets_the_card_rule_on_lz40n33(lz40):
+    """The whole last level on 2^12 seeds with the modelled conditional
+    and the plain CDF and prefix update: samples and log-density, at the
+    maximum and the 99th percentile over rows, at most twice as far from
+    the f64 plain chain as the plain f32 chain plus 1e-6 (the rule of
+    chip_smoke.py's level checks)."""
+    from tt_irt_tpu_torch.samplers.irt_scan import _fwd
+
+    prep, q = lz40
+    runs = {name: _fwd("sqr", prep, q, step=st) for name, st in (
+        ("model", _model_step), ("plain", dim_step_ref), ("f64", _plain64))}
+    for i, what in enumerate(("x", "lf")):
+        ref = runs["f64"][i]
+        errs = {}
+        for name in ("model", "plain"):
+            e = (runs[name][i].double() - ref).abs()
+            e = e.amax(1) if e.ndim == 2 else e
+            errs[name] = (float(e.max()), float(torch.quantile(e, 0.99)))
+        for stat in (0, 1):
+            assert errs["model"][stat] <= 2.0 * errs["plain"][stat] + 1e-6, \
+                (what, errs)

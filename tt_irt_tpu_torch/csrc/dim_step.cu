@@ -15,84 +15,157 @@
 // The batched f64 epilogue (samplers/irt_scan.py::_serve_solve) turns
 // out9 into samples and log-densities after all dimensions.
 //
-// What bounds it: FP32 arithmetic on the CUDA cores.  The conditional
-// is n*r*r FMAs per row (17.5k at n=33, r=23) against ~230 bytes of
-// row traffic (phi in and out, two seeds, out9), so the kernel sits far
-// above the memory roofline.  The design keeps every per-row
-// intermediate on chip: B is staged once per block, transposed and
-// zero-padded to RMAX, in dynamic shared memory (69.8 KB of data at
-// r=23, n=33) and read as float4 broadcasts; fk lives in shared memory
-// column-per-thread; the CDF rows are recomputed by short sequential
-// sums instead of being stored; the prefix update reads only the two
-// core slices C[i0], C[i0+1] (2 r^2 values) instead of the TPU's w @ C
-// over all n nodes.  The conditional and the CDF / bracket / readout are
-// device functions of row_common.cuh, shared bit for bit with
-// odim_step.cu and factor_step.cu.  Blocks are persistent (grid-stride over row tiles)
-// so B is staged once per resident block, not once per tile.  Moving
-// phi @ B onto the tensor cores (3xTF32 or a bf16 three-way split) is
-// the next step and is not done here.
+// What bounds it: at n=33, r=23 a row does n*r*r = 17.5k multiply-adds
+// in the conditional against ~4.4k other operations (the squares, the
+// CDF, the prefix update) and ~230 bytes of row traffic.  On the FP32
+// CUDA cores that is 0.15 ms at 2^18 rows (67 TFLOP/s); as 3xTF32 on
+// the tensor cores (three products at 495 TFLOP/s) the conditional is
+// 0.056 ms, the rest 0.017 ms on the CUDA cores and the bytes 0.018 ms,
+// so the tensor cores set the floor.  The design: the conditional runs
+// on the tensor cores as 3xTF32 (tc_conditional.cuh: wgmma at the rank
+// tiers 8-32, mma.sync where the split factor does not fit), for tiles
+// of 128 rows per warpgroup, into an fk tile in shared memory; the CDF,
+// bracket and readout stay one thread per row (row_common.cuh) and read
+// that tile.  Blocks are persistent (B split and staged once per block)
+// with up to three warpgroups each, so that one warpgroup's CDF runs on
+// the CUDA cores while another's products run on the tensor cores.
+// The prefix update reads the two core slices C[i0], C[i0+1] (2 r^2
+// values a row) instead of the TPU's w @ C over all n nodes.  Gathered
+// per row from L2 inside the first pass it cost more than the rest of
+// the kernel, because the split factor leaves too little L1 to hold C.
+// So it runs as a second pass over the block's rows once the products
+// are done: C is staged into the shared memory the factor held, and each
+// row re-forms its bracket and cell weight from its out9 (bit for bit)
+// and reads its two slices from shared memory.  cdf_bracket_factor
+// (factor_step.cu) runs the first pass's stages, so its out9 equals
+// this kernel's bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include "row_common.cuh"
+#include "tc_conditional.cuh"
 
 namespace {
 
 using namespace ttirt;
 
-template <int RMAX, bool RT>
-__global__ void __launch_bounds__(kThreads)
+// The bracket of a row as the first pass left it in out9 (with the f32
+// targets re-formed from the seed by the same products), so that
+// cell_weight gives the first pass's la bit for bit.
+template <bool RT>
+__device__ __forceinline__ Bracket bracket_from_out9(const float* o,
+                                                     const float* x32, int n,
+                                                     float q, float um) {
+  Bracket b;
+  b.c1 = o[0];
+  b.cr2 = o[1];
+  b.f1 = o[2];
+  b.f2 = o[3];
+  b.x1 = o[4];
+  b.x2 = o[6];
+  b.tot = o[8];
+  b.right = !RT && q > 0.5f;
+  b.qt = RT ? 0.0f : q * b.tot;
+  b.ut = RT ? 0.0f : um * b.tot;
+  int i0 = 0;                       // x1 = x32[i0] on a rising grid
+  for (int k = 0; k < n; ++k) i0 += (x32[k] < b.x1) ? 1 : 0;
+  b.i0 = i0;
+  return b;
+}
+
+template <int T, bool RT, Tc V>
+__global__ void __launch_bounds__(tc_kernel_threads<T, V>())
 dim_step_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
                 const float* __restrict__ um, const float* __restrict__ bmat,
                 const float* __restrict__ cmat, const float* __restrict__ h,
                 const float* __restrict__ xg, float* __restrict__ phin,
                 float* __restrict__ out9, int m, int n, int r) {
   extern __shared__ __align__(16) float smem[];
-  float* bs = smem;                   // (n*r, RMAX): bs[col*RMAX+i] = B[i, col]
-  float* fcol = smem + n * r * RMAX + threadIdx.x;   // fk of this thread's row
+  using Stage = TcStage<T, V>;
+  const int wgs = blockDim.x / kTcRows;
+  const int wg = threadIdx.x / kTcRows;
+  const int tid = threadIdx.x - wg * kTcRows;
+  float* fk = Stage::fk_tile(smem, n, r, wg);
 
-  stage_factor<RMAX>(bs, bmat, n, r);
+  Stage::stage(smem, bmat, n, r);
   __syncthreads();
 
-  const int ntiles = (m + kThreads - 1) / kThreads;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const size_t row = static_cast<size_t>(tile) * kThreads + threadIdx.x;
-    if (row >= static_cast<size_t>(m)) continue;
+  // first pass, over the block's tiles: conditional, two-sided CDF,
+  // bracket and readout (the stages that cdf_bracket_factor runs)
+  const int ntiles = (m + kTcRows - 1) / kTcRows;
+  for (int tile = blockIdx.x * wgs + wg; tile < ntiles;
+       tile += gridDim.x * wgs) {
+    const long long row0 = static_cast<long long>(tile) * kTcRows;
+    Stage::conditional(smem, fk, phi, row0, m, n, r, wg);
+    const long long row = row0 + tid;
+    const bool live = row < m;
+    const Bracket b = Stage::template bracket<RT>(
+        smem, fk + tid, phi, row, live, h, xg, n, r, live ? qp[row] : 0.0f,
+        (live && !RT) ? um[row] : 0.0f);
+    if (live) write_out9(out9 + row * 9, b, xg + n);
+    wg_barrier(wg);      // the fk tile is free for the next tile
+  }
 
-    float p[RMAX];
-    load_row<RMAX>(p, phi, row, r);
-    // conditional, two-sided CDF, bracket and readout: the stages of
-    // row_common.cuh that odim_step.cu and factor_step.cu share
-    factor_conditional_row<RMAX>(bs, p, fcol, n, r);
+  // second pass, over the same rows: the prefix update, with the core
+  // staged where the factor was (n r^2 floats never exceed the factor's
+  // staging), so that the two slices a row reads come from shared memory
+  __syncthreads();       // every out9 row written, the factor done with
+  for (int idx = threadIdx.x; idx < n * r * r; idx += blockDim.x)
+    smem[idx] = cmat[idx];
+  __syncthreads();
+  for (int tile = blockIdx.x * wgs; tile < ntiles; tile += gridDim.x * wgs) {
+    const long long row = static_cast<long long>(tile) * kTcRows + threadIdx.x;
+    if (row >= m) continue;
     const float q = qp[row];
-    const Bracket b = cdf_bracket<RT>(fcol, h, xg, n, q, RT ? 0.0f : um[row]);
-    write_out9(out9 + row * 9, b, xg + n);
+    const Bracket b = bracket_from_out9<RT>(out9 + row * 9, xg, n, q,
+                                            RT ? 0.0f : um[row]);
     const float la = cell_weight<RT>(b, q);
-
-    // prefix update from the two bracketing core slices
-    const float* ca = cmat + static_cast<size_t>(b.i0) * r * r;
-    float acc[RMAX];
-    prefix_update<RMAX>(p, la, 1.0f - la, ca, ca + r * r, r, acc);
-    store_row<RMAX>(phin, row, r, acc);
+    float p[T];
+    load_row<T>(p, phi, row, r);
+    const float* ca = smem + b.i0 * r * r;
+    float acc[T];
+    prefix_update<T>(p, la, 1.0f - la, ca, ca + r * r, r, acc);
+    store_row<T>(phin, row, r, acc);
   }
 }
 
-template <int RMAX, bool RT>
+template <int T, bool RT, Tc V>
+cudaError_t launch_variant(const float* phi, const float* qp, const float* um,
+                           const float* bmat, const float* cmat,
+                           const float* h, const float* xg, float* phin,
+                           float* out9, int m, int n, int r, int device,
+                           cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(n, r);
+  const int threads = tc_threads(n, r);
+  int cap = 0;
+  cudaError_t e = grid_cap(
+      reinterpret_cast<const void*>(&dim_step_kernel<T, RT, V>), device, smem,
+      &cap, threads);
+  if (e != cudaSuccess) return e;
+  dim_step_kernel<T, RT, V>
+      <<<tc_grid(m, threads, cap), threads, smem, stream>>>(
+          phi, qp, um, bmat, cmat, h, xg, phin, out9, m, n, r);
+  return cudaGetLastError();
+}
+
+template <int T, bool RT>
 cudaError_t launch(const float* phi, const float* qp, const float* um,
                    const float* bmat, const float* cmat, const float* h,
                    const float* xg, float* phin, float* out9, int m, int n,
                    int r, int device, cudaStream_t stream) {
-  const size_t smem = factor_smem_bytes(n, r);
-  int cap = 0;
-  cudaError_t e = grid_cap(
-      reinterpret_cast<const void*>(&dim_step_kernel<RMAX, RT>), device, smem,
-      &cap);
-  if (e != cudaSuccess) return e;
-  dim_step_kernel<RMAX, RT>
-      <<<persistent_grid(m, cap), kThreads, smem, stream>>>(
-          phi, qp, um, bmat, cmat, h, xg, phin, out9, m, n, r);
-  return cudaGetLastError();
+  if constexpr (T <= 32) {
+    if (use_wgmma(n, r))
+      return launch_variant<T, RT, Tc::kWgmma>(phi, qp, um, bmat, cmat, h, xg,
+                                               phin, out9, m, n, r, device,
+                                               stream);
+  }
+  if constexpr (T >= 24) {
+    return launch_variant<T, RT, Tc::kMma>(phi, qp, um, bmat, cmat, h, xg,
+                                           phin, out9, m, n, r, device,
+                                           stream);
+  } else {
+    return cudaErrorInvalidValue;   // tiers 8 and 16 always fit wgmma
+  }
 }
 
 }  // namespace
@@ -104,7 +177,7 @@ int dim_step_max_n() { return kMaxN; }
 int dim_step_max_r() { return kMaxR; }
 // Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
 long long dim_step_smem_bytes(int n, int r) {
-  return static_cast<long long>(factor_smem_bytes(n, r));
+  return static_cast<long long>(tc_smem_bytes(n, r));
 }
 
 // All pointers are device pointers to contiguous f32 arrays:

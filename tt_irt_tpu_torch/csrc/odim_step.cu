@@ -63,7 +63,8 @@ odim_step_kernel(const float* __restrict__ psi, const float* __restrict__ qp,
     load_row<RMAX>(p, psi, row, r);
     factor_conditional_row<RMAX>(qs, p, fcol, n, r);
     const float q = qp[row];
-    const Bracket b = cdf_bracket<RT>(fcol, h, xg, n, q, RT ? 0.0f : um[row]);
+    const Bracket b = cdf_bracket<RT>(fcol, kThreads, h, xg, n, q,
+                                      RT ? 0.0f : um[row]);
     write_out9(out9 + row * 9, b, xg + n);
     const float la = cell_weight<RT>(b, q);
     const float lb = 1.0f - la;

@@ -1,8 +1,10 @@
 // Pieces shared by the port's row kernels (dim_step.cu, odim_step.cu,
 // factor_step.cu, step.cu, fused_irt.cu): the rank tiers, the factor and
-// Gram conditionals of one row, the two-sided CDF with its bracket and
-// readout, the f32 cell weight, the prefix update, the shared-memory
-// opt-in, and the cached launch geometry of a persistent kernel.
+// Gram conditionals of one row on the CUDA cores (tc_conditional.cuh
+// has the tensor-core conditional of a tile), the two-sided CDF with
+// its bracket and readout, the f32 cell weight, the prefix update, the
+// shared-memory opt-in, and the cached launch geometry of a persistent
+// kernel.
 
 #pragma once
 
@@ -131,12 +133,14 @@ __device__ __forceinline__ float invert_quadratic(float f1, float f2,
 struct Bracket {
   int i0;
   bool right;
+  bool flat;                 // no mass: the uniform conditional (fk = 1)
   float qt, ut;              // f32 targets q * tot and um * tot
   float c1, cr2, f1, f2, x1, x2, tot;
 };
 
 // Two-sided trapezoid CDF of the row whose conditional sits in the
-// shared column fcol (stride kThreads), count-based bracket and readout.
+// shared column fcol (fcol[k * stride] at node k), count-based bracket
+// and readout.
 // Degenerate rows (no mass) take the uniform density.  The CDF rows are
 // never stored: every pass rebuilds them by the same sequential sums,
 // and the _rn intrinsics keep those sums free of FMA contraction, so
@@ -145,7 +149,7 @@ struct Bracket {
 // the seed q, with um its complement (from the left for q <= 0.5, from
 // the right above it).
 template <bool RT>
-__device__ __forceinline__ Bracket cdf_bracket(const float* fcol,
+__device__ __forceinline__ Bracket cdf_bracket(const float* fcol, int stride,
                                                const float* __restrict__ h,
                                                const float* __restrict__ x32,
                                                int n, float q, float um) {
@@ -154,12 +158,13 @@ __device__ __forceinline__ Bracket cdf_bracket(const float* fcol,
   };
   float total = 0.0f;
   for (int k = 0; k < n - 1; ++k)
-    total = __fadd_rn(total, cell(fcol[k * kThreads],
-                                  fcol[(k + 1) * kThreads], k));
+    total = __fadd_rn(total, cell(fcol[k * stride],
+                                  fcol[(k + 1) * stride], k));
   const bool bad = total <= 0.0f;
-  auto fval = [&](int k) { return bad ? 1.0f : fcol[k * kThreads]; };
+  auto fval = [&](int k) { return bad ? 1.0f : fcol[k * stride]; };
   auto dcv = [&](int k) { return bad ? h[k] : cell(fval(k), fval(k + 1), k); };
   Bracket b;
+  b.flat = bad;
   b.tot = 0.0f;                             // ck[n-1]
   for (int k = 0; k < n - 1; ++k) b.tot = __fadd_rn(b.tot, dcv(k));
 
@@ -348,17 +353,18 @@ inline cudaError_t ensure_smem(const void* kern, size_t smem) {
 }
 
 // Grid size of one persistent kernel (a __global__ function's address)
-// on one device at one shared-memory size: resident blocks per SM times
-// SMs.  The shared-memory attribute and the residency depend only on
-// the kernel, smem and the device, so they are asked once and kept, not
+// on one device at one shared-memory size and block size: resident
+// blocks per SM times SMs.  The shared-memory attribute and the
+// residency depend only on these, so they are asked once and kept, not
 // on every launch.  The attribute is set to the largest size cached for
 // that kernel and device, so it covers every cached size.
 inline cudaError_t grid_cap(const void* kern, int device, size_t smem,
-                            int* cap) {
+                            int* cap, int threads = kThreads) {
   struct Entry {
     const void* kern;
     int device;
     size_t smem;
+    int threads;
     int cap;
   };
   static std::mutex mu;
@@ -368,7 +374,7 @@ inline cudaError_t grid_cap(const void* kern, int device, size_t smem,
   size_t attr = smem;
   for (int i = 0; i < used; ++i) {
     if (table[i].kern != kern || table[i].device != device) continue;
-    if (table[i].smem == smem) {
+    if (table[i].smem == smem && table[i].threads == threads) {
       *cap = table[i].cap;
       return cudaSuccess;
     }
@@ -379,11 +385,11 @@ inline cudaError_t grid_cap(const void* kern, int device, size_t smem,
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                     smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  table[next] = Entry{kern, device, smem, per_sm * sms};
+  table[next] = Entry{kern, device, smem, threads, per_sm * sms};
   next = (next + 1) % kCacheSize;
   used = used < kCacheSize ? used + 1 : kCacheSize;
   *cap = per_sm * sms;

@@ -13,10 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
-__all__ = ["build_all", "load_library", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build_all", "load_library", "library_path", "sass_tensor_ops",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,12 +31,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+def _tool(name: str) -> str:
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit on PATH or under /usr/local/cuda")
+        raise RuntimeError(f"{name} not found: the CUDA kernels need the "
+                           "CUDA toolkit on PATH or under /usr/local/cuda")
     return path
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def _target(name: str) -> tuple[str, str]:
@@ -78,11 +84,48 @@ def build_all(names) -> dict:
     return reports
 
 
+def library_path(name: str) -> str:
+    """The shared library built from ``csrc/<name>.cu``, built on first
+    use."""
+    _, lib = _target(name)
+    if not os.path.exists(lib):
+        build_all([name])
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
-        _, lib = _target(name)
-        if not os.path.exists(lib):
-            build_all([name])
-        _LIBS[name] = ctypes.CDLL(lib)
+        _LIBS[name] = ctypes.CDLL(library_path(name))
     return _LIBS[name]
+
+
+# A kernel template instance in cuobjdump's function headers (mangled):
+# its name, then the rank tier, the 'rt' flag and, for the tensor-core
+# kernels, the conditional's variant (ttirt::Tc: 0 wgmma, 1 mma.sync).
+_MANGLED = re.compile(r"\d+([a-z][a-z_]*_kernel)ILi(\d+)E"
+                      r"(?:Lb(\d)E)?(?:LN5ttirt2TcE(\d)E)?E")
+
+
+def sass_tensor_ops(name: str) -> dict:
+    """Tensor-core instructions in the SASS of ``csrc/<name>.cu``'s
+    library, by kernel instance: {"dim_step_kernel<24, irt, wgmma>":
+    {"HGMMA": count, "HMMA": count}, ...} (``cuobjdump -sass``; the
+    machine needs the CUDA toolkit)."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass", library_path(name)],
+                         capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in out.split("Function : ")[1:]:
+        mangled = part.split(None, 1)[0]
+        hit = _MANGLED.search(mangled)
+        if hit is None:
+            continue
+        kern, tier, rt, variant = hit.groups()
+        label = [tier]
+        if rt is not None:
+            label.append("rt" if rt == "1" else "irt")
+        if variant is not None:
+            label.append("wgmma" if variant == "0" else "mma")
+        counts[f"{kern}<{', '.join(label)}>"] = {
+            op: len(re.findall(rf"\b{op}\b", part)) for op in ("HGMMA", "HMMA")}
+    return counts

@@ -178,16 +178,16 @@ def _factor_lib():
         lib.cdf_bracket_factor_launch.restype = i
         for f in ("factor_step_max_n", "factor_step_max_r"):
             getattr(lib, f).restype = i
-        lib.factor_step_smem_bytes.argtypes = [i, i]
-        lib.factor_step_smem_bytes.restype = ctypes.c_longlong
+        for f in ("factor_step_smem_bytes", "cdf_bracket_factor_smem_bytes"):
+            getattr(lib, f).argtypes = [i, i]
+            getattr(lib, f).restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
 
-def _check_factor_shape(fn, lib, n, r):
+def _check_factor_shape(fn, lib, n, r, smem_bytes):
     check_factor_caps(fn, n, r, lib.factor_step_max_n(),
-                      lib.factor_step_max_r(),
-                      lib.factor_step_smem_bytes(n, r))
+                      lib.factor_step_max_r(), smem_bytes(n, r))
 
 
 def factor_conditional_cuda(phi, bmat):
@@ -204,7 +204,7 @@ def factor_conditional_cuda(phi, bmat):
     check_cuda_operands(fn, phi.device, {"phi": (phi, f32, (m, r)),
                                          "bmat": (bmat, f32, (r, n * r))})
     lib = _factor_lib()
-    _check_factor_shape(fn, lib, n, r)
+    _check_factor_shape(fn, lib, n, r, lib.factor_step_smem_bytes)
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -238,7 +238,7 @@ def cdf_bracket_factor_cuda(phi, qp32, bmat, hrow, xg, mode="irt"):
         "bmat": (bmat, f32, (r, n * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
     lib = _factor_lib()
-    _check_factor_shape(fn, lib, n, r)
+    _check_factor_shape(fn, lib, n, r, lib.cdf_bracket_factor_smem_bytes)
     out9 = torch.empty((m, 9), dtype=f32, device=phi.device)
     i0 = torch.empty((m,), dtype=torch.int32, device=phi.device)
     with torch.cuda.device(phi.device):
