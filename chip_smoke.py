@@ -5,8 +5,10 @@
 Phases (any failure raises; nothing falls back to the CPU):
   1. print the card's name and power limit; build the CUDA kernels from
      tt_irt_tpu_torch/csrc into build/kernels (one nvcc per source, all
-     started together); print the tensor-core instructions (HGMMA, HMMA)
-     in the SASS of dim_step and cdf_bracket_factor;
+     started together; each source's build seconds and ptxas's
+     registers and spills); print the tensor-core instructions (HGMMA,
+     HMMA) in the SASS of dim_step, odim_step, cdf_bracket_factor and
+     factor_conditional;
   2. hold the dim_step kernel against its plain PyTorch version on the
      card at the Lorenz-40 production shape (n=33, r=23, 2^18 rows), in
      'irt' and 'rt' modes, per dimension and through a whole level;
@@ -40,21 +42,28 @@ Phases (any failure raises; nothing falls back to the CPU):
      TT at 2^log2n seeds, each against the f64 path on the card;
   8. time those three kernels, their plain versions and, for
      gram_conditional, the one einsum that computes the same function;
-  9. hold factor_conditional, cdf_bracket_factor and odim_step against
-     their plain versions at 2^18 rows, in 'irt' and 'rt' modes, at every
-     shape (n, r) that lz40n33_ck's rank buckets give them: per
-     dimension on identical inputs (cdf_bracket_factor's out9 and bracket
-     equal to dim_step's bit for bit, dim_step's f1 and f2 as accurate as
-     factor_conditional's fk), odim_step also through the last level; and
-     report what cdf_bracket_factor's f32 right-tail target costs on
-     seeds within 1e-7 of 1;
+  9. count, per level of lz40n33_ck and in both bases, the share of
+     nodes whose fk is below 2^-8 of its row's largest (the nodes
+     factor_conditional recomputes in f32); hold factor_conditional,
+     cdf_bracket_factor and odim_step against their plain versions at
+     2^18 rows, in 'irt' and 'rt' modes, at every shape (n, r) that
+     lz40n33_ck's rank buckets give them: per dimension on identical
+     inputs (cdf_bracket_factor's out9 and bracket equal to dim_step's
+     bit for bit, dim_step's f1 and f2 as accurate as
+     factor_conditional's fk and equal to it at the bracket nodes bit for
+     bit, odim_step's out9 equal to cdf_bracket_factor's on (psi, Q) bit
+     for bit, fk as accurate as the plain version's relative to the
+     largest fk and to each row's largest), odim_step also through the
+     last level; and report what cdf_bracket_factor's f32 right-tail
+     target costs on seeds within 1e-7 of 1;
  10. path C: serve 2^log2n seeds through lz40n33_ck with
      DirtSampler(precision="hi", hi_step="odim"): launch counts (every
      step an odim_step, no dim_step), finite outputs, the CPU plain path
      on the first rows, best of 3, one profiled call, N/ESS on the six
      seed sets of phase 3, |log-weight - that of the "dim" serve| on the
      same seeds, and "odim", "dim" and 'f64' side by side on the first
-     2^18 rows;
+     2^18 rows ("odim" no further from 'f64' at the 99th percentile of
+     samples and log-weights than "dim");
  11. path D: the split steps on lz40n33_ck: hi_step="bracket" at 2^log2n
      seeds, hi_step="pair" and precision 'hid' at 2^18: launch counts,
      one timed and one profiled call each, against the "dim" and 'f64'
@@ -1108,10 +1117,11 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
 
 def _lz40_shapes(dirt):
     """The transforms of lz40n33_ck as DirtSampler prepares them at 'hi'
-    (level 0 alone, the upper levels per rank bucket), grouped by the
-    shape (n, r) they give the factor-family kernels: {(n, r): (level,
-    raw-factor prep, orthonormal-core prep)}, the last level of each
-    shape."""
+    (level 0 alone, the upper levels per rank bucket): every level's
+    (raw-factor prep, orthonormal-core prep), and the levels grouped by
+    the shape (n, r) they give the factor-family kernels, {(n, r):
+    (level, raw-factor prep, orthonormal-core prep)}, the last level of
+    each shape."""
     from tt_irt_tpu_torch.samplers.dirt import _prepare_level_preps
     from tt_irt_tpu_torch.samplers.irt import _canon_grid
     from tt_irt_tpu_torch.samplers.irt_scan import _prep, stack_padded
@@ -1120,10 +1130,61 @@ def _lz40_shapes(dirt):
     cs0, xs0 = stack_padded(f0c, gs0)
     preps = [[_prep(cs0, xs0, "hi", hi_step=hs)]
              + _prepare_level_preps(dirt, "hi", hs) for hs in ("dim", "odim")]
+    levels = list(zip(*preps))
     shapes = {}
-    for level, (raw, ortho) in enumerate(zip(*preps)):
+    for level, (raw, ortho) in enumerate(levels):
         shapes[(raw.cmat.shape[1], raw.bmat.shape[1])] = (level, raw, ortho)
-    return shapes
+    return levels, shapes
+
+
+def _small_node_shares(run, levels, q):
+    """The share of (row, node) pairs whose fk is below 2^-8 of its
+    row's largest (the nodes factor_conditional recomputes in f32; at
+    the bracket, the nodes whose f1 or f2 dim_step and odim_step
+    recompute), per level of lz40n33_ck in each basis: the carry of the
+    seeds q ('irt' mode) through the level's dimensions by dim_step
+    (raw factor B) or odim_step (orthonormal cores Q), and at each
+    dimension factor_conditional's fk on that carry and factor, whose
+    conditional is the other kernels'.  The seeds are uniform, not the
+    reference samples a deeper level sees.  Records {basis: [mean share
+    over the dimensions, per level]}."""
+    import torch
+
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda
+    from tt_irt_tpu_torch.ops.step import factor_conditional_cuda
+
+    q64 = q.T.contiguous()
+    qp32, um32 = q64.float(), (1.0 - q64).float()
+    shares = {"raw": [], "ortho": []}
+    for raw, ortho in levels:
+        for basis, prep in (("raw", raw), ("ortho", ortho)):
+            factor = prep.bmat if basis == "raw" else prep.qmat
+            d, r = factor.shape[:2]
+            phi = torch.zeros((q.shape[0], r), dtype=torch.float32,
+                              device=q.device)
+            phi[:, 0] = 1.0
+            per_dim = []
+            for k in range(d):
+                fk = factor_conditional_cuda(phi, factor[k])
+                tiny = 2.0 ** -8 * fk.amax(1, keepdim=True)
+                per_dim.append(float((fk < tiny).double().mean()))
+                if basis == "raw":
+                    phi, _ = dim_step_cuda(phi, qp32[k], um32[k], factor[k],
+                                           prep.cmat[k], prep.hrow[k],
+                                           prep.xg[k])
+                else:
+                    phi, _ = odim_step_cuda(phi, qp32[k], um32[k], factor[k],
+                                            prep.hrow[k], prep.xg[k])
+            shares[basis].append(sum(per_dim) / d)
+    run.rec["small_node_share_by_level"] = shares
+    print("share of nodes below 2^-8 of their row's largest fk (recomputed "
+          "in f32 by factor_conditional; n=%d nodes a row), mean over the "
+          "dimensions, per level of lz40n33_ck on %d uniform seeds: raw "
+          "factor %s; orthonormal cores %s (%s)" % (
+              levels[0][0].cmat.shape[1], q.shape[0],
+              [round(v, 4) for v in shares["raw"]],
+              [round(v, 4) for v in shares["ortho"]], run.card), flush=True)
 
 
 def _odim64(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
@@ -1145,19 +1206,20 @@ def _compare_factor_family(run, raw, ortho, q, tag):
     plain f32 chains' phi and psi; the two bases cannot share a carry):
       - factor_conditional: fk at most twice as far from the plain
         version run in f64 as the plain f32 version plus 1e-6, relative
-        to the largest fk;
+        to the largest fk, and relative to each row's own largest fk;
       - dim_step's f1 and f2 (its fk at the bracket nodes) under the same
-        rule against the f64 fk there.  They used to equal
-        factor_conditional's fk bit for bit; dim_step's conditional now
-        runs on the tensor cores (3xTF32) while factor_conditional keeps
-        the CUDA-core f32 stage, so the two agree only to f32 accuracy;
+        rule against the f64 fk there, and equal to factor_conditional's
+        fk at those nodes bit for bit on every row with mass (the same
+        tensor-core stage and recompute rule);
       - cdf_bracket_factor: brackets equal to the plain version's on
         99.99% of rows, out9 to 1e-5 relative where they agree; and out9
         and i0 equal to dim_step's out9 and bracket bit for bit wherever
         um32 == 1 - qp32 in f32 (every row in 'rt' mode);
-      - odim_step: brackets and out9 as above; psi' at most four times
-        as far from the f64 run as the plain version's plus 1e-6 (the
-        rule of dim_step's phi');
+      - odim_step: brackets and out9 as above, and out9 equal to
+        cdf_bracket_factor's on (psi, Q) bit for bit wherever
+        um32 == 1 - qp32; psi' at most four times as far from the f64
+        run as the plain version's plus 1e-6 (the rule of dim_step's
+        phi');
       - condition_update, on the bracket and the f64 node weights that
         hi_step="bracket" gives it (cdf_bracket_factor, then
         _serve_solve): phi' at most twice as far from the plain version
@@ -1190,11 +1252,13 @@ def _compare_factor_family(run, raw, ortho, q, tag):
     lo = {"bracket_agree": 1.0, "odim_agree": 1.0, "um_equal_share": 1.0}
     hi = {k: 0.0 for k in (
         "fk_kernel_rel", "fk_plain_rel", "fk_kp_abs", "fk_kp_rel",
+        "fk_row_kernel_rel", "fk_row_plain_rel",
         "bracket_out9_rel", "bracket_kp_abs", "odim_out9_rel", "odim_kp_abs",
         "odim_psin_kernel_vs_f64", "odim_psin_plain_vs_f64",
         "update_phin_kernel_vs_f64", "update_phin_plain_vs_f64",
         "update_kp_abs", "dim_f12_rel")}
-    bitwise = {"bracket_equals_dim_step": True}
+    bitwise = {"bracket_equals_dim_step": True,
+               "fk_equals_dim_step_f12": True, "odim_equals_bracket": True}
 
     def worse(name, value):
         hi[name] = max(hi[name], float(value))
@@ -1226,16 +1290,22 @@ def _compare_factor_family(run, raw, ortho, q, tag):
             worse("fk_plain_rel", (fkr.double() - fk64).abs().max() / scale)
             worse("fk_kp_abs", (fk - fkr).abs().max())
             worse("fk_kp_rel", (fk - fkr).abs().max() / scale)
+            rowmax = fk64.amax(1, keepdim=True).clamp_min(1e-300)
+            worse("fk_row_kernel_rel",
+                  ((fk.double() - fk64).abs() / rowmax).max())
+            worse("fk_row_plain_rel",
+                  ((fkr.double() - fk64).abs() / rowmax).max())
             # dim_step's fk at its bracket nodes against the f64 fk there
-            # (rows without mass read f1 = f2 = 1 in place of fk); the
-            # bitwise tie to factor_conditional's fk cannot hold while
-            # that kernel keeps the CUDA-core stage, so the tie becomes
-            # the accuracy rule fk_2x holds factor_conditional to
+            # and against factor_conditional's (rows without mass read
+            # f1 = f2 = 1 in place of fk)
             live = ~((o1[:, 2] == 1.0) & (o1[:, 3] == 1.0))
             worse("dim_f12_rel", max(
                 float((o1[:, 2].double() - fk64[ix, i1])[live].abs().max()),
                 float((o1[:, 3].double() - fk64[ix, i1 + 1])[live].abs()
                       .max())) / scale)
+            bitwise["fk_equals_dim_step_f12"] &= (
+                torch.equal(fk[ix, i1][live], o1[:, 2][live])
+                and torch.equal(fk[ix, i1 + 1][live], o1[:, 3][live]))
             # cdf_bracket_factor
             o2, i2 = cdf_bracket_factor_cuda(phi, qk, bm, hrow, xg, mode=mode)
             o2r, i2r = cdf_bracket_factor_ref(phi, qk, bm, hrow, xg,
@@ -1264,6 +1334,10 @@ def _compare_factor_family(run, raw, ortho, q, tag):
             p7, o7 = odim_step_cuda(*b, mode=mode)
             p7r, o7r = odim_step_ref(*b, mode=mode)
             p7d, o7d = _odim64(*b, mode=mode)
+            o7b, _ = cdf_bracket_factor_cuda(psi, qk, ortho.qmat[k],
+                                             ortho.hrow[k], ortho.xg[k],
+                                             mode=mode)
+            bitwise["odim_equals_bracket"] &= torch.equal(o7[eq], o7b[eq])
             same = o7[:, 4] == o7r[:, 4]
             less("odim_agree", same.double().mean())
             worse("odim_out9_rel", _rel(o7[same], o7r[same], 1e-30))
@@ -1279,6 +1353,10 @@ def _compare_factor_family(run, raw, ortho, q, tag):
                 for k, v in {**lo, **hi, **bitwise}.items()})
     checks.update(
         fk_2x=hi["fk_kernel_rel"] <= 2.0 * hi["fk_plain_rel"] + 1e-6,
+        fk_row_2x=(hi["fk_row_kernel_rel"]
+                   <= 2.0 * hi["fk_row_plain_rel"] + 1e-6),
+        fk_equals_dim_step_f12=bitwise["fk_equals_dim_step_f12"],
+        odim_equals_bracket=bitwise["odim_equals_bracket"],
         dim_step_f12_2x=hi["dim_f12_rel"] <= 2.0 * hi["fk_plain_rel"] + 1e-6,
         bracket_agree=lo["bracket_agree"] >= 0.9999,
         bracket_out9_rel=hi["bracket_out9_rel"] < 1e-5,
@@ -1417,6 +1495,11 @@ def _path_c(run):
           f"{lz.errs_dim['x_max']:.3e} p99 {lz.errs_dim['x_p99']:.3e}, "
           f"log-weight max {lz.errs_dim['lw_max']:.3e} p99 "
           f"{lz.errs_dim['lw_p99']:.3e} ({card})", flush=True)
+    # the orthonormal basis's accuracy survives its tensor-core
+    # conditional: at the 99th percentile no further from 'f64' than the
+    # "dim" serve on the same rows
+    for what in ("x_p99", "lw_p99"):
+        assert errs[what] <= lz.errs_dim[what], (what, errs, lz.errs_dim)
     return launches
 
 
@@ -1567,7 +1650,8 @@ def _factor_timings(run, ortho, kp_abs, launches):
         "odim_step": (
             lambda: odim_step_cuda(*oargs), lambda: odim_step_ref(*oargs),
             psi, ortho.qmat[k])}
-    sources = {"factor_conditional": ("factor_step.cu", "pallas_step.py:153"),
+    sources = {"factor_conditional": ("factor_conditional.cu",
+                                      "pallas_step.py:153"),
                "cdf_bracket_factor": ("factor_step.cu", "pallas_step.py:386"),
                "odim_step": ("odim_step.cu", "pallas_odim.py:230")}
     b3 = bm.reshape(r, n, r)
@@ -1670,29 +1754,41 @@ def main(argv=None):
     # ---- 1. build ----
     t0 = time.perf_counter()
     reports = _build.build_all(["dim_step", "odim_step", "factor_step",
-                                "step", "fused_irt"])
+                                "factor_conditional", "step", "fused_irt"])
     rec["build_s"] = time.perf_counter() - t0
+    rec["build_s_by_source"] = {name: secs
+                                for name, (_, secs) in reports.items()}
     rec["ptxas"] = {name: [ln.strip() for ln in rep.splitlines()
                            if "registers" in ln or "spill" in ln
-                           or "entry function" in ln]
-                    for name, rep in reports.items()}
-    print(f"built kernels in {rec['build_s']:.1f} s into {_build.BUILD_DIR}",
-          flush=True)
+                           or "entry function" in ln
+                           or "serializ" in ln]
+                    for name, (rep, _) in reports.items()}
+    print(f"built kernels in {rec['build_s']:.1f} s into {_build.BUILD_DIR}"
+          f" (one nvcc a source, all started together; seconds to the end "
+          f"of each: " + ", ".join(
+              f"{k}.cu {v:.1f}" for k, v in rec["build_s_by_source"].items())
+          + ")", flush=True)
     for name, lines in rec["ptxas"].items():
         for ln in lines:
             print(f"  {name}: {ln}")
-    # the tensor-core instructions of the two kernels whose conditional
+    # the tensor-core instructions of the four kernels whose conditional
     # runs on the tensor cores: HGMMA in each wgmma instance, HMMA in
     # each mma.sync instance (cuobjdump -sass)
     rec["sass_tensor_ops"] = {
-        k: v for lib in ("dim_step", "factor_step")
+        k: v for lib in ("dim_step", "odim_step", "factor_step",
+                         "factor_conditional")
         for k, v in _build.sass_tensor_ops(lib).items()
-        if k.startswith(("dim_step_kernel<", "cdf_bracket_factor_kernel<"))}
+        if k.startswith(("dim_step_kernel<", "odim_step_kernel<",
+                         "cdf_bracket_factor_kernel<",
+                         "factor_conditional_kernel<"))}
     for k, v in rec["sass_tensor_ops"].items():
         print(f"  SASS {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}")
     bad = [k for k, v in rec["sass_tensor_ops"].items()
            if v["HGMMA" if k.endswith("wgmma>") else "HMMA"] == 0]
-    assert rec["sass_tensor_ops"] and not bad, bad
+    assert not bad, bad
+    assert {k.split("<")[0] for k in rec["sass_tensor_ops"]} == {
+        "dim_step_kernel", "odim_step_kernel", "cdf_bracket_factor_kernel",
+        "factor_conditional_kernel"}, rec["sass_tensor_ops"]
     _lap(run, "1 build")
 
     # ---- 2-4. dim_step and the lz40n33 serve at 'hi' ----
@@ -1754,7 +1850,9 @@ def main(argv=None):
     # ---- 9. the factor-family kernels against their plain versions, at
     #         every shape that lz40n33_ck's transforms give them ----
     lz = run.lz40
-    shapes_c = _lz40_shapes(lz.dirt)
+    levels, shapes_c = _lz40_shapes(lz.dirt)
+    _small_node_shares(run, levels, lz.q_last)
+    del levels
     rec["lz40_factor_kernel_shapes"] = {
         f"n{n}_r{r}": level for (n, r), (level, _, _) in shapes_c.items()}
     print(f"lz40n33_ck gives the factor-family kernels the shapes (n, r) "

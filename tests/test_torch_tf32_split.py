@@ -19,8 +19,11 @@ The model, ``tc_conditional_model``, follows the kernel step by step:
     columns of each 8-column group, then two lane-shuffle sums.
 That fk picks the bracket, sums the CDF cells and gives f1 and f2, except
 where f1 or f2 is below 2^-8 of the row's largest fk: the kernel then
-recomputes it in plain f32 (``_model_step`` takes it from the plain f32
-conditional).  Nothing here needs a card."""
+recomputes it in the f32 FMA chain of the CUDA cores (``chain_fk``;
+``_model_step``).  factor_conditional, which has no bracket, recomputes
+every node below 2^-8 of its row's largest fk the same way
+(``factor_conditional_model``), so that its fk at the bracket nodes is
+the bracket's f1 and f2.  Nothing here needs a card."""
 
 RECOMPUTE = 2.0 ** -8         # tc_conditional.cuh: kRecompute
 
@@ -109,6 +112,34 @@ def tc_conditional_model(phi, bmat):
     return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
 
 
+def chain_fk(phi, bmat):
+    """fk (M, n) in the CUDA cores' f32 FMA chain (TcStage::warp_node_fk):
+    v_j = fma(phi_i, B_ij, v_j) over i in order, then f = fma(v_j, v_j, f)
+    over j in order, each fma an exact f64 product and sum rounded once
+    to f32."""
+    m, r = phi.shape
+    n = bmat.shape[1] // r
+    b3 = bmat.reshape(r, n, r).double()
+    p = phi.double()
+    v = torch.zeros((m, n, r), dtype=torch.float32)
+    for i in range(r):
+        v = (p[:, i, None, None] * b3[i] + v.double()).float()
+    f = torch.zeros((m, n), dtype=torch.float32)
+    for j in range(r):
+        x = v[..., j].double()
+        f = (x * x + f.double()).float()
+    return f
+
+
+def factor_conditional_model(phi, bmat):
+    """fk as the tensor-core factor_conditional gives it: the modelled
+    tensor-core fk, and the f32 chain at every node whose tensor-core fk
+    is below RECOMPUTE of its row's largest (TcStage::recompute_small)."""
+    fk = tc_conditional_model(phi, bmat)
+    tiny = RECOMPUTE * fk.amax(1, keepdim=True)
+    return torch.where(fk < tiny, chain_fk(phi, bmat), fk)
+
+
 def _errors(phi, bmat):
     """(model, plain f32) max |fk - fk64| relative to the largest fk64."""
     f64 = factor_conditional_ref(phi.double(), bmat.double())
@@ -189,14 +220,14 @@ def test_model_meets_the_card_rule_on_lz40n33(lz40, k):
 
 def _model_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     """dim_step_ref with the modelled conditional, and f1 or f2 (and with
-    them the cell weight) from the plain f32 conditional where the kernel
-    recomputes them."""
+    them the cell weight) from the f32 chain where the kernel recomputes
+    them."""
     m, r = phi.shape
     fk = tc_conditional_model(phi, bmat)
     out9, i0, _ = cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
     flat = torch.sum(0.5 * (fk[:, :-1] + fk[:, 1:]) * hrow, dim=1) <= 0.0
     tiny = RECOMPUTE * fk.amax(1)
-    fkp = factor_conditional_ref(phi, bmat)
+    fkp = chain_fk(phi, bmat)
     rows = torch.arange(m)
     for col, at in ((2, i0), (3, i0 + 1)):
         redo = ~flat & (out9[:, col] < tiny)
@@ -241,3 +272,69 @@ def test_model_level_meets_the_card_rule_on_lz40n33(lz40):
         for stat in (0, 1):
             assert errs["model"][stat] <= 2.0 * errs["plain"][stat] + 1e-6, \
                 (what, errs)
+
+
+def _lz40_carry(lz40, k):
+    """The plain f32 chain's carry at dimension k of the lz40 fixture's
+    level, and the level."""
+    prep, q = lz40
+    qs = q.T.contiguous()
+    phi = torch.zeros((q.shape[0], prep.bmat.shape[1]), dtype=torch.float32)
+    phi[:, 0] = 1.0
+    for j in range(k):
+        phi, _ = dim_step_ref(phi, qs[j].float(), (1.0 - qs[j]).float(),
+                              prep.bmat[j], prep.cmat[j], prep.hrow[j],
+                              prep.xg[j])
+    return phi, prep, qs
+
+
+@pytest.mark.parametrize("k", [0, 20, 39])
+def test_recompute_model_meets_the_row_rule_on_lz40n33(lz40, k):
+    """factor_conditional's rule on lz40n33_ck's own factor (the last
+    level, dimensions 0, 20, 39, on the plain chain's carry from 2^12
+    seeds): its fk at most twice as far from the f64 fk as the plain
+    f32 version plus 1e-6, relative to each row's own largest fk (the
+    card's fk_row_2x) and to the largest fk of all (fk_2x).  5-9% of the
+    nodes are below 2^-8 of their row's largest there."""
+    phi, prep, _ = _lz40_carry(lz40, k)
+    bmat = prep.bmat[k]
+    f64 = factor_conditional_ref(phi.double(), bmat.double())
+    fk = factor_conditional_model(phi, bmat)
+    fkp = factor_conditional_ref(phi, bmat)
+    tc = tc_conditional_model(phi, bmat)
+    share = float((tc < RECOMPUTE * tc.amax(1, keepdim=True)).double()
+                  .mean())
+    assert 0.03 < share < 0.12, share
+    for scale in (f64.amax(1, keepdim=True), f64.max()):
+        em = float(((fk.double() - f64).abs() / scale).max())
+        ep = float(((fkp.double() - f64).abs() / scale).max())
+        assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+@pytest.mark.parametrize("mode", ["irt", "rt"])
+def test_recompute_model_ties_to_the_bracket_on_lz40n33(lz40, mode):
+    """At dimension 20 of lz40n33_ck's last level, factor_conditional's
+    modelled fk at the bracket nodes of the modelled dim_step equals its
+    f1 and f2 bit for bit on every row with mass: both recompute a node
+    below 2^-8 of the row's largest tensor-core fk, in the same chain,
+    and keep the tensor-core value elsewhere."""
+    phi, prep, qs = _lz40_carry(lz40, 20)
+    k = 20
+    q = qs[k].float() if mode == "irt" else \
+        prep.xg[k][0][torch.randint(0, prep.xg.shape[2], (qs.shape[1],),
+                                    generator=torch.Generator().manual_seed(
+                                        0))]
+    _, out9 = _model_step(phi, q, (1.0 - qs[k]).float(), prep.bmat[k],
+                          prep.cmat[k], prep.hrow[k], prep.xg[k], mode=mode)
+    fk = factor_conditional_model(phi, prep.bmat[k])
+    i0 = torch.searchsorted(prep.xg[k][0].contiguous(),
+                            out9[:, 4].contiguous())
+    assert torch.equal(prep.xg[k][0][i0], out9[:, 4])
+    live = ~((out9[:, 2] == 1.0) & (out9[:, 3] == 1.0))
+    assert float(live.double().mean()) > 0.99
+    rows = torch.arange(phi.shape[0])
+    recomputed = fk[rows, i0] != tc_conditional_model(phi, prep.bmat[k])[
+        rows, i0]
+    assert bool(recomputed.any())
+    assert torch.equal(fk[rows, i0][live], out9[:, 2][live])
+    assert torch.equal(fk[rows, i0 + 1][live], out9[:, 3][live])

@@ -38,40 +38,17 @@
 // row re-forms its bracket and cell weight from its out9 (bit for bit)
 // and reads its two slices from shared memory.  cdf_bracket_factor
 // (factor_step.cu) runs the first pass's stages, so its out9 equals
-// this kernel's bit for bit.
+// this kernel's bit for bit.  The kernel body is tc_dim.cuh's, which
+// odim_step.cu shares.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include "tc_conditional.cuh"
+#include "tc_dim.cuh"
 
 namespace {
 
 using namespace ttirt;
-
-// The bracket of a row as the first pass left it in out9 (with the f32
-// targets re-formed from the seed by the same products), so that
-// cell_weight gives the first pass's la bit for bit.
-template <bool RT>
-__device__ __forceinline__ Bracket bracket_from_out9(const float* o,
-                                                     const float* x32, int n,
-                                                     float q, float um) {
-  Bracket b;
-  b.c1 = o[0];
-  b.cr2 = o[1];
-  b.f1 = o[2];
-  b.f2 = o[3];
-  b.x1 = o[4];
-  b.x2 = o[6];
-  b.tot = o[8];
-  b.right = !RT && q > 0.5f;
-  b.qt = RT ? 0.0f : q * b.tot;
-  b.ut = RT ? 0.0f : um * b.tot;
-  int i0 = 0;                       // x1 = x32[i0] on a rising grid
-  for (int k = 0; k < n; ++k) i0 += (x32[k] < b.x1) ? 1 : 0;
-  b.i0 = i0;
-  return b;
-}
 
 template <int T, bool RT, Tc V>
 __global__ void __launch_bounds__(tc_kernel_threads<T, V>())
@@ -80,93 +57,19 @@ dim_step_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
                 const float* __restrict__ cmat, const float* __restrict__ h,
                 const float* __restrict__ xg, float* __restrict__ phin,
                 float* __restrict__ out9, int m, int n, int r) {
-  extern __shared__ __align__(16) float smem[];
-  using Stage = TcStage<T, V>;
-  const int wgs = blockDim.x / kTcRows;
-  const int wg = threadIdx.x / kTcRows;
-  const int tid = threadIdx.x - wg * kTcRows;
-  float* fk = Stage::fk_tile(smem, n, r, wg);
-
-  Stage::stage(smem, bmat, n, r);
-  __syncthreads();
-
-  // first pass, over the block's tiles: conditional, two-sided CDF,
-  // bracket and readout (the stages that cdf_bracket_factor runs)
-  const int ntiles = (m + kTcRows - 1) / kTcRows;
-  for (int tile = blockIdx.x * wgs + wg; tile < ntiles;
-       tile += gridDim.x * wgs) {
-    const long long row0 = static_cast<long long>(tile) * kTcRows;
-    Stage::conditional(smem, fk, phi, row0, m, n, r, wg);
-    const long long row = row0 + tid;
-    const bool live = row < m;
-    const Bracket b = Stage::template bracket<RT>(
-        smem, fk + tid, phi, row, live, h, xg, n, r, live ? qp[row] : 0.0f,
-        (live && !RT) ? um[row] : 0.0f);
-    if (live) write_out9(out9 + row * 9, b, xg + n);
-    wg_barrier(wg);      // the fk tile is free for the next tile
-  }
-
-  // second pass, over the same rows: the prefix update, with the core
-  // staged where the factor was (n r^2 floats never exceed the factor's
-  // staging), so that the two slices a row reads come from shared memory
-  __syncthreads();       // every out9 row written, the factor done with
-  for (int idx = threadIdx.x; idx < n * r * r; idx += blockDim.x)
-    smem[idx] = cmat[idx];
-  __syncthreads();
-  for (int tile = blockIdx.x * wgs; tile < ntiles; tile += gridDim.x * wgs) {
-    const long long row = static_cast<long long>(tile) * kTcRows + threadIdx.x;
-    if (row >= m) continue;
-    const float q = qp[row];
-    const Bracket b = bracket_from_out9<RT>(out9 + row * 9, xg, n, q,
-                                            RT ? 0.0f : um[row]);
-    const float la = cell_weight<RT>(b, q);
-    float p[T];
-    load_row<T>(p, phi, row, r);
-    const float* ca = smem + b.i0 * r * r;
-    float acc[T];
-    prefix_update<T>(p, la, 1.0f - la, ca, ca + r * r, r, acc);
-    store_row<T>(phin, row, r, acc);
-  }
+  tc_dim_step<T, RT, V, CoreSlices>(phi, qp, um, bmat, cmat, h, xg, phin,
+                                    out9, m, n, r);
 }
 
-template <int T, bool RT, Tc V>
-cudaError_t launch_variant(const float* phi, const float* qp, const float* um,
-                           const float* bmat, const float* cmat,
-                           const float* h, const float* xg, float* phin,
-                           float* out9, int m, int n, int r, int device,
-                           cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(n, r);
-  const int threads = tc_threads(n, r);
-  int cap = 0;
-  cudaError_t e = grid_cap(
-      reinterpret_cast<const void*>(&dim_step_kernel<T, RT, V>), device, smem,
-      &cap, threads);
-  if (e != cudaSuccess) return e;
-  dim_step_kernel<T, RT, V>
-      <<<tc_grid(m, threads, cap), threads, smem, stream>>>(
-          phi, qp, um, bmat, cmat, h, xg, phin, out9, m, n, r);
-  return cudaGetLastError();
-}
-
-template <int T, bool RT>
-cudaError_t launch(const float* phi, const float* qp, const float* um,
-                   const float* bmat, const float* cmat, const float* h,
-                   const float* xg, float* phin, float* out9, int m, int n,
-                   int r, int device, cudaStream_t stream) {
-  if constexpr (T <= 32) {
-    if (use_wgmma(n, r))
-      return launch_variant<T, RT, Tc::kWgmma>(phi, qp, um, bmat, cmat, h, xg,
-                                               phin, out9, m, n, r, device,
-                                               stream);
-  }
-  if constexpr (T >= 24) {
-    return launch_variant<T, RT, Tc::kMma>(phi, qp, um, bmat, cmat, h, xg,
-                                           phin, out9, m, n, r, device,
-                                           stream);
-  } else {
-    return cudaErrorInvalidValue;   // tiers 8 and 16 always fit wgmma
-  }
-}
+template <bool RT>
+struct Kernel {
+  template <int T, Tc V>
+  struct At {
+    static const void* fn() {
+      return reinterpret_cast<const void*>(&dim_step_kernel<T, RT, V>);
+    }
+  };
+};
 
 }  // namespace
 
@@ -191,21 +94,21 @@ int dim_step_launch(const void* phi, const void* qp, const void* um,
                     int r, int rt, int device, void* stream) {
   if (m == 0) return 0;
   if (!in_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p[7];
+  const void* in[7] = {phi, qp, um, bmat, cmat, h, xg};
+  for (int k = 0; k < 7; ++k) p[k] = static_cast<const float*>(in[k]);
   float* pn = static_cast<float*>(phin);
   float* o = static_cast<float*>(out9);
-  cudaError_t e = cudaErrorInvalidValue;
+  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &p[6], &pn, &o,
+                  &m, &n, &r};
+  const void* kern = nullptr;
   if (rt) {
-    TTIRT_FOR_TIER(r, (e = launch<TIER, true>(
-        f(phi), f(qp), f(um), f(bmat), f(cmat), f(h), f(xg), pn, o, m, n, r,
-        device, s)));
+    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<true>::At, TIER>(n, r)));
   } else {
-    TTIRT_FOR_TIER(r, (e = launch<TIER, false>(
-        f(phi), f(qp), f(um), f(bmat), f(cmat), f(h), f(xg), pn, o, m, n, r,
-        device, s)));
+    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<false>::At, TIER>(n, r)));
   }
-  return static_cast<int>(e);
+  return static_cast<int>(tc_launch(kern, args, m, n, r, device,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -11,96 +11,57 @@
 //   two-sided trapezoid CDF, count-based bracket i0, out9 (as dim_step)
 //   la      = f32 citardauq weight of the sample inside its cell
 //   psi'    = (la v[i0] + (1-la) v[i0+1]) / max|.|     (floor 1e-30)
-// No core operand and no second contraction: the prefix update is a
-// 2-point readout of v.  The batched f64 epilogue
-// (samplers/irt_scan.py::_serve_solve) turns out9 into samples and
-// log-densities after all dimensions.
+// No core operand: the prefix update is a 2-point readout of v.  The
+// batched f64 epilogue (samplers/irt_scan.py::_serve_solve) turns out9
+// into samples and log-densities after all dimensions.
 //
-// What bounds it: FP32 arithmetic on the CUDA cores, n*r*r FMAs per row
-// (17.5k at n=33, r=23) against ~230 bytes of row traffic.  The design
-// is dim_step.cu's (one thread per row; Q staged once per persistent
-// block, transposed and zero-padded to the rank tier, read as float4
-// broadcasts; fk in a shared column per thread; CDF rows rebuilt by
-// sequential sums), with one difficulty of its own: the readout needs
-// rows i0 and i0+1 of v after the bracket is known, and v (n*r floats a
-// row, 388 KB for 128 rows at n=33, r=23) fits neither registers nor
-// shared memory.  Writing it to global memory would bring back the
-// traffic the TPU kernel was written to remove, so the two rows are
-// recomputed from the staged Q after the bracket: 2 r^2 FMAs, 3% of the
-// conditional.  The recomputation calls the same factor_dot as the
-// first pass (same FMA order), so the v it reads out is bit for bit the
-// v whose squares made fk.
+// What bounds it: the conditional, n*r*r multiply-adds a row (17.5k at
+// n=33, r=23) against ~230 bytes of row traffic: 0.15 ms at 2^18 rows
+// on the FP32 CUDA cores, 0.056 ms as 3xTF32 on the tensor cores.  The
+// design is dim_step.cu's, through the same body (tc_dim.cuh): the
+// conditional on the tensor cores for 128-row tiles per warpgroup
+// (tc_conditional.cuh, Q as the B operand, staged and split exactly as
+// B), the CDF, bracket and out9 one thread per row, so that out9 equals
+// cdf_bracket_factor's on (psi, Q) bit for bit wherever um32 == 1 - qp32;
+// then a second pass with Q's node blocks staged where the split factor
+// was (where dim_step stages its core), from which each row forms
+// v[i0] = psi Q_i0 and v[i0+1] by one f32 FMA chain each and reads out
+// la v[i0] + (1-la) v[i0+1] (tc_dim.cuh, FactorSlices).  The readout is
+// thus not the v whose squares made fk (which the tensor cores formed
+// in 3xTF32 and which no longer exists when the bracket is known): the
+// first port's kernel recomputed v[i0], v[i0+1] with fk's own FMA order
+// and read them out bit for bit, a tie this design gives up.  Its error
+// is that of the plain version's f32 readout.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include "row_common.cuh"
+#include "tc_dim.cuh"
 
 namespace {
 
 using namespace ttirt;
 
-template <int RMAX, bool RT>
-__global__ void __launch_bounds__(kThreads)
+template <int T, bool RT, Tc V>
+__global__ void __launch_bounds__(tc_kernel_threads<T, V>())
 odim_step_kernel(const float* __restrict__ psi, const float* __restrict__ qp,
                  const float* __restrict__ um, const float* __restrict__ qmat,
                  const float* __restrict__ h, const float* __restrict__ xg,
                  float* __restrict__ psin, float* __restrict__ out9, int m,
                  int n, int r) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // (n*r, RMAX): qs[col*RMAX+i] = Q[i, col]
-  float* fcol = smem + n * r * RMAX + threadIdx.x;   // fk of this thread's row
+  tc_dim_step<T, RT, V, FactorSlices>(psi, qp, um, qmat, qmat, h, xg, psin,
+                                      out9, m, n, r);
+}
 
-  stage_factor<RMAX>(qs, qmat, n, r);
-  __syncthreads();
-
-  const int ntiles = (m + kThreads - 1) / kThreads;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const size_t row = static_cast<size_t>(tile) * kThreads + threadIdx.x;
-    if (row >= static_cast<size_t>(m)) continue;
-
-    float p[RMAX];
-    load_row<RMAX>(p, psi, row, r);
-    factor_conditional_row<RMAX>(qs, p, fcol, n, r);
-    const float q = qp[row];
-    const Bracket b = cdf_bracket<RT>(fcol, kThreads, h, xg, n, q,
-                                      RT ? 0.0f : um[row]);
-    write_out9(out9 + row * 9, b, xg + n);
-    const float la = cell_weight<RT>(b, q);
-    const float lb = 1.0f - la;
-
-    // 2-point readout: rows i0 and i0+1 of v, recomputed
-    const float* qa = qs + b.i0 * r * RMAX;
-    const float* qb = qa + r * RMAX;
-    float acc[RMAX];
-#pragma unroll
-    for (int j = 0; j < RMAX; ++j) {
-      acc[j] = 0.0f;
-      if (j < r)
-        acc[j] = la * factor_dot<RMAX>(qa + j * RMAX, p)
-                 + lb * factor_dot<RMAX>(qb + j * RMAX, p);
+template <bool RT>
+struct Kernel {
+  template <int T, Tc V>
+  struct At {
+    static const void* fn() {
+      return reinterpret_cast<const void*>(&odim_step_kernel<T, RT, V>);
     }
-    normalize_row<RMAX>(acc, r);
-    store_row<RMAX>(psin, row, r, acc);
-  }
-}
-
-template <int RMAX, bool RT>
-cudaError_t launch(const float* psi, const float* qp, const float* um,
-                   const float* qmat, const float* h, const float* xg,
-                   float* psin, float* out9, int m, int n, int r, int device,
-                   cudaStream_t stream) {
-  const size_t smem = factor_smem_bytes(n, r);
-  int cap = 0;
-  cudaError_t e = grid_cap(
-      reinterpret_cast<const void*>(&odim_step_kernel<RMAX, RT>), device,
-      smem, &cap);
-  if (e != cudaSuccess) return e;
-  odim_step_kernel<RMAX, RT>
-      <<<persistent_grid(m, cap), kThreads, smem, stream>>>(
-          psi, qp, um, qmat, h, xg, psin, out9, m, n, r);
-  return cudaGetLastError();
-}
+  };
+};
 
 }  // namespace
 
@@ -111,7 +72,7 @@ int odim_step_max_n() { return kMaxN; }
 int odim_step_max_r() { return kMaxR; }
 // Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
 long long odim_step_smem_bytes(int n, int r) {
-  return static_cast<long long>(factor_smem_bytes(n, r));
+  return static_cast<long long>(tc_smem_bytes(n, r));
 }
 
 // All pointers are device pointers to contiguous f32 arrays:
@@ -125,21 +86,21 @@ int odim_step_launch(const void* psi, const void* qp, const void* um,
                      int device, void* stream) {
   if (m == 0) return 0;
   if (!in_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p[6];
+  const void* in[6] = {psi, qp, um, qmat, h, xg};
+  for (int k = 0; k < 6; ++k) p[k] = static_cast<const float*>(in[k]);
   float* pn = static_cast<float*>(psin);
   float* o = static_cast<float*>(out9);
-  cudaError_t e = cudaErrorInvalidValue;
+  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &pn, &o,
+                  &m, &n, &r};
+  const void* kern = nullptr;
   if (rt) {
-    TTIRT_FOR_TIER(r, (e = launch<TIER, true>(
-        f(psi), f(qp), f(um), f(qmat), f(h), f(xg), pn, o, m, n, r, device,
-        s)));
+    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<true>::At, TIER>(n, r)));
   } else {
-    TTIRT_FOR_TIER(r, (e = launch<TIER, false>(
-        f(psi), f(qp), f(um), f(qmat), f(h), f(xg), pn, o, m, n, r, device,
-        s)));
+    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<false>::At, TIER>(n, r)));
   }
-  return static_cast<int>(e);
+  return static_cast<int>(tc_launch(kern, args, m, n, r, device,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

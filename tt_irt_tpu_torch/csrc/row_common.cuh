@@ -1,10 +1,10 @@
 // Pieces shared by the port's row kernels (dim_step.cu, odim_step.cu,
-// factor_step.cu, step.cu, fused_irt.cu): the rank tiers, the factor and
-// Gram conditionals of one row on the CUDA cores (tc_conditional.cuh
-// has the tensor-core conditional of a tile), the two-sided CDF with
-// its bracket and readout, the f32 cell weight, the prefix update, the
-// shared-memory opt-in, and the cached launch geometry of a persistent
-// kernel.
+// factor_step.cu, factor_conditional.cu, step.cu, fused_irt.cu): the
+// rank tiers, the Gram conditional of one row on the CUDA cores
+// (tc_conditional.cuh has the factor conditional of a tile on the tensor
+// cores), the two-sided CDF with its bracket and readout, the f32 cell
+// weight, the prefix update, the shared-memory opt-in, and the cached
+// launch geometry of a persistent kernel.
 
 #pragma once
 
@@ -42,75 +42,12 @@ inline bool in_caps(int n, int r) {
   return n >= 2 && n <= kMaxN && r >= 1 && r <= kMaxR;
 }
 
-// Grid of a persistent row kernel: one block per tile of kThreads rows,
-// at most `cap` blocks.
-inline int persistent_grid(int m, int cap) {
-  const int tiles = (m + kThreads - 1) / kThreads;
-  return tiles < cap ? tiles : cap;
-}
-
-// Stage a factor B (r, n*r) into shared memory transposed and
-// zero-padded to the rank tier: bs[col*RMAX + i] = B[i, col].  Reads
-// follow B's row-major order (coalesced).  The caller synchronises.
-template <int RMAX>
-__device__ __forceinline__ void stage_factor(float* bs, const float* bmat,
-                                             int n, int r) {
-  const int nr = n * r;
-  for (int idx = threadIdx.x; idx < r * nr; idx += blockDim.x) {
-    const int i = idx / nr;
-    const int col = idx - i * nr;
-    bs[col * RMAX + i] = bmat[idx];
-  }
-  for (int idx = threadIdx.x; idx < nr * (RMAX - r); idx += blockDim.x) {
-    const int col = idx / (RMAX - r);
-    const int i = r + (idx - col * (RMAX - r));
-    bs[col * RMAX + i] = 0.0f;
-  }
-}
-
 // One row's prefix into registers, zero beyond the true rank.
 template <int RMAX>
 __device__ __forceinline__ void load_row(float (&p)[RMAX], const float* phi,
                                          size_t row, int r) {
 #pragma unroll
   for (int i = 0; i < RMAX; ++i) p[i] = (i < r) ? phi[row * r + i] : 0.0f;
-}
-
-// v = p . B[:, col] against one staged column of RMAX entries, read as
-// float4 broadcasts.  Every caller that needs v again (the 2-point
-// readout of odim_step.cu) calls this same function, so the FMA order,
-// and with it the value, is the same bit for bit.
-template <int RMAX>
-__device__ __forceinline__ float factor_dot(const float* bcol,
-                                            const float (&p)[RMAX]) {
-  const float4* bc = reinterpret_cast<const float4*>(bcol);
-  float v = 0.0f;
-#pragma unroll
-  for (int i4 = 0; i4 < RMAX / 4; ++i4) {
-    const float4 b = bc[i4];
-    v = fmaf(p[4 * i4 + 0], b.x, v);
-    v = fmaf(p[4 * i4 + 1], b.y, v);
-    v = fmaf(p[4 * i4 + 2], b.z, v);
-    v = fmaf(p[4 * i4 + 3], b.w, v);
-  }
-  return v;
-}
-
-// The factor conditional of this thread's row into its shared column:
-// fcol[x * kThreads] = sum_j (p . B[:, x*r + j])^2 for every node x.
-template <int RMAX>
-__device__ __forceinline__ void factor_conditional_row(const float* bs,
-                                                       const float (&p)[RMAX],
-                                                       float* fcol, int n,
-                                                       int r) {
-  for (int x = 0; x < n; ++x) {
-    float f = 0.0f;
-    for (int j = 0; j < r; ++j) {
-      const float v = factor_dot<RMAX>(bs + (x * r + j) * RMAX, p);
-      f = fmaf(v, v, f);
-    }
-    fcol[x * kThreads] = f;
-  }
 }
 
 // Solve A (x-x1)^2 + f1 (x-x1) = q - c1 on [x1, x2] in the citardauq
@@ -235,13 +172,6 @@ __device__ __forceinline__ float cell_weight(const Bracket& b, float q) {
     xk = invert_quadratic(b.f1, b.f2, b.c1, b.qt, b.x1, b.x2);
   }
   return fminf(fmaxf((b.x2 - xk) / (b.x2 - b.x1), 0.0f), 1.0f);
-}
-
-// Dynamic shared memory of one block of a factor-form kernel: the
-// factor padded to the rank tier, plus one fk column per thread.
-inline size_t factor_smem_bytes(int n, int r) {
-  return (static_cast<size_t>(n) * r * rank_tier(r)
-          + static_cast<size_t>(n) * kThreads) * sizeof(float);
 }
 
 // Stage a Gram field P (r*r, n), P[i*r + j, x], into shared memory

@@ -1,5 +1,7 @@
 // The factor conditional of a tile of rows on the tensor cores, shared
-// by dim_step.cu and factor_step.cu (cdf_bracket_factor):
+// by the four factor-family kernels (dim_step and odim_step through
+// tc_dim.cuh, cdf_bracket_factor in factor_step.cu, factor_conditional
+// in factor_conditional.cu):
 //   fk[row, x] = sum_j v[row, x, j]^2,  v[row, x, :] = phi[row, :] B_x,
 // where B_x = B[:, x*r:(x+1)*r] is node x's (r, r) block of the factor.
 //
@@ -17,18 +19,25 @@
 // The missing lo lo term and the truncated lo leave an error of about
 // 2^-21 sum_i |phi_i B_ij| in v, so where v cancels by many orders (the
 // grid's end nodes, where the density is ~0) the tensor-core fk is far
-// less accurate than the f32 chain.  Where one of the two values the
-// CDF stage hands on, f1 and f2 at the bracket nodes, is that small, it
-// is recomputed by the CUDA cores in f32, one FMA chain over i per entry
-// of v (TcStage::bracket, the arithmetic of the CUDA-core kernels'
-// factor_conditional_row), from the f32 factor that the staged hi + lo
-// give back exactly.
+// less accurate than the f32 chain.  A node whose tensor-core fk is
+// below kRecompute of its row's largest is recomputed by the CUDA cores
+// in f32, one FMA chain over i per entry of v and one over j for the
+// squares (TcStage::warp_node_fk, the arithmetic of the first port's
+// CUDA-core kernels), from the f32 factor that the staged hi + lo give
+// back exactly: only at the two bracket nodes where the CDF stage
+// follows (TcStage::bracket: its f1 and f2 feed the f64 epilogue), at
+// every node where fk itself is the output (factor_conditional.cu, by
+// TcStage::thread_node_fk, the same chain one thread a node).  Both take
+// the same decision on the same values, so factor_conditional's fk at a
+// row's bracket nodes equals the f1 and f2 of dim_step's bracket bit
+// for bit.
 // tests/test_torch_tf32_split.py models this arithmetic on the CPU.
 //
 // A warpgroup walks tiles of kTcRows = 128 rows: two m64 halves, warp w
 // of the warpgroup holding rows 16w..16w+15 of each.  fk leaves the
-// stage in a (n, 128) tile in shared memory, one column per row (stride
-// kTcRows), for the one-thread-per-row CDF stage.
+// stage in a (n, 128) tile in shared memory, one column of kTcRows a
+// node (fk_at), for the one-thread-per-row CDF stage or the transposed
+// store of factor_conditional.
 //
 // Two variants, chosen by the shape (use_wgmma):
 //  - kWgmma (rank tiers 8-32, where B's hi and lo fit): B split once per
@@ -56,8 +65,8 @@
 namespace ttirt {
 
 constexpr int kTcRows = 128;     // rows of one warpgroup's tile
-// A bracket node's fk below this fraction of its row's largest is
-// recomputed in f32 (TcStage::bracket).
+// A node's fk below this fraction of its row's largest is recomputed in
+// f32 (TcStage::bracket, factor_conditional.cu).
 constexpr float kRecompute = 0x1p-8f;
 
 enum class Tc { kWgmma, kMma };
@@ -90,8 +99,9 @@ inline int wgmma_warpgroups(int n, int r) {
 
 inline bool use_wgmma(int n, int r) { return wgmma_warpgroups(n, r) > 0; }
 
-// The mma.sync variant (one warpgroup) needs what the CUDA-core kernels
-// need (factor_smem_bytes), so every shape they take runs.
+// The mma.sync variant (one warpgroup) needs what the first port's
+// CUDA-core kernels needed (the factor padded to the rank tier and one
+// fk column a row), so every shape they took runs.
 inline size_t mma_smem_bytes(int n, int r) {
   return static_cast<size_t>(n) * r * rank_tier(r) * sizeof(float)
          + tc_fk_bytes(n, 1);
@@ -120,6 +130,41 @@ inline int tc_grid(int m, int threads, int cap) {
   const int wgs = threads / kTcRows;
   const int blocks = (tiles + wgs - 1) / wgs;
   return blocks < cap ? blocks : cap;
+}
+
+// Launch the instance `kern` (a __global__ function's address; nullptr
+// refuses the shape) of a persistent tensor-core kernel at (m, n, r) on
+// `stream`: tc_threads(n, r) threads and tc_smem_bytes(n, r) bytes a
+// block, as many blocks as the tiles need and the card holds at once.
+// `args` are the kernel's arguments as cudaLaunchKernel takes them.
+inline cudaError_t tc_launch(const void* kern, void** args, int m, int n,
+                             int r, int device, cudaStream_t stream) {
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = tc_smem_bytes(n, r);
+  const int threads = tc_threads(n, r);
+  int cap = 0;
+  cudaError_t e = grid_cap(kern, device, smem, &cap, threads);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernel(kern, dim3(tc_grid(m, threads, cap)),
+                          dim3(threads), args, smem, stream);
+}
+
+// The instance that a launch at (n, r) runs, of a kernel whose instance
+// at rank tier T and variant V is K<T, V>::fn() (its address): the
+// wgmma variant where B's split fits (use_wgmma), else mma.sync, which
+// exists at tiers 24-64 only (tiers 8 and 16 always fit wgmma).  Every
+// kernel of the family picks its variant here, so that their
+// conditionals agree bit for bit at every shape.
+template <template <int, Tc> class K, int T>
+const void* tc_instance(int n, int r) {
+  if constexpr (T <= 32) {
+    if (use_wgmma(n, r)) return K<T, Tc::kWgmma>::fn();
+  }
+  if constexpr (T >= 24) {
+    return K<T, Tc::kMma>::fn();
+  } else {
+    return nullptr;
+  }
 }
 
 // ---- 3xTF32 split ----
@@ -284,10 +329,20 @@ __device__ __forceinline__ void load_a_split(uint32_t (&hi)[KS][4],
   }
 }
 
+// Offset of (node x, tile row i) in a warpgroup's fk tile: a column of
+// kTcRows a node.  With SWZ, i is XOR-ed with the node's low five bits,
+// so that a warp reading the tile across nodes (factor_conditional's
+// transposed store) meets 32 different banks; the tile's size is the
+// same.
+template <bool SWZ>
+__device__ __forceinline__ int fk_at(int x, int i) {
+  return x * kTcRows + (SWZ ? (i ^ (x & 31)) : i);
+}
+
 // fk of this thread's two rows of half h at node x from its
 // accumulator fragment (columns 8c + 2t, +1 of rows g and g+8): its own
 // squares, then the quad's by two lane shuffles; lane t == 0 writes.
-template <int T>
+template <int T, bool SWZ>
 __device__ __forceinline__ void reduce_half(const float (&d)[T / 2],
                                             float* fk, int x, int h) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -304,9 +359,9 @@ __device__ __forceinline__ void reduce_half(const float (&d)[T / 2],
   s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 2);
   s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 2);
   if ((lane & 3) == 0) {
-    float* col = fk + x * kTcRows + 64 * h + 16 * warp + (lane >> 2);
-    col[0] = s0;
-    col[8] = s1;
+    const int i = 64 * h + 16 * warp + (lane >> 2);
+    fk[fk_at<SWZ>(x, i)] = s0;
+    fk[fk_at<SWZ>(x, i + 8)] = s1;
   }
 }
 
@@ -385,7 +440,7 @@ __device__ __forceinline__ void wgmma_unit(Unit<T>& u,
 }
 
 // v = ((small + part[0]) + part[1]) ... in f32, then its squares.
-template <int T>
+template <int T, bool SWZ>
 __device__ __forceinline__ void finish_unit(Unit<T>& u, float* fk, int x,
                                             int h) {
   fence_unit(u);
@@ -396,11 +451,11 @@ __device__ __forceinline__ void finish_unit(Unit<T>& u, float* fk, int x,
 #pragma unroll
     for (int s = 0; s < T / 8; ++s) v[e] = __fadd_rn(v[e], u.part[s][e]);
   }
-  reduce_half<T>(v, fk, x, h);
+  reduce_half<T, SWZ>(v, fk, x, h);
 }
 
 // Units u = 2x + h in order, two register sets in flight.
-template <int T>
+template <int T, bool SWZ>
 __device__ __forceinline__ void wgmma_conditional(const float* bhi_p,
                                                   const float* blo_p,
                                                   float* fk,
@@ -419,14 +474,14 @@ __device__ __forceinline__ void wgmma_conditional(const float* bhi_p,
     const int x = k >> 1;
     wgmma_unit<T>(u1, ahi[1], alo[1], bhi, blo, x);
     wgmma_wait<1>();
-    finish_unit<T>(u0, fk, x, 0);
+    finish_unit<T, SWZ>(u0, fk, x, 0);
     if (k + 2 < units) {
       wgmma_unit<T>(u0, ahi[0], alo[0], bhi, blo, x + 1);
       wgmma_wait<1>();
     } else {
       wgmma_wait<0>();
     }
-    finish_unit<T>(u1, fk, x, 1);
+    finish_unit<T, SWZ>(u1, fk, x, 1);
   }
 }
 
@@ -458,7 +513,7 @@ __device__ __forceinline__ void stage_factor_mma(float* bs, const float* bmat,
   }
 }
 
-template <int T>
+template <int T, bool SWZ>
 __device__ __forceinline__ void mma_conditional(const float* bs, float* fk,
                                                 const float* __restrict__ phi,
                                                 long long row0, int m, int n,
@@ -508,14 +563,17 @@ __device__ __forceinline__ void mma_conditional(const float* bs, float* fk,
           d[4 * c + e] = v;
         }
       }
-      reduce_half<T>(d, fk, x, h);
+      reduce_half<T, SWZ>(d, fk, x, h);
     }
   }
 }
 
 // ---- the stage as the kernels call it ----
 
-template <int T, Tc V>
+// SWZ: the fk tile's rows swizzled per node (fk_at), for a kernel that
+// reads the tile across nodes; the CDF stage (bracket) reads it
+// unswizzled.
+template <int T, Tc V, bool SWZ = false>
 struct TcStage {
   // Floats of the staged factor in front of the fk tiles.
   __device__ __forceinline__ static int factor_floats(int n, int r) {
@@ -551,10 +609,61 @@ struct TcStage {
     }
   }
 
+  // B[4*i4 .. 4*i4+3, x*r + j] in f32 from the staged factor, by one
+  // 16-byte load from each staged part (both layouts keep four
+  // consecutive i of a column together and aligned).
+  __device__ __forceinline__ static float4 factor4(const float* smem, int n,
+                                                   int r, int x, int i4,
+                                                   int j) {
+    if constexpr (V == Tc::kWgmma) {
+      const int o = core_offset<T>(x, 4 * i4, j);
+      const float4 hi = *reinterpret_cast<const float4*>(smem + o);
+      const float4 lo = *reinterpret_cast<const float4*>(smem + n * T * T + o);
+      return make_float4(hi.x + lo.x, hi.y + lo.y, hi.z + lo.z, hi.w + lo.w);
+    } else {
+      const int col = x * r + j;
+      return *reinterpret_cast<const float4*>(smem + col * T
+                                              + swz<T>(col, 4 * i4));
+    }
+  }
+
+  // fk of one row at node x in f32 on the CUDA cores, by one thread (p:
+  // the row's phi, 0 beyond the rank): warp_node_fk's FMA chains, each
+  // v_j over i in order and then the squares over j in order, so the
+  // same value bit for bit.  The r chains of v run side by side (i
+  // outer, j inner), so that they overlap in the pipeline.
+  __device__ __forceinline__ static float thread_node_fk(const float* smem,
+                                                         const float (&p)[T],
+                                                         int n, int r, int x) {
+    float v[T];
+#pragma unroll
+    for (int j = 0; j < T; ++j) v[j] = 0.0f;
+#pragma unroll
+    for (int i4 = 0; i4 < T / 4; ++i4) {
+      if (4 * i4 < r) {
+#pragma unroll
+        for (int j = 0; j < T; ++j) {
+          if (j < r) {
+            const float4 b = factor4(smem, n, r, x, i4, j);
+            v[j] = fmaf(p[4 * i4], b.x, v[j]);
+            if (4 * i4 + 1 < r) v[j] = fmaf(p[4 * i4 + 1], b.y, v[j]);
+            if (4 * i4 + 2 < r) v[j] = fmaf(p[4 * i4 + 2], b.z, v[j]);
+            if (4 * i4 + 3 < r) v[j] = fmaf(p[4 * i4 + 3], b.w, v[j]);
+          }
+        }
+      }
+    }
+    float f = 0.0f;
+#pragma unroll
+    for (int j = 0; j < T; ++j)
+      if (j < r) f = fmaf(v[j], v[j], f);
+    return f;
+  }
+
   // fk of one row at node x in f32 on the CUDA cores, by the whole warp
   // (pv[u] = phi[row, lane + 32u]): lane j forms v_j by one FMA chain
   // over i, then every lane forms sum_j v_j^2 by one FMA chain over j,
-  // the arithmetic of factor_dot / factor_conditional_row.
+  // the arithmetic of the first port's CUDA-core factor_conditional.
   __device__ __forceinline__ static float warp_node_fk(
       const float* smem, const float (&pv)[(T + 31) / 32], int n, int r,
       int x) {
@@ -598,6 +707,7 @@ struct TcStage {
       const float* smem, const float* fcol, const float* __restrict__ phi,
       long long row, bool live, const float* __restrict__ h,
       const float* __restrict__ xg, int n, int r, float q, float um) {
+    static_assert(!SWZ, "the CDF stage reads an unswizzled fk tile");
     constexpr int kJ = (T + 31) / 32;
     const int lane = threadIdx.x & 31;
     Bracket b{};
@@ -643,10 +753,10 @@ struct TcStage {
                                                      long long row0, int m,
                                                      int n, int r, int wg) {
     if constexpr (V == Tc::kWgmma) {
-      wgmma_conditional<T>(smem, smem + n * T * T, fk, phi, row0,
-                           m, n, r);
+      wgmma_conditional<T, SWZ>(smem, smem + n * T * T, fk, phi, row0,
+                                m, n, r);
     } else {
-      mma_conditional<T>(smem, fk, phi, row0, m, n, r);
+      mma_conditional<T, SWZ>(smem, fk, phi, row0, m, n, r);
     }
     wg_barrier(wg);
   }

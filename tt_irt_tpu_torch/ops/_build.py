@@ -16,6 +16,8 @@ import os
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["build_all", "load_library", "library_path", "sass_tensor_ops",
            "BUILD_DIR", "NVCC_FLAGS"]
@@ -56,9 +58,11 @@ def _target(name: str) -> tuple[str, str]:
 
 def build_all(names) -> dict:
     """Compile every named source not yet built, all in parallel.
-    Returns {name: compiler report (ptxas register/spill lines)}; raises
-    if any build fails."""
+    Returns {name: (compiler report (ptxas register/spill lines), seconds
+    from the start of the builds to the end of this one)}; raises if any
+    build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         src, lib = _target(name)
@@ -69,10 +73,18 @@ def build_all(names) -> dict:
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib)
+
+    def finish(proc):
+        out, _ = proc.communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(len(procs), 1)) as pool:
+        done = {name: pool.submit(finish, proc)
+                for name, (proc, _, _) in procs.items()}
     reports, failed = {}, []
     for name, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        reports[name] = out
+        out, secs = done[name].result()
+        reports[name] = (out, secs)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             if os.path.exists(tmp):

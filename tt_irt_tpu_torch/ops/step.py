@@ -6,8 +6,9 @@ first halves of a split factor-form dimension ('hi' at
 Counterpart of ``tt_irt_tpu/ops/pallas_step.py``: ``gram_conditional``,
 ``condition_update``, ``factor_conditional`` and ``cdf_bracket_factor``.
 The ``*_cuda`` functions launch the hand-written kernels of
-``csrc/step.cu`` (the first two) and ``csrc/factor_step.cu`` (the last
-two) and take CUDA tensors only; the ``*_ref`` functions are the same
+``csrc/step.cu`` (the first two), ``csrc/factor_conditional.cu`` and
+``csrc/factor_step.cu`` (``cdf_bracket_factor``) and take CUDA tensors
+only; the ``*_ref`` functions are the same
 functions in plain PyTorch (any float dtype, any device).  Which of the
 two a tensor gets is decided in ``ops/kernel_plan.py``; there is no
 fallback from a kernel to its plain version on the card.
@@ -168,26 +169,22 @@ def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
     return out9, i0.to(torch.int32)
 
 
-def _factor_lib():
-    lib = load_library("factor_step")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.factor_conditional_launch.argtypes = [p, p, p, i, i, i, i, p]
-        lib.factor_conditional_launch.restype = i
-        lib.cdf_bracket_factor_launch.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.cdf_bracket_factor_launch.restype = i
-        for f in ("factor_step_max_n", "factor_step_max_r"):
-            getattr(lib, f).restype = i
-        for f in ("factor_step_smem_bytes", "cdf_bracket_factor_smem_bytes"):
-            getattr(lib, f).argtypes = [i, i]
-            getattr(lib, f).restype = ctypes.c_longlong
-        lib._typed = True
-    return lib
-
-
-def _check_factor_shape(fn, lib, n, r, smem_bytes):
-    check_factor_caps(fn, n, r, lib.factor_step_max_n(),
-                      lib.factor_step_max_r(), smem_bytes(n, r))
+def _factor_launcher(fn, name, kernel, argtypes, n, r):
+    """``<kernel>_launch`` of ``csrc/<name>.cu``'s library (typed with
+    ``argtypes``), once (n, r) has passed the library's caps and the
+    shared memory that ``<kernel>_smem_bytes`` asks for; raises
+    otherwise."""
+    lib = load_library(name)
+    launch = getattr(lib, kernel + "_launch")
+    smem = getattr(lib, kernel + "_smem_bytes")
+    caps = [getattr(lib, f"{name}_max_{k}") for k in "nr"]
+    if launch.argtypes is None:
+        launch.argtypes, launch.restype = argtypes, ctypes.c_int
+        smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+        for f in caps:
+            f.restype = ctypes.c_int
+    check_factor_caps(fn, n, r, caps[0](), caps[1](), smem(n, r))
+    return launch
 
 
 def factor_conditional_cuda(phi, bmat):
@@ -203,12 +200,13 @@ def factor_conditional_cuda(phi, bmat):
     f32 = torch.float32
     check_cuda_operands(fn, phi.device, {"phi": (phi, f32, (m, r)),
                                          "bmat": (bmat, f32, (r, n * r))})
-    lib = _factor_lib()
-    _check_factor_shape(fn, lib, n, r, lib.factor_step_smem_bytes)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = _factor_launcher(fn, "factor_conditional", "factor_conditional",
+                              [p, p, p, i, i, i, i, p], n, r)
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        err = lib.factor_conditional_launch(
+        err = launch(
             phi.data_ptr(), bmat.data_ptr(), fk.data_ptr(), m, n, r,
             phi.device.index, stream)
     if err != 0:
@@ -237,13 +235,14 @@ def cdf_bracket_factor_cuda(phi, qp32, bmat, hrow, xg, mode="irt"):
         "phi": (phi, f32, (m, r)), "qp32": (qp32, f32, (m,)),
         "bmat": (bmat, f32, (r, n * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
-    lib = _factor_lib()
-    _check_factor_shape(fn, lib, n, r, lib.cdf_bracket_factor_smem_bytes)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    launch = _factor_launcher(fn, "factor_step", "cdf_bracket_factor",
+                              [p] * 7 + [i] * 5 + [p], n, r)
     out9 = torch.empty((m, 9), dtype=f32, device=phi.device)
     i0 = torch.empty((m,), dtype=torch.int32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        err = lib.cdf_bracket_factor_launch(
+        err = launch(
             phi.data_ptr(), qp32.data_ptr(), bmat.data_ptr(),
             hrow.data_ptr(), xg.data_ptr(), out9.data_ptr(), i0.data_ptr(),
             m, n, r, int(mode == "rt"), phi.device.index, stream)
