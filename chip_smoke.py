@@ -71,7 +71,11 @@ Phases (any failure raises; nothing falls back to the CPU):
      the bench TT at 2^18 rows against the f64 path;
  12. time the three factor-family kernels at (n=33, r=23), their plain
      versions and torch.matmul(phi, B) in full f32 (a partial yardstick),
-     each kernel and its matmul in turns, with their ratio.
+     each kernel and its matmul in turns, with their ratio; and
+     condition_update at that shape, on the bracket and weights
+     hi_step="bracket" gives it there, with its bound.
+The timing lines of phases 8 and 12 print beside condition_update's and
+gram_conditional's times those of their previous designs (BEFORE_MS).
 Bounds: the products phi B (and gram_conditional's and the whole
 transform's contractions) against the TF32 tensor-core peak three times
 over (3xTF32), the rest against the FP32 peak, bytes against HBM; the
@@ -125,6 +129,13 @@ NONFINITE_ROWS_BAR = 16
 FUSED_COL0_BAR = 5e-5
 FUSED_X_SHARE = 0.999
 FUSED_LF_SHARE = 0.999
+# The previous designs' times (ms, 2^18 rows), as this script measured
+# them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, the kernel table):
+# condition_update reading its core slices from L2 (at n=33, r=23 from
+# path D's trace), gram_conditional one row a thread.  Printed only, as
+# "before"; the kernels line holds this run's times alone.
+BEFORE_MS = {"condition_update": 0.1342, "condition_update_n33_r23": 0.194,
+             "gram_conditional": 0.1724}
 
 
 def _lap(run, name):
@@ -938,7 +949,9 @@ def _path_a(run, dirt_a):
           f"{seed}..{seed + ESS_SETS - 1} "
           f"{[round(e, 4) for e in ess]} (median "
           f"{rec['a_n_over_ess_median']:.4f}; rows left out because "
-          f"their log-weight is not finite: {bad}), seed set "
+          f"their log-weight is not finite: {bad}, bar "
+          f"{NONFINITE_ROWS_BAR} a set; 0-2 a set with the one-row Gram "
+          f"kernel), seed set "
           f"{seed} at 'f64' on the same seeds "
           f"{rec['a_n_over_ess_f64']:.4f}; |log-weight 'f32' - 'f64'| p99 "
           f"{rec['a_lw_f32_vs_f64_p99']:.3e} (bar {LW_P99_BAR}), max "
@@ -1067,9 +1080,11 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
                fused_ms=f_ms, fused_plain_ms=f_plain,
                fused_bound_ms=f_bound[0], fused_bound_fp32_ms=f_fp32)
     print(f"at {mb} rows (lz20 level: n={na}, r={ra}): gram_conditional "
-          f"kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, einsum "
+          f"kernel {g_ms:.4f} ms (before {BEFORE_MS['gram_conditional']}), "
+          f"plain {g_plain:.4f} ms, einsum "
           f"{g_lib:.4f} ms, bound {g_bound[0]:.4f} ms ({g_bound[1]}); "
-          f"condition_update kernel {u_ms:.4f} ms, plain {u_plain:.4f} ms, "
+          f"condition_update kernel {u_ms:.4f} ms (before "
+          f"{BEFORE_MS['condition_update']}), plain {u_plain:.4f} ms, "
           f"bound {u_bound[0]:.4f} ms ({u_bound[1]}); _cdf_invert in "
           f"PyTorch between them {cdf_ms:.4f} ms.  Bench TT (d={db}, "
           f"n={nb_}, r={rb}): fused_irt_sqr kernel {f_ms:.4f} ms, plain "
@@ -1606,15 +1621,19 @@ def _factor_timings(run, ortho, kp_abs, launches):
     if its intermediates do not fit the card's memory).  No single call
     computes the other two.  ``kp_abs`` is the largest |kernel -
     plain| per kernel from _compare_factor_family, ``launches`` maps each
-    kernel to {path: launches of one call}.  Returns their kernels
-    entries."""
+    kernel to {path: launches of one call}.  Then condition_update at
+    the same shape and rows, as hi_step="bracket" calls it.  Returns
+    their kernels entries and condition_update's timing."""
     import torch
 
     from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
     from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
                                            cdf_bracket_factor_ref,
+                                           condition_update_cuda,
+                                           condition_update_ref,
                                            factor_conditional_cuda,
                                            factor_conditional_ref)
+    from tt_irt_tpu_torch.samplers.irt_scan import _serve_solve
 
     rec, card, mb = run.rec, run.card, run.mb
     phi, qk, uk, bm, _, hrow, xg = run.lz40.kargs
@@ -1704,13 +1723,32 @@ def _factor_timings(run, ortho, kp_abs, launches):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library.get(name),
             "bound_fp32_ms": bound_fp32, "matmul_ms": mm_ms})
+    # condition_update at this shape, on the bracket and the f64 node
+    # weights that hi_step="bracket" gives it here
+    o9, i0 = cdf_bracket_factor_cuda(phi, qk, bm, hrow, xg)
+    _, _, la, lb = _serve_solve("irt", o9, q64[k])
+    la, lb, cm = la.float(), lb.float(), run.lz40.kargs[4]
+    u_ms = _time_ms(lambda: condition_update_cuda(phi, i0, la, lb, cm), 20)
+    u_plain = _time_ms(lambda: condition_update_ref(phi, i0, la, lb, cm),
+                       10)
+    u_ms = min(u_ms, _time_ms(
+        lambda: condition_update_cuda(phi, i0, la, lb, cm), 20))
+    u_bound = _bound(mb * (5 * r * r + 2 * r),
+                     4 * (mb * (2 * r + 3) + n * r * r))
+    update = {"n": n, "r": r, "ms": u_ms, "plain_ms": u_plain,
+              "bound_ms": u_bound[0], "bound_by": u_bound[1]}
+    rec["update_timing_n33_r23"] = update
+    parts.append(f"condition_update (hi_step=\"bracket\"'s operands) "
+                 f"kernel {u_ms:.4f} ms (before "
+                 f"{BEFORE_MS['condition_update_n33_r23']}), plain {u_plain:.4f} ms, "
+                 f"bound {u_bound[0]:.4f} ms ({u_bound[1]})")
     print(f"at {mb} rows (lz40n33: n={n}, r={r}, dimension {k}): "
           + "; ".join(parts) + f"; factor_conditional in one PyTorch call: "
           f"{lib_note}; bounds against {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s "
           f"TF32 (x{TF32_SPLIT}) for phi B, "
           f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s FP32 and "
           f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s ({card})", flush=True)
-    return entries
+    return entries, update
 
 
 def main(argv=None):
@@ -1878,18 +1916,20 @@ def main(argv=None):
     by_d = _path_d(run)
     by_d.update(_gs_ds(run, tt_b, grids_b, qb))
     _lap(run, "11 path D")
-    kernels += _factor_timings(run, ortho, kp_abs, {
+    entries, update_n33 = _factor_timings(run, ortho, kp_abs, {
         "odim_step": {"C": launches_c},
         "cdf_bracket_factor": {
             "D bracket": by_d["bracket"]["cdf_bracket_factor"]},
         "factor_conditional": {
             "D " + t: by_d[t]["factor_conditional"] for t in ("pair", "hid")}})
+    kernels += entries
     # the split steps also launch the kernels of the earlier slice;
     # condition_update's error is the largest over their shape too
     for entry in kernels:
         if entry["name"] == "condition_update":
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        kp_abs["condition_update"])
+            entry["at_n33_r23"] = update_n33
         for tag, counts in by_d.items():
             if entry["name"] in counts:
                 entry["launches_by_path"]["D " + tag] = counts[entry["name"]]

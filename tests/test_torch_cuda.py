@@ -204,15 +204,30 @@ def _step_operands(m, n, r, seed):
     return [torch.from_numpy(a).cuda() for a in (phi, pmat, cmat, i0, la, lb)]
 
 
+def _step_lib():
+    from tt_irt_tpu_torch.ops.step import _lib
+    return _lib()
+
+
+# The step kernels' shapes: TC_SHAPES (every rank tier, the even ones
+# included: an even r^2 is the node stride that condition_update pads to
+# an odd one), and for condition_update one whose core does not fit
+# shared memory beside its phi tiles (read from global memory).
+UPDATE_SHAPES = TC_SHAPES + [(64, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", SHAPES)
+@pytest.mark.parametrize("n,r", TC_SHAPES)
 def test_gram_conditional_kernel_matches_plain_on_card(n, r):
     """fk from the kernel against the plain version run in f64 on the
     same operands: 1e-5 of the largest |fk| (an f32 sum of r^2 terms),
     and no further from it than twice the plain f32 version plus 1e-6 of
-    that scale."""
+    that scale.  The kernel takes 4 rows a thread at rank tiers 8-24, 2
+    at tier 32 and 1 at tier 64."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
+    assert _step_lib().gram_conditional_rows(n, r) == (
+        4 if r <= 24 else 2 if r <= 32 else 1)
     phi, pmat, _, _, _, _ = _step_operands(4096 + 7, n, r, n + r)
     before = gram_conditional_cuda.launches
     fk = gram_conditional_cuda(phi, pmat)
@@ -228,12 +243,16 @@ def test_gram_conditional_kernel_matches_plain_on_card(n, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", SHAPES)
+@pytest.mark.parametrize("n,r", UPDATE_SHAPES)
 def test_condition_update_kernel_matches_plain_on_card(n, r):
     """phi' from the kernel against the plain version in f64: 1e-5
-    absolute on the max-normalised prefix."""
+    absolute on the max-normalised prefix.  The core is staged in shared
+    memory at every shape but the last, (64, 32), whose 262 KB core is
+    read from global memory."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
+    assert _step_lib().condition_update_staged(n, r) == int((n, r)
+                                                            != (64, 32))
     phi, _, cmat, i0, la, lb = _step_operands(4096 + 7, n, r, n * r)
     before = condition_update_cuda.launches
     pk = condition_update_cuda(phi, i0, la, lb, cmat)
@@ -246,6 +265,44 @@ def test_condition_update_kernel_matches_plain_on_card(n, r):
     err_p = float((pr.double() - p64).abs().max())
     assert err_k < 1e-5
     assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 4096 + 7])
+@pytest.mark.parametrize("n,r", [(17, 13), (17, 19), (33, 23), (9, 16),
+                                 (64, 32)])
+def test_step_kernels_mask_the_last_tile_on_card(m, n, r):
+    """A ragged last tile (128 rows of condition_update, the 128 rows of
+    a gram_conditional warp, or its 128-row tile at r > 24) leaves every
+    row as the full run computes it and writes nothing past the last
+    row: the outputs equal
+    those of the same rows inside a larger run bit for bit, and the
+    guard words after them stay as they were.  (64, 32) is
+    condition_update's unstaged core; gram_conditional refuses it (P
+    alone takes 262 KB)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    lib = _step_lib()
+    phi, pmat, cmat, i0, la, lb = _step_operands(4096 + 7, n, r, m + n)
+    stream = torch.cuda.current_stream().cuda_stream
+    guard = torch.full((m + 300, max(n, r)), 7.0, device="cuda")
+    runs = [(condition_update_cuda(phi, i0, la, lb, cmat), r,
+             lambda out: lib.condition_update_launch(
+                 phi.data_ptr(), i0.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                 cmat.data_ptr(), out.data_ptr(), m, n, r, phi.device.index,
+                 stream))]
+    if (n, r) != (64, 32):
+        runs.append((gram_conditional_cuda(phi, pmat), n,
+                     lambda out: lib.gram_conditional_launch(
+                         phi.data_ptr(), pmat.data_ptr(), out.data_ptr(), m,
+                         n, r, phi.device.index, stream)))
+    for full, width, launch in runs:
+        out = guard.clone()
+        assert launch(out) == 0
+        torch.cuda.synchronize()
+        flat = out.view(-1)
+        assert torch.equal(flat[:m * width], full[:m].reshape(-1))
+        assert bool((flat[m * width:] == 7.0).all())
 
 
 def _fused_operands(m, d, n, r, seed):

@@ -60,10 +60,21 @@ def split_tf32(x):
     return hi, x - hi
 
 
-def _to_f32_toward_zero(s):
-    y = s.float()
-    over = y.double().abs() > s.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+def _toward_zero(s):
+    """f64 -> the f32 value rounded toward zero, held in f64.  In f32's
+    normal range, dropping the 29 mantissa bits f32 lacks is that
+    rounding; below it (rare) the nearest f32 is stepped toward zero
+    where it lies further out."""
+    u = s.contiguous().view(torch.int64)
+    t = (u & ~((1 << 29) - 1)).view(torch.float64)
+    tiny = (t.abs() < 2.0 ** -126) & (t != 0)
+    if bool(tiny.any()):
+        st = s[tiny]
+        yt = st.float()
+        over = yt.double().abs() > st.abs()
+        t[tiny] = torch.where(over, torch.nextafter(yt, torch.zeros_like(yt)),
+                              yt).double()
+    return t
 
 
 def rank_tier(r):
@@ -73,10 +84,14 @@ def rank_tier(r):
 
 def tc_conditional_model(phi, bmat):
     """fk (M, n) as the tensor-core conditional computes it, from f32
-    phi (M, r) and bmat (r, n*r)."""
+    phi (M, r) and bmat (r, n*r).  The exact products of every k-step
+    (8 terms each) are formed at once; what the kernel sums in order (a
+    k-step's accumulator, v from its parts, a lane's squares) is summed
+    here in that order."""
     m, r = phi.shape
     n = bmat.shape[1] // r
     kp = -(-r // 8) * 8
+    ks = kp // 8
     a = torch.zeros((m, kp), dtype=torch.float32)
     a[:, :r] = phi
     b = torch.zeros((kp, n * r), dtype=torch.float32)
@@ -85,46 +100,53 @@ def tc_conditional_model(phi, bmat):
     bh, bl = split_tf32(b)
     al, bl = tf32_truncate(al), tf32_truncate(bl)   # as the tensor core reads
 
-    def kstep(x, y, s, acc):
-        prod = x[:, 8 * s:8 * s + 8].double() @ y[8 * s:8 * s + 8].double()
-        return _to_f32_toward_zero(prod if acc is None
-                                   else acc.double() + prod)
+    def ksteps(x, y):
+        """The exact products of every k-step, (ks, M, n*r) in f64."""
+        return torch.bmm(x.double().reshape(m, ks, 8).transpose(0, 1),
+                         y.double().reshape(ks, 8, n * r))
 
-    small = None
+    small = None                          # f32 values, held in f64
     for x, y in ((al, bh), (ah, bl)):
-        for s in range(kp // 8):
-            small = kstep(x, y, s, small)
-    v = small
-    for s in range(kp // 8):
-        v = v + kstep(ah, bh, s, None)
-    # the kernel's per-node column blocks, padded to the rank tier
+        prods = ksteps(x, y)
+        for s in range(ks):
+            small = _toward_zero(prods[s] if small is None
+                                 else small + prods[s])
+    parts = _toward_zero(ksteps(ah, bh)).float()
+    v = small.float()
+    for s in range(ks):
+        v = v + parts[s]
+    # the kernel's per-node column blocks, padded to the rank tier; lane
+    # t sums the squares of columns 8c + 2t + e over c, then e
     tier = rank_tier(r)
     vp = torch.zeros((m, n, tier), dtype=torch.float32)
     vp[:, :, :r] = v.reshape(m, n, r)
-    lanes = []
-    for t in range(4):
-        acc = torch.zeros((m, n), dtype=torch.float32)
-        for c in range(tier // 8):
-            for e in range(2):
-                x = vp[:, :, 8 * c + 2 * t + e].double()
-                acc = (x * x + acc.double()).float()
-        lanes.append(acc)
-    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    vp = vp.reshape(m, n, tier // 8, 4, 2).double()
+    acc = torch.zeros((m, n, 4), dtype=torch.float32)
+    for c in range(tier // 8):
+        for e in range(2):
+            x = vp[:, :, c, :, e]
+            acc = (x * x + acc.double()).float()
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
 
 
-def chain_fk(phi, bmat):
+def chain_fk(phi, bmat, at=None):
     """fk (M, n) in the CUDA cores' f32 FMA chain (TcStage::warp_node_fk):
     v_j = fma(phi_i, B_ij, v_j) over i in order, then f = fma(v_j, v_j, f)
     over j in order, each fma an exact f64 product and sum rounded once
-    to f32."""
+    to f32.  With ``at`` (M, k) node indices, fk at those nodes of each
+    row only, (M, k): the chain is elementwise over nodes, so these are
+    the same values."""
     m, r = phi.shape
     n = bmat.shape[1] // r
     b3 = bmat.reshape(r, n, r).double()
+    if at is not None:
+        b3 = b3[:, at, :]                     # (r, M, k, r)
     p = phi.double()
-    v = torch.zeros((m, n, r), dtype=torch.float32)
+    v = torch.zeros(b3.shape[1:] if at is not None else (m, n, r),
+                    dtype=torch.float32)
     for i in range(r):
         v = (p[:, i, None, None] * b3[i] + v.double()).float()
-    f = torch.zeros((m, n), dtype=torch.float32)
+    f = torch.zeros(v.shape[:-1], dtype=torch.float32)
     for j in range(r):
         x = v[..., j].double()
         f = (x * x + f.double()).float()
@@ -147,6 +169,18 @@ def _errors(phi, bmat):
     em = float((tc_conditional_model(phi, bmat).double() - f64).abs().max())
     ep = float((factor_conditional_ref(phi, bmat).double() - f64).abs().max())
     return em / scale, ep / scale
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's tensors are large and its ops many: one intra-op
+    thread a process, so that parallel test workers do not oversubscribe
+    the cores (six workers of eight threads each made this module 20x
+    slower than alone).  The caller's setting comes back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("bits", [0x3F800000, 0x3F801000, 0x3F803000,
@@ -227,11 +261,11 @@ def _model_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     out9, i0, _ = cdf_rows32(mode, fk, xg[0], xg[1], hrow, qp32, um32)
     flat = torch.sum(0.5 * (fk[:, :-1] + fk[:, 1:]) * hrow, dim=1) <= 0.0
     tiny = RECOMPUTE * fk.amax(1)
-    fkp = chain_fk(phi, bmat)
-    rows = torch.arange(m)
-    for col, at in ((2, i0), (3, i0 + 1)):
+    # the chain at the bracket's two nodes, the only ones read
+    fkp = chain_fk(phi, bmat, torch.stack([i0, i0 + 1], dim=1))
+    for col in (2, 3):
         redo = ~flat & (out9[:, col] < tiny)
-        out9[:, col] = torch.where(redo, fkp[rows, at], out9[:, col])
+        out9[:, col] = torch.where(redo, fkp[:, col - 2], out9[:, col])
     c1, cr2, f1, f2, x1, _, x2, _, tot = out9.unbind(1)
     if mode == "rt":
         xk = qp32

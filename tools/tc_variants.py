@@ -31,6 +31,36 @@ Timed on random operands at three shapes, and at the last level of
 examples/data/lz40n33_ck, dimension 20, on the carry that 2^18 uniform
 seeds reach there through the kernels (where the small nodes are those a
 serve meets; random operands have almost none).
+
+    python3 tools/tc_variants.py --step [--baseline CSRC]
+
+times the two Gram-step kernels of csrc/step.cu instead:
+  - gram_conditional in its two designs: (b), shipped, register-blocked
+    rows on the FP32 cores (gram_rows rows a thread: 4 up to rank tier
+    24, 2 at 32, 1 at 64; "gram_rows2": two up to tier 24),
+    and (a), "gram_tc", the tensor-core stage of the factor family with a
+    Gram epilogue (tools/tc_probe.cu), with each design's fk against the
+    f64 fk beside the plain f32 version's, per dimension through a whole
+    level;
+  - condition_update with its core staged in shared memory at an odd
+    node stride (shipped), at the stride r^2 ("update_unpadded"), and
+    with the row's loop over i run to the rank tier from registers
+    (row_common.cuh's prefix_update, "update_prefix");
+  - the shipped kernels through their C entry points and through their
+    Python wrappers ("(wrapper)": the host's time per call included);
+  - with --baseline, both kernels as the other checkout's step.cu builds
+    them, their outputs against the shipped kernels' bit for bit, and
+    the four factor-family kernels (dim_step, cdf_bracket_factor,
+    factor_conditional, odim_step) of both checkouts on the same
+    operands, bit for bit.
+On the operands of path A (examples/data/lz20_ck: one level per shape
+(n, r) its transforms give, at the middle dimension, on the carry 2^18
+uniform seeds reach there through the plain chain), of path B's shape
+(17, 13) on random operands, at every rank tier on random operands
+(n=9; r = 8, 16, 24, 32, 64: the even node strides), and of
+hi_step="bracket" at lz40n33_ck's last level, dimension 20 (33, 23), for
+condition_update.  Every variant's ptxas registers and spills are
+printed.  Output in chiprun_out/tc_variants_step.json.
 The variants are built from the sources in tt_irt_tpu_torch/csrc with
 one text edit each (the script stops if an edit no longer applies) into
 build/variants, with the package's nvcc flags, all nvcc at once beside
@@ -61,8 +91,13 @@ from tt_irt_tpu_torch.ops._build import (CSRC, NVCC_FLAGS,  # noqa: E402
                                          _nvcc, build_all)
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda  # noqa: E402
 from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda  # noqa: E402
+from tt_irt_tpu_torch.ops.step import _lib as step_lib  # noqa: E402
 from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,  # noqa: E402
-                                       factor_conditional_cuda)
+                                       condition_update_cuda,
+                                       condition_update_ref,
+                                       factor_conditional_cuda,
+                                       gram_conditional_cuda,
+                                       gram_conditional_ref)
 
 OUT = os.path.join(ROOT, "build", "variants")
 P = ctypes.c_void_p
@@ -157,11 +192,19 @@ def _edited_copy(name, edits, src=CSRC):
     return dst
 
 
-def _build_variants(jobs):
+def _ptxas(report):
+    """ptxas's lines on each instance's registers and spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln
+            or "serializ" in ln]
+
+
+def _build_variants(jobs, package_names=PACKAGE, reports=None):
     """{lib name: source} -> {lib name: path}, all nvcc at once, beside
-    the package's own build of PACKAGE."""
+    the package's own build of ``package_names``; ptxas's lines of each
+    into ``reports`` when given."""
     pool = ThreadPoolExecutor(max_workers=1)
-    package = pool.submit(build_all, PACKAGE)
+    package = pool.submit(build_all, package_names)
     procs = {}
     for name, src in jobs.items():
         lib = os.path.join(OUT, f"lib{name}.so")
@@ -174,8 +217,13 @@ def _build_variants(jobs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         libs[name] = lib
-    package.result()
+        if reports is not None:
+            reports[name] = _ptxas(out)
+    built = package.result()
     pool.shutdown()
+    if reports is not None:
+        for name, (out, _) in built.items():
+            reports["package " + name] = _ptxas(out)
     return libs
 
 
@@ -365,6 +413,8 @@ def _timings(tag, raw, ortho, fns, stream):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", help="another checkout's csrc directory")
+    ap.add_argument("--step", action="store_true",
+                    help="the Gram-step kernels of csrc/step.cu only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tc_variants: torch.cuda is not available", file=sys.stderr)
@@ -375,6 +425,8 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     os.makedirs(OUT, exist_ok=True)
+    if args.step:
+        return step_main(args, card)
     one = _edited_copy("one_pass", [("tc_dim.cuh", FIRST_PASS, ONE_PASS)])
     wg2 = _edited_copy("wg2", [("tc_conditional.cuh", WARPGROUPS,
                                 WARPGROUPS.replace("t == 24 ? 3 : 2", "2"))])
@@ -429,6 +481,326 @@ def main(argv=None):
               f"{json.dumps(row['variants_vs_shipped'])} ({card})")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tc_variants.json"),
+              "w") as fh:
+        json.dump(rec, fh, indent=1)
+    return 0
+
+
+# ---- the Gram-step kernels (--step) ----
+
+GRAM_ROWS = ("constexpr int gram_rows() { return T <= 24 ? 4 : T <= 32 ? 2 "
+             ": 1; }")
+NODE_STRIDE = "const int stride = STAGED ? odd(rr) : rr;"
+UPDATE_ROW = """      update_row<RMAX>(buf + tid * pitch, la[row], lb[row], ca, ca + stride,
+                       r, acc);
+"""
+PREFIX_UPDATE = """      float p[RMAX];
+#pragma unroll
+      for (int i = 0; i < RMAX; ++i)
+        p[i] = (i < r) ? buf[tid * pitch + i] : 0.0f;
+      prefix_update<RMAX>(p, la[row], lb[row], ca, ca + stride, r, acc);
+"""
+
+
+def _step_launchers(libs):
+    """The shipped step kernels', the variants' and the baseline's launch
+    functions, typed: {name: (kind, fn)}, kind "gram" or "update" (the
+    baseline's condition_update_launch takes no device argument).  All
+    are timed through these C entry points with their outputs allocated
+    once, so that the host's time per call (the wrappers' checks and
+    allocations) stays out of the kernels' times."""
+    ship = step_lib()
+    out = {"gram_conditional": ("gram", ship.gram_conditional_launch),
+           "condition_update": ("update", ship.condition_update_launch)}
+    for name in ("gram_rows2", "update_unpadded", "update_prefix",
+                 "step_base"):
+        if name not in libs:
+            continue
+        lib = ctypes.CDLL(libs[name])
+        if name in ("gram_rows2", "step_base"):
+            f = lib.gram_conditional_launch
+            f.argtypes = [P, P, P, I, I, I, I, P]
+            out[name.replace("step_base", "gram_base")] = ("gram", f)
+        if name != "gram_rows2":
+            f = lib.condition_update_launch
+            f.argtypes = [P] * 6 + [I] * (3 if name == "step_base" else 4) \
+                + [P]
+            out[name.replace("step_base", "update_base")] = ("update", f)
+    f = ctypes.CDLL(libs["tc_probe"]).gram_tc_launch
+    f.argtypes = [P, P, P, I, I, I, I, P]
+    out["gram_tc"] = ("gram", f)
+    return out
+
+
+def _gram_operands(m, n, r, rng):
+    """Random operands of the two step kernels: a max-normalised phi, a
+    general P, a core, brackets and independent weights."""
+    phi = rng.standard_normal((m, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    return [torch.from_numpy(a).cuda() for a in (
+        phi, rng.standard_normal((r * r, n)).astype(np.float32),
+        rng.standard_normal((n, r * r)).astype(np.float32),
+        rng.integers(0, n - 1, size=m).astype(np.int32),
+        rng.uniform(size=m).astype(np.float32),
+        rng.uniform(size=m).astype(np.float32))]
+
+
+def _lz20_levels(m):
+    """Path A's operands: for each shape (n, r) the transforms of
+    examples/data/lz20_ck give, the last level of that shape ('f32'
+    prep, as DirtSampler prepares it), with the plain chain's phi at
+    every dimension on m uniform seeds and the CDF's i0, la, lb there:
+    {(n, r): (level, [(phi, pmat, cmat, i0, la, lb) per dimension])}."""
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.dirt import _prepare_level_preps
+    from tt_irt_tpu_torch.samplers.irt import _canon_grid
+    from tt_irt_tpu_torch.samplers.irt_scan import (_cdf_invert, _prep,
+                                                    stack_padded)
+
+    dirt = tp.load_dirt(os.path.join(ROOT, "examples", "data", "lz20_ck"),
+                        device="cuda")
+    gs0, f0c = _canon_grid(dirt.x0, dirt.f0)
+    preps = [_prep(*stack_padded(f0c, gs0), "f32")] + _prepare_level_preps(
+        dirt, "f32")
+    shapes = {}
+    for level, prep in enumerate(preps):
+        _, rr, n = prep.pmat.shape
+        shapes[(n, int(round(rr ** 0.5)))] = (level, prep)
+    q = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(dirt.d, m))).cuda().float()
+    out = {}
+    for (n, r), (level, prep) in sorted(shapes.items()):
+        phi = torch.zeros((m, r), device="cuda")
+        phi[:, 0] = 1.0
+        dims = []
+        for k in range(dirt.d):
+            pm, cm = prep.pmat[k], prep.cmat[k]
+            fk = gram_conditional_ref(phi, pm)
+            _, _, la, lb, i0 = _cdf_invert("sqr", fk, prep.xs[k],
+                                           prep.hs[k], q[k])
+            dims.append((phi, pm, cm, i0.to(torch.int32), la, lb))
+            phi = condition_update_ref(phi, i0, la, lb, cm)
+        out[(n, r)] = (level, dims)
+    return out
+
+
+def _bracket_update_operands(m):
+    """condition_update's operands as hi_step="bracket" gives them at
+    lz40n33_ck's last level, dimension 20 (33, 23): the carry, the
+    bracket of cdf_bracket_factor and the f64 epilogue's weights."""
+    from tt_irt_tpu_torch.samplers.irt_scan import _serve_solve
+
+    raw, _ = _lz40_operands(m)
+    phi, qp, _, bm, cm, h, xg = raw
+    o9, i0 = cdf_bracket_factor_cuda(phi, qp, bm, h, xg)
+    _, _, la, lb = _serve_solve("irt", o9, qp.double())
+    return [phi, None, cm, i0, la.float(), lb.float()]
+
+
+def _gram_accuracy(dims, fns, stream):
+    """Per dimension of a level, each gram design's fk against the f64
+    fk, relative to its largest |fk|, beside the plain f32 version's
+    (the card tests' rule: at most 2x the plain's plus 1e-6), and the
+    count of fk <= 0 (rows the Gram form rounds to no mass)."""
+    worst = {}
+    for phi, pm, *_ in dims:
+        m, r = phi.shape
+        n = pm.shape[1]
+        f64 = gram_conditional_ref(phi.double(), pm.double())
+        scale = float(f64.abs().max())
+        outs = {"plain": gram_conditional_ref(phi, pm),
+                "gram_b": gram_conditional_cuda(phi, pm)}
+        kind, f = fns["gram_tc"]
+        fk = torch.empty((m, n), device="cuda")
+        assert f(phi.data_ptr(), pm.data_ptr(), fk.data_ptr(), m, n, r, 0,
+                 stream) == 0
+        torch.cuda.synchronize()
+        outs["gram_tc"] = fk
+        for name, v in outs.items():
+            e = float((v.double() - f64).abs().max()) / scale
+            w = worst.setdefault(name, {"rel_err": 0.0, "nonpositive": 0})
+            w["rel_err"] = max(w["rel_err"], e)
+            w["nonpositive"] += int((v <= 0).sum())
+    for name in ("gram_b", "gram_tc"):
+        worst[name]["meets_2x"] = bool(
+            worst[name]["rel_err"] <= 2.0 * worst["plain"]["rel_err"] + 1e-6)
+    return worst
+
+
+def _step_timings(tag, ops, fns, stream):
+    """Both kernels, their variants and baselines on ops = (phi, pmat,
+    cmat, i0, la, lb) (pmat None: condition_update only), in turns; their
+    outputs against the shipped kernels' bit for bit."""
+    phi, pm, cm, i0, la, lb = ops
+    m, r = phi.shape
+    n = cm.shape[0]
+    fk = torch.empty((m, n), device="cuda")
+    pn = torch.empty_like(phi)
+
+    def call(name):
+        kind, f = fns[name]
+        if kind == "gram":
+            return lambda: f(phi.data_ptr(), pm.data_ptr(), fk.data_ptr(),
+                             m, n, r, 0, stream)
+        ptr = [a.data_ptr() for a in (phi, i0, la, lb, cm)]
+        if name == "update_base":
+            return lambda: f(*ptr, pn.data_ptr(), m, n, r, stream)
+        return lambda: f(*ptr, pn.data_ptr(), m, n, r, 0, stream)
+
+    names = [k for k, (kind, _) in fns.items()
+             if pm is not None or kind == "update"]
+    cases = {"condition_update (wrapper)": lambda: condition_update_cuda(
+        phi, i0, la, lb, cm)}
+    agree = {}
+    ship_u = condition_update_cuda(phi, i0, la, lb, cm)
+    if pm is not None:
+        cases["gram_conditional (wrapper)"] = lambda: gram_conditional_cuda(
+            phi, pm)
+        ship_g = gram_conditional_cuda(phi, pm)
+    for name in names:
+        err = call(name)()
+        torch.cuda.synchronize()
+        if err != 0 and name == "gram_tc":     # rank tier 64, or too large
+            agree[name] = {"launch_error": err}
+            continue
+        assert err == 0, (name, err)
+        if fns[name][0] == "gram":
+            agree[name] = {
+                "fk_equal": bool(torch.equal(fk, ship_g)),
+                "fk_max_rel_diff": float((fk - ship_g).abs().max()
+                                         / ship_g.abs().max())}
+        else:
+            agree[name] = {"phin_equal": bool(torch.equal(pn, ship_u)),
+                           "phin_max_diff": float((pn - ship_u).abs().max())}
+        cases[name] = call(name)
+    ms = {k: [] for k in cases}
+    for order in (list(cases), list(cases)[::-1]):
+        for k in order:
+            ms[k].append(_time_ms(cases[k]))
+    return {"operands": tag, "n": n, "r": r, "rows": m, "ms": ms,
+            "staged": None, "vs_shipped": agree}
+
+
+def _factor_family_vs_baseline(libs, stream):
+    """dim_step, cdf_bracket_factor, factor_conditional and odim_step of
+    this checkout against the baseline's on lz40n33_ck's operands at
+    dimension 20 of the last level and on random ones: equal bit for
+    bit?"""
+    raw, ortho = _lz40_operands(1 << 16)
+    cases = [("lz40n33_ck dim 20", raw, ortho)]
+    rng = np.random.default_rng(5)
+    for n, r in ((17, 19), (9, 8), (9, 64)):
+        rr = _random_operands(1 << 14, n, r, rng)
+        cases.append((f"random ({n}, {r})", rr,
+                      [rr[0], rr[1], rr[2], rr[3], rr[5], rr[6]]))
+    dim_b = ctypes.CDLL(libs["dim_base"]).dim_step_launch
+    dim_b.argtypes = [P] * 9 + [I] * 5 + [P]
+    cbf_b = ctypes.CDLL(libs["factor_base"]).cdf_bracket_factor_launch
+    cbf_b.argtypes = [P] * 7 + [I] * 5 + [P]
+    fc_b = ctypes.CDLL(libs["fc_base"]).factor_conditional_launch
+    fc_b.argtypes = [P, P, P, I, I, I, I, P]
+    od_b = ctypes.CDLL(libs["odim_base"]).odim_step_launch
+    od_b.argtypes = [P] * 8 + [I] * 5 + [P]
+    out = {}
+    for tag, raw, ortho in cases:
+        phi, qp, um, bm, cm, h, xg = raw
+        m, r = phi.shape
+        n = xg.shape[1]
+        ptr = [a.data_ptr() for a in raw]
+        optr = [a.data_ptr() for a in ortho]
+        pn, o9 = torch.empty_like(phi), torch.empty((m, 9), device="cuda")
+        i0 = torch.empty((m,), dtype=torch.int32, device="cuda")
+        fk = torch.empty((m, n), device="cuda")
+        eq = {}
+        sp, so = dim_step_cuda(*raw)
+        assert dim_b(*ptr, pn.data_ptr(), o9.data_ptr(), m, n, r, 0, 0,
+                     stream) == 0
+        torch.cuda.synchronize()
+        eq["dim_step"] = torch.equal(pn, sp) and torch.equal(o9, so)
+        so, si = cdf_bracket_factor_cuda(phi, qp, bm, h, xg)
+        assert cbf_b(*ptr[:2], ptr[3], *ptr[5:], o9.data_ptr(),
+                     i0.data_ptr(), m, n, r, 0, 0, stream) == 0
+        torch.cuda.synchronize()
+        eq["cdf_bracket_factor"] = torch.equal(o9, so) and torch.equal(i0, si)
+        sf = factor_conditional_cuda(phi, bm)
+        assert fc_b(ptr[0], ptr[3], fk.data_ptr(), m, n, r, 0, stream) == 0
+        torch.cuda.synchronize()
+        eq["factor_conditional"] = torch.equal(fk, sf)
+        sp, so = odim_step_cuda(*ortho)
+        assert od_b(*optr, pn.data_ptr(), o9.data_ptr(), m, n, r, 0, 0,
+                    stream) == 0
+        torch.cuda.synchronize()
+        eq["odim_step"] = torch.equal(pn, sp) and torch.equal(o9, so)
+        out[tag] = {k: bool(v) for k, v in eq.items()}
+    return out
+
+
+def step_main(args, card):
+    rows2 = _edited_copy("gram_rows2", [("step.cu", GRAM_ROWS,
+                                         GRAM_ROWS.replace("24 ? 4", "24 ? 2"))])
+    unpadded = _edited_copy("update_unpadded", [
+        ("step.cu", NODE_STRIDE, NODE_STRIDE.replace("odd(rr)", "rr"))])
+    prefix = _edited_copy("update_prefix", [("step.cu", UPDATE_ROW,
+                                             PREFIX_UPDATE)])
+    jobs = {"tc_probe": os.path.join(ROOT, "tools", "tc_probe.cu"),
+            "gram_rows2": os.path.join(rows2, "step.cu"),
+            "update_unpadded": os.path.join(unpadded, "step.cu"),
+            "update_prefix": os.path.join(prefix, "step.cu")}
+    if args.baseline:
+        base = _edited_copy("baseline", [], src=args.baseline)
+        for name, fname in (("step_base", "step.cu"),
+                            ("dim_base", "dim_step.cu"),
+                            ("factor_base", "factor_step.cu"),
+                            ("fc_base", "factor_conditional.cu"),
+                            ("odim_base", "odim_step.cu")):
+            if os.path.exists(os.path.join(base, fname)):
+                jobs[name] = os.path.join(base, fname)
+    ptxas = {}
+    libs = _build_variants(jobs, PACKAGE + ("step",), ptxas)
+    fns = _step_launchers(libs)
+    stream = torch.cuda.current_stream().cuda_stream
+    m = 1 << 18
+    rec = {"card": card, "baseline": args.baseline, "ptxas": ptxas,
+           "timings": [], "gram_accuracy": {}}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}")
+    lz20 = _lz20_levels(m)
+    for (n, r), (level, dims) in lz20.items():
+        tag = f"lz20_ck level {level} (n={n}, r={r})"
+        rec["gram_accuracy"][tag] = _gram_accuracy(dims, fns, stream)
+        rec["timings"].append(_step_timings(
+            f"{tag}, dimension {len(dims) // 2}", dims[len(dims) // 2], fns,
+            stream))
+    del lz20
+    rng = np.random.default_rng(3)
+    for n, r in ((17, 13), (9, 8), (9, 16), (9, 24), (9, 32), (9, 64),
+                 (17, 19), (33, 23)):
+        rec["timings"].append(_step_timings(
+            "random", _gram_operands(m, n, r, rng), fns, stream))
+    rec["timings"].append(_step_timings(
+        "hi_step=\"bracket\", lz40n33_ck last level, dimension 20",
+        _bracket_update_operands(m), fns, stream))
+    lib = step_lib()
+    for row in rec["timings"]:
+        row["staged"] = bool(lib.condition_update_staged(row["n"], row["r"]))
+    if "dim_base" in libs:
+        rec["factor_family_equal_to_baseline"] = _factor_family_vs_baseline(
+            libs, stream)
+    for tag, acc in rec["gram_accuracy"].items():
+        print(f"gram_conditional fk vs f64 per dimension, {tag}: "
+              + json.dumps(acc) + f" ({card})")
+    for row in rec["timings"]:
+        parts = ", ".join(f"{k} {min(v):.4f}" for k, v in row["ms"].items())
+        print(f"ms on {row['operands']} operands, n={row['n']}, "
+              f"r={row['r']}, {row['rows']} rows (best of 2; core staged: "
+              f"{row['staged']}): {parts}; vs shipped "
+              f"{json.dumps(row['vs_shipped'])} ({card})")
+    if "dim_base" in libs:
+        print("factor-family kernels equal to the baseline's: "
+              + json.dumps(rec["factor_family_equal_to_baseline"]))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tc_variants_step.json"),
               "w") as fh:
         json.dump(rec, fh, indent=1)
     return 0

@@ -78,12 +78,16 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gram_conditional_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.gram_conditional_launch.restype = i
-        lib.condition_update_launch.argtypes = [p] * 6 + [i, i, i, p]
+        lib.condition_update_launch.argtypes = [p] * 6 + [i, i, i, i, p]
         lib.condition_update_launch.restype = i
         for f in ("step_max_n", "step_max_r"):
             getattr(lib, f).restype = i
-        lib.gram_conditional_smem_bytes.argtypes = [i, i]
-        lib.gram_conditional_smem_bytes.restype = ctypes.c_longlong
+        for f in ("gram_conditional", "condition_update"):
+            fn = getattr(lib, f + "_smem_bytes")
+            fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
+        for f in ("gram_conditional_rows", "condition_update_staged"):
+            getattr(lib, f).argtypes = [i, i]
+            getattr(lib, f).restype = i
         lib._typed = True
     return lib
 
@@ -135,14 +139,15 @@ def condition_update_cuda(phi, i0, la, lb, cmat):
         "la": (la, f32, (m,)), "lb": (lb, f32, (m,)),
         "cmat": (cmat, f32, (n, r * r))})
     lib = _lib()
-    # the kernel stages nothing: it reads the two core slices from cmat
-    check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(), 0)
+    check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
+                      lib.condition_update_smem_bytes(n, r))
     phin = torch.empty((m, r), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         err = lib.condition_update_launch(
             phi.data_ptr(), i0.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            cmat.data_ptr(), phin.data_ptr(), m, n, r, stream)
+            cmat.data_ptr(), phin.data_ptr(), m, n, r, phi.device.index,
+            stream)
     if err != 0:
         raise RuntimeError(f"condition_update kernel launch failed: "
                            f"cudaError {err}")
