@@ -39,9 +39,12 @@ Phases (any failure raises; nothing falls back to the CPU):
      sets with the 'f64' serve of the --seed set beside it, and one
      profiled call split by kernel name;
   7. path B: tt_irt_sqr(precision="f32") and fused_irt_sqr on the bench
-     TT at 2^log2n seeds, each against the f64 path on the card;
+     TT at 2^log2n seeds, each against the f64 path on the card, and one
+     fused_irt_sqr call split into build_fused_data and the kernel call;
   8. time those three kernels, their plain versions and, for
      gram_conditional, the one einsum that computes the same function;
+     print the whole-transform kernel's launch plan and the L2 reads of
+     its staging;
   9. count, per level of lz40n33_ck and in both bases, the share of
      nodes whose fk is below 2^-8 of its row's largest (the nodes
      factor_conditional recomputes in f32); hold factor_conditional,
@@ -74,8 +77,9 @@ Phases (any failure raises; nothing falls back to the CPU):
      each kernel and its matmul in turns, with their ratio; and
      condition_update at that shape, on the bracket and weights
      hi_step="bracket" gives it there, with its bound.
-The timing lines of phases 8 and 12 print beside condition_update's and
-gram_conditional's times those of their previous designs (BEFORE_MS).
+The timing lines of phases 8 and 12 print beside condition_update's,
+gram_conditional's and fused_irt_sqr's times those of their previous
+designs (BEFORE_MS).
 Bounds: the products phi B (and gram_conditional's and the whole
 transform's contractions) against the TF32 tensor-core peak three times
 over (3xTF32), the rest against the FP32 peak, bytes against HBM; the
@@ -132,10 +136,11 @@ FUSED_LF_SHARE = 0.999
 # The previous designs' times (ms, 2^18 rows), as this script measured
 # them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, the kernel table):
 # condition_update reading its core slices from L2 (at n=33, r=23 from
-# path D's trace), gram_conditional one row a thread.  Printed only, as
+# path D's trace), gram_conditional and fused_irt_sqr one row a thread
+# (the latter on the bench TT).  Printed only, as
 # "before"; the kernels line holds this run's times alone.
 BEFORE_MS = {"condition_update": 0.1342, "condition_update_n33_r23": 0.194,
-             "gram_conditional": 0.1724}
+             "gram_conditional": 0.1724, "fused_irt_sqr": 5.6453}
 
 
 def _lap(run, name):
@@ -1004,6 +1009,27 @@ def _path_b(run, tt_b, grids_b):
               f"the f64 path on the card: samples max {dx:.3e} p99 "
               f"{dx99:.3e}, log-density max {dl:.3e} p99 {dl99:.3e} "
               f"({card})", flush=True)
+    # the fused call split: the f64 preparation of its operands, then
+    # the kernel (its wrapper packs them and launches once)
+    from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_cuda
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = tp.build_fused_data(tt_b, grids_b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    q32 = q.float().contiguous()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fused_irt_sqr_cuda(q32, data["p2"], data["coreu"], data["x"], data["h"])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    rec.update(b_fused_prepare_s=t1 - t0, b_fused_kernel_call_s=t3 - t2)
+    print(f"path B fused call split (one call after the best of 3): "
+          f"build_fused_data {t1 - t0:.4f} s, kernel call (pack and one "
+          f"launch) {t3 - t2:.4f} s, of the best call's "
+          f"{rec['b_fused_best_s']:.4f} s ({card})", flush=True)
+    del data, q32
     # the JAX package's bars for these paths against f64: at the
     # maximum for the two-sided per-dimension path, at the 99th
     # percentile for the one-sided whole-transform kernel (_compare_fused)
@@ -1021,8 +1047,10 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
     ``gram_tags``."""
     import torch
 
-    from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
-                                                fused_irt_sqr_ref)
+    from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_plan,
+                                                fused_irt_sqr_cuda,
+                                                fused_irt_sqr_ref,
+                                                fused_layout)
     from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
                                            condition_update_ref,
                                            gram_conditional_cuda,
@@ -1067,6 +1095,14 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
     ops_b = (qb.float().contiguous(), data_b["p2"], data_b["coreu"],
              data_b["x"], data_b["h"])
     f_ms = _time_ms(lambda: fused_irt_sqr_cuda(*ops_b), 5)
+    # L2 reads of the kernel's staging: a block copies every dimension's
+    # packed block once for each group of 4 warp jobs (32 x rows rows a
+    # job) of its even share of the jobs
+    f_rows, f_bufs, _, f_grid = fused_irt_plan(nb_, rb, mb)
+    f_jobs = -(-mb // (32 * f_rows))
+    f_groups = sum(-(-((g + 1) * f_jobs // f_grid - g * f_jobs // f_grid)
+                     // 4) for g in range(f_grid))
+    f_l2 = f_groups * db * fused_layout(nb_, rb)[2] * 4
     f_plain = _time_ms(lambda: fused_irt_sqr_ref(*ops_b), 2)
     f_tc = 2 * rb * rb * nb_                  # the contraction, per dim
     f_rest = rb * rb + (5 * rb * rb + 2 * rb) + 10 * nb_
@@ -1078,7 +1114,9 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
                update_ms=u_ms, update_plain_ms=u_plain,
                update_bound_ms=u_bound[0], cdf_invert_torch_ms=cdf_ms,
                fused_ms=f_ms, fused_plain_ms=f_plain,
-               fused_bound_ms=f_bound[0], fused_bound_fp32_ms=f_fp32)
+               fused_bound_ms=f_bound[0], fused_bound_fp32_ms=f_fp32,
+               fused_rows_a_thread=f_rows, fused_buffers=f_bufs,
+               fused_grid=f_grid, fused_staging_l2_bytes=f_l2)
     print(f"at {mb} rows (lz20 level: n={na}, r={ra}): gram_conditional "
           f"kernel {g_ms:.4f} ms (before {BEFORE_MS['gram_conditional']}), "
           f"plain {g_plain:.4f} ms, einsum "
@@ -1087,7 +1125,10 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
           f"{BEFORE_MS['condition_update']}), plain {u_plain:.4f} ms, "
           f"bound {u_bound[0]:.4f} ms ({u_bound[1]}); _cdf_invert in "
           f"PyTorch between them {cdf_ms:.4f} ms.  Bench TT (d={db}, "
-          f"n={nb_}, r={rb}): fused_irt_sqr kernel {f_ms:.4f} ms, plain "
+          f"n={nb_}, r={rb}): fused_irt_sqr kernel {f_ms:.4f} ms (before "
+          f"{BEFORE_MS['fused_irt_sqr']}; {f_rows} rows a thread, "
+          f"{f_bufs} staging buffers, {f_grid} blocks, staging L2 reads "
+          f"{f_l2 / 1e9:.3f} GB a call), plain "
           f"{f_plain:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]}); "
           f"bounds against {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32 "
           f"(x{TF32_SPLIT}) for the products, "

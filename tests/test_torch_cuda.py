@@ -329,8 +329,12 @@ def _fused_operands(m, d, n, r, seed):
     return torch.from_numpy(q).float().cuda(), data
 
 
+# The whole-transform kernel's shapes: SHAPES and rank tiers 8-32 at n=9.
+FUSED_SHAPES = SHAPES + [(9, 8), (9, 16), (9, 24), (9, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", SHAPES[:4])
+@pytest.mark.parametrize("n,r", FUSED_SHAPES)
 def test_fused_irt_kernel_matches_plain_on_card(n, r):
     """The whole-transform kernel against its plain version in f64 on
     the same f32 operands (d=6): as accurate as the plain f32 version.
@@ -367,6 +371,109 @@ def test_fused_irt_kernel_matches_plain_on_card(n, r):
         assert st["k50"] <= 2.0 * st["r50"] + 1e-6, st
         assert st["k99"] <= 2.0 * st["r99"] + 1e-6, st
         assert st["kout"] <= 2 * st["rout"] + rows // 1000, st
+
+
+def _parent_fused_smem(n, r):
+    """Shared memory of a block of the one-row-a-thread whole-transform
+    kernel this one replaced (its fused_irt_smem_bytes): P padded to the
+    rank tier, the core, one fk and one phi column a thread, the grid and
+    the spacings."""
+    tier = 8 if r <= 8 else 16 if r <= 16 else 24 if r <= 24 else \
+        32 if r <= 32 else 64
+    return 4 * (n * r * tier + n * r * r + (n + r) * 128 + 2 * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 128, 129, 4096 + 7])
+@pytest.mark.parametrize("n,r", [(17, 13), (33, 23), (9, 40), (9, 32)])
+def test_fused_irt_kernel_masks_the_last_tile_on_card(m, n, r):
+    """A ragged last tile (512 rows at four rows a thread, 256 at two,
+    128 at one), its warps wholly past the last row idle, leaves every
+    row as the full run computes it and writes nothing past the last
+    row: samples and log-densities equal those of
+    the same rows inside a larger run bit for bit, and the guard words
+    after them stay as they were.  (33, 23) runs single-buffered, (9, 40)
+    one row a thread, (9, 32) two."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops.fused_irt import (_lib, fused_layout,
+                                                pack_fused)
+
+    q, data = _fused_operands(4096 + 7, 5, n, r, m + n)
+    ops = (data["p2"], data["coreu"], data["x"], data["h"])
+    xf, lf = fused_irt_sqr_cuda(q, *ops)
+    d = q.shape[1]
+    _, cstride, block = fused_layout(n, r)
+    pack = pack_fused(*ops)
+    xo = torch.full((m + 600, d), 7.0, device="cuda")
+    lo = torch.full((m + 600,), 7.0, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _lib().fused_irt_launch(
+        q.data_ptr(), pack.data_ptr(), xo.data_ptr(), lo.data_ptr(), m, d,
+        n, r, cstride, block, q.device.index, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(xo[:m], xf[:m]) and torch.equal(lo[:m], lf[:m])
+    assert bool((xo[m:] == 7.0).all()) and bool((lo[m:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,rows,buffers", [
+    (17, 13, 4, 2), (17, 19, 4, 1), (33, 23, 4, 1), (9, 40, 1, 1),
+    (9, 24, 4, 1), (9, 32, 2, 1), (64, 16, 1, 1), (42, 24, 1, 1)])
+def test_fused_irt_single_buffer_where_two_do_not_fit_on_card(
+        n, r, rows, buffers):
+    """The launch plan takes the rank tier's rows a thread where they fit,
+    else one row, and of one or two staging buffers the instance with
+    more resident blocks up to two an SM (two buffers on a tie): at
+    (17, 19), (9, 24) and (9, 32) two buffers leave room for one block an
+    SM, one buffer for two; at
+    (33, 23) and (9, 40) two do not fit at all (at (33, 23) they alone
+    take 286 KB).  Where it takes one buffer, the single-buffered
+    instance runs and is as accurate as the plain version (the 99th
+    percentile of its error against the f64 plain run at most twice the
+    plain f32 version's plus 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops.fused_irt import fused_irt_plan, fused_layout
+
+    got_rows, got_bufs, smem, _ = fused_irt_plan(n, r)
+    assert (got_rows, got_bufs) == (rows, buffers)
+    block = fused_layout(n, r)[2]
+    slots = rows * max(n, r) * 128
+    assert smem == 4 * (got_bufs * block + slots) <= 232448
+    if (n, r) in ((33, 23), (9, 40)):
+        assert 4 * (2 * block + slots) > 232448
+    if got_bufs == 1:
+        q, data = _fused_operands(1024 + 3, 4, n, r, 3 * n + r)
+        ops = (q, data["p2"], data["coreu"], data["x"], data["h"])
+        xk, lk = fused_irt_sqr_cuda(*ops)
+        x64, l64 = fused_irt_sqr_ref(*(t.double() for t in ops))
+        xr, lr = fused_irt_sqr_ref(*ops)
+        for k, p_, ref in ((xk, xr, x64), (lk, lr, l64)):
+            ek = torch.quantile((k.double() - ref).abs().reshape(
+                k.shape[0], -1).amax(1), 0.99)
+            ep = torch.quantile((p_.double() - ref).abs().reshape(
+                k.shape[0], -1).amax(1), 0.99)
+            assert float(ek) <= 2.0 * float(ep) + 1e-6, (ek, ep)
+
+
+@pytest.mark.cuda
+def test_fused_irt_kernel_takes_every_parent_shape_on_card():
+    """Every (n, r) within the caps that the one-row-a-thread kernel took
+    (its shared memory within 227 KB) has a launch plan within 227 KB."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops.fused_irt import fused_irt_plan
+
+    missed = []
+    for n in range(2, 65):
+        for r in range(1, 65):
+            if _parent_fused_smem(n, r) > 232448:
+                continue
+            rows, _, smem, grid = fused_irt_plan(n, r)
+            if rows == 0 or smem > 232448 or grid != 1:
+                missed.append((n, r))
+    assert not missed, missed
 
 
 @pytest.mark.cuda

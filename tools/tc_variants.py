@@ -61,6 +61,35 @@ uniform seeds reach there through the plain chain), of path B's shape
 hi_step="bracket" at lz40n33_ck's last level, dimension 20 (33, 23), for
 condition_update.  Every variant's ptxas registers and spills are
 printed.  Output in chiprun_out/tc_variants_step.json.
+
+    python3 tools/tc_variants.py --fused [--baseline CSRC]
+
+times the whole-transform kernel of csrc/fused_irt.cu (design CU,
+shipped: rows blocked in registers on the FP32 cores, the next
+dimension's block copied in while this one computes) beside:
+  - design T, tools/fused_tc.cu: the same loop with the Gram contraction
+    as 3xTF32 wgmma and a Gram epilogue, one row a thread (rank tiers
+    8-32, where its operands fit);
+  - one single-edit variant for each of the design's four items:
+    "rows1" (one row a thread), "single_buffer" (the block copied in
+    between two barriers), "two_buffers" (two wherever they fit) and
+    "most_blocks" (of one or two, the plan with more resident blocks; the
+    shipped plan counts them up to two an SM, two buffers on a tie),
+    "stride_rr" (the shipped kernel on an operand
+    packed at core node stride r^2) and "i_to_tier" (the prefix update's
+    loop over i unrolled to the rank tier from registers,
+    row_common.cuh's prefix_update);
+  - the shipped kernel through its C entry point (operand packed once)
+    and through its Python wrapper ("(wrapper)": the host's packing of
+    the operand and its checks included);
+  - with --baseline, the other checkout's fused_irt.cu (the C interface
+    of the one-row-a-thread kernel: q, p2, coreu, x, h).
+Operands: the bench TT (d=40, n=17, r=13; chip_smoke.build_tt) at 2^18
+uniform seeds, and random TTs of the same family (d=16) at every shape
+(n, r) of the card tests.  Each variant's samples and log-densities are
+held against the baseline's (else the shipped kernel's), bit for bit or
+by their largest difference; ptxas registers and spills of every build.
+Output in tc_variants_fused.json in chip_smoke.py's output directory.
 The variants are built from the sources in tt_irt_tpu_torch/csrc with
 one text edit each (the script stops if an edit no longer applies) into
 build/variants, with the package's nvcc flags, all nvcc at once beside
@@ -415,6 +444,9 @@ def main(argv=None):
     ap.add_argument("--baseline", help="another checkout's csrc directory")
     ap.add_argument("--step", action="store_true",
                     help="the Gram-step kernels of csrc/step.cu only")
+    ap.add_argument("--fused", action="store_true",
+                    help="the whole-transform kernel of csrc/fused_irt.cu "
+                         "only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tc_variants: torch.cuda is not available", file=sys.stderr)
@@ -427,6 +459,8 @@ def main(argv=None):
     os.makedirs(OUT, exist_ok=True)
     if args.step:
         return step_main(args, card)
+    if args.fused:
+        return fused_main(args, card)
     one = _edited_copy("one_pass", [("tc_dim.cuh", FIRST_PASS, ONE_PASS)])
     wg2 = _edited_copy("wg2", [("tc_conditional.cuh", WARPGROUPS,
                                 WARPGROUPS.replace("t == 24 ? 3 : 2", "2"))])
@@ -802,6 +836,222 @@ def step_main(args, card):
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tc_variants_step.json"),
               "w") as fh:
+        json.dump(rec, fh, indent=1)
+    return 0
+
+
+# ---- the whole-transform kernel (--fused) ----
+
+FUSED_ROWS = ("constexpr int fused_rows() { return T <= 24 ? 4 : T <= 32 ? 2 "
+              ": 1; }")
+FUSED_BUFFERS = "constexpr int kBuffers = 2;"
+FUSED_CHOICE = "const int score = cap < 2 * sms ? cap : 2 * sms;"
+FUSED_UPDATE = """        update_strided<RMAX>(prow, kCol, st[t].la, st[t].lb, ca, ca + cstride,
+                             r, acc);
+"""
+FUSED_PREFIX = """        prefix_update<RMAX>(p[t], st[t].la, st[t].lb, ca, ca + cstride, r,
+                            acc);
+"""
+FUSED_SHAPES = ((17, 5), (17, 13), (17, 19), (33, 23), (9, 40), (9, 8),
+                (9, 16), (9, 24), (9, 32))
+
+
+def _tf32_round(v):
+    """csrc/tc_conditional.cuh's tf32_round on an f32 tensor: round to
+    10 explicit mantissa bits, ties to even, by integer arithmetic."""
+    u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    u = torch.where(u >= 1 << 31, u - (1 << 32), u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def pack_tc(p2, coreu, x, h):
+    """Design T's operand (d, block) and (cstride, block): per dimension
+    P~'s tf32 hi and lo parts (P~[i, x*r + j] = P[i*r + j, x], zero-padded
+    to the rank tier T) in the core-matrix layout of
+    tc_conditional.cuh's core_offset, the core at node stride r*r made
+    odd, the grid and the spacings, padded to a multiple of 32 floats."""
+    d, rr, n = p2.shape
+    r = int(round(rr ** 0.5))
+    t = 8 if r <= 8 else 16 if r <= 16 else 24 if r <= 24 else 32
+    i, j = np.meshgrid(np.arange(t), np.arange(t), indexing="ij")
+    off = ((i >> 2) * (t // 8) + (j >> 3)) * 32 + (j & 7) * 4 + (i & 3)
+    pt = torch.zeros((d, n, t, t), device=p2.device)
+    pt[:, :, :r, :r] = p2.reshape(d, r, r, n).permute(0, 3, 1, 2)
+    v = torch.zeros((d, n, t * t), device=p2.device)
+    v[:, :, torch.from_numpy(off.reshape(-1)).to(p2.device)] = pt.reshape(
+        d, n, t * t)
+    hi = _tf32_round(v)
+    lo = v - hi
+    cstride = rr | 1
+    cn = torch.nn.functional.pad(coreu, (0, cstride - rr))
+    pack = torch.cat([hi.reshape(d, -1), lo.reshape(d, -1),
+                      cn.reshape(d, -1), x, h], dim=1)
+    block = -(-pack.shape[1] // 32) * 32
+    return (torch.nn.functional.pad(pack, (0, block - pack.shape[1]))
+            .contiguous(), cstride, block)
+
+
+def _fused_operands(d, n, r, m, seed):
+    """build_fused_data of chip_smoke.build_tt(d, n, r, seed) on the grid
+    linspace(-2, 2, n), and m uniform seeds."""
+    import tt_irt_tpu_torch as tp
+    from chip_smoke import build_tt
+
+    tt = tp.tt_from_numpy(build_tt(d, n, r, seed), device="cuda")
+    grid = torch.linspace(-2.0, 2.0, n, dtype=torch.float64, device="cuda")
+    data = tp.build_fused_data(tt, [grid] * d)
+    q = torch.from_numpy(np.random.default_rng(seed + 7).uniform(
+        size=(m, d))).float().cuda()
+    return q, data
+
+
+def _fused_launchers(libs):
+    """{name: (kind, fn)}: kind "pack" (the shipped C interface),
+    "tc" (design T) or "base" (the one-row-a-thread kernel's)."""
+    from tt_irt_tpu_torch.ops.fused_irt import _lib as fused_lib
+
+    out = {"shipped": ("pack", fused_lib().fused_irt_launch),
+           "stride_rr": ("pack", fused_lib().fused_irt_launch)}
+    for name in ("rows1", "single_buffer", "two_buffers", "most_blocks",
+                 "i_to_tier"):
+        f = ctypes.CDLL(libs[f"fused_{name}"]).fused_irt_launch
+        f.argtypes = [P] * 4 + [I] * 7 + [P]
+        out[name] = ("pack", f)
+    f = ctypes.CDLL(libs["fused_tc"]).fused_tc_launch
+    f.argtypes = [P] * 4 + [I] * 7 + [P]
+    out["design_T"] = ("tc", f)
+    if "fused_base" in libs:
+        f = ctypes.CDLL(libs["fused_base"]).fused_irt_launch
+        f.argtypes = [P] * 7 + [I] * 4 + [P]
+        out["parent"] = ("base", f)
+    return out
+
+
+def _fused_timings(tag, q, data, fns, stream, reps):
+    """Every build on one operand set, in turns (list, then reversed);
+    each one's outputs against the parent's (else the shipped kernel's)."""
+    from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_plan,
+                                                fused_irt_sqr_cuda,
+                                                fused_layout, pack_fused)
+
+    m, d = q.shape
+    n, r = data["n"], data["r"]
+    ops = (data["p2"], data["coreu"], data["x"], data["h"])
+    packs = {"pack": pack_fused(*ops), "stride_rr": pack_fused(
+        *ops, cstride=r * r)}
+    lay = {"pack": fused_layout(n, r)[1:],
+           "stride_rr": fused_layout(n, r, r * r)[1:]}
+    # design T has no instance above rank tier 32
+    tc_pack, tc_cs, tc_block = pack_tc(*ops) if r <= 32 else (None, 0, 0)
+    outs = {}
+
+    def call(name):
+        kind, f = fns[name]
+        xo = torch.empty((m, d), device="cuda")
+        lo = torch.empty((m,), device="cuda")
+        outs[name] = (xo, lo)
+        if kind == "base":
+            args = [t.data_ptr() for t in (q, *ops)]
+            return lambda: f(*args, xo.data_ptr(), lo.data_ptr(), m, d, n, r,
+                             stream)
+        if kind == "tc":
+            return lambda: f(q.data_ptr(), tc_pack.data_ptr(), xo.data_ptr(),
+                             lo.data_ptr(), m, d, n, r, tc_cs, tc_block, 0,
+                             stream)
+        key = "stride_rr" if name == "stride_rr" else "pack"
+        cs, block = lay[key]
+        pk = packs[key]
+        return lambda: f(q.data_ptr(), pk.data_ptr(), xo.data_ptr(),
+                         lo.data_ptr(), m, d, n, r, cs, block, 0, stream)
+
+    cases, errors = {}, {}
+    for name in fns:
+        if name == "design_T" and tc_pack is None:
+            errors[name] = "rank tier 64"
+            continue
+        fn = call(name)
+        err = fn()
+        torch.cuda.synchronize()
+        if err != 0:                  # design T beyond its tiers or memory
+            errors[name] = err
+            continue
+        cases[name] = fn
+    cases["shipped (wrapper)"] = lambda: fused_irt_sqr_cuda(q, *ops)
+    ref = "parent" if "parent" in cases else "shipped"
+    xr, lr = outs[ref]
+    agree = {}
+    for name in cases:
+        if name not in outs or name == ref:
+            continue
+        xo, lo = outs[name]
+        agree[name] = {
+            "equal": bool(torch.equal(xo, xr) and torch.equal(lo, lr)),
+            "x_max_diff": float((xo - xr).abs().max()),
+            "lf_max_diff": float((lo - lr).abs().max()),
+            "finite": bool(torch.isfinite(xo).all()
+                           and torch.isfinite(lo).all())}
+    ms = {k: [] for k in cases}
+    for order in (list(cases), list(cases)[::-1]):
+        for k in order:
+            ms[k].append(_time_ms(cases[k], reps))
+    rows, bufs, smem, grid = fused_irt_plan(n, r, m)
+    return {"operands": tag, "n": n, "r": r, "d": d, "rows": m, "ms": ms,
+            "plan": {"rows_a_thread": rows, "buffers": bufs,
+                     "smem_bytes": smem, "grid": grid},
+            "launch_errors": errors, "vs": ref, "agree": agree}
+
+
+def fused_main(args, card):
+    rows1 = _edited_copy("fused_rows1", [("fused_irt.cu", FUSED_ROWS,
+                                          FUSED_ROWS.replace(
+                                              "T <= 24 ? 4 : T <= 32 ? 2 : 1",
+                                              "1"))])
+    single = _edited_copy("fused_single_buffer", [
+        ("fused_irt.cu", FUSED_BUFFERS, FUSED_BUFFERS.replace("2", "1"))])
+    tier = _edited_copy("fused_i_to_tier", [("fused_irt.cu", FUSED_UPDATE,
+                                             FUSED_PREFIX)])
+    two = _edited_copy("fused_two_buffers", [
+        ("fused_irt.cu", FUSED_CHOICE, "const int score = b;")])
+    most = _edited_copy("fused_most_blocks", [
+        ("fused_irt.cu", FUSED_CHOICE, "const int score = cap;")])
+    jobs = {"fused_rows1": os.path.join(rows1, "fused_irt.cu"),
+            "fused_single_buffer": os.path.join(single, "fused_irt.cu"),
+            "fused_i_to_tier": os.path.join(tier, "fused_irt.cu"),
+            "fused_two_buffers": os.path.join(two, "fused_irt.cu"),
+            "fused_most_blocks": os.path.join(most, "fused_irt.cu"),
+            "fused_tc": os.path.join(ROOT, "tools", "fused_tc.cu")}
+    if args.baseline:
+        base = _edited_copy("fused_baseline", [], src=args.baseline)
+        jobs["fused_base"] = os.path.join(base, "fused_irt.cu")
+    ptxas = {}
+    libs = _build_variants(jobs, ("fused_irt",), ptxas)
+    fns = _fused_launchers(libs)
+    stream = torch.cuda.current_stream().cuda_stream
+    rec = {"card": card, "baseline": args.baseline, "ptxas": ptxas,
+           "timings": []}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}")
+    q, data = _fused_operands(40, 17, 13, 1 << 18, 0)
+    rec["timings"].append(_fused_timings(
+        "bench TT (d=40, n=17, r=13)", q, data, fns, stream, 10))
+    del q, data
+    for n, r in FUSED_SHAPES:
+        q, data = _fused_operands(16, n, r, 1 << 18, n + r)
+        rec["timings"].append(_fused_timings(
+            f"random TT (d=16, n={n}, r={r})", q, data, fns, stream, 5))
+        del q, data
+    for row in rec["timings"]:
+        parts = ", ".join(f"{k} {min(v):.4f}" for k, v in row["ms"].items())
+        print(f"fused ms on {row['operands']}, {row['rows']} rows (best of "
+              f"2; plan {json.dumps(row['plan'])}): {parts}; launch errors "
+              f"{json.dumps(row['launch_errors'])}; vs {row['vs']}: "
+              f"{json.dumps(row['agree'])} ({card})", flush=True)
+    from chip_smoke import OUT_DIR
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "tc_variants_fused.json"), "w") as fh:
         json.dump(rec, fh, indent=1)
     return 0
 

@@ -1,10 +1,9 @@
 // Pieces shared by the port's row kernels (dim_step.cu, odim_step.cu,
 // factor_step.cu, factor_conditional.cu, step.cu, fused_irt.cu): the
-// rank tiers, the Gram conditional of one row on the CUDA cores
-// (tc_conditional.cuh has the factor conditional of a tile on the tensor
-// cores), the two-sided CDF with its bracket and readout, the f32 cell
-// weight, the prefix update, the shared-memory opt-in, and the cached
-// launch geometry of a persistent kernel.
+// rank tiers, the two-sided CDF with its bracket and readout, the f32
+// cell weight, the prefix update, the shared-memory opt-in, and the
+// cached launch geometry of a persistent kernel.  tc_conditional.cuh
+// has the factor conditional of a tile on the tensor cores.
 
 #pragma once
 
@@ -172,59 +171,6 @@ __device__ __forceinline__ float cell_weight(const Bracket& b, float q) {
     xk = invert_quadratic(b.f1, b.f2, b.c1, b.qt, b.x1, b.x2);
   }
   return fminf(fmaxf((b.x2 - xk) / (b.x2 - b.x1), 0.0f), 1.0f);
-}
-
-// Stage a Gram field P (r*r, n), P[i*r + j, x], into shared memory
-// regrouped by node: ps[(x*r + i)*RMAX + j] = P[i*r + j, x].  Reads
-// follow P's row-major order.  The lanes j >= r are not written:
-// zero_gram_pad clears them once.
-template <int RMAX>
-__device__ __forceinline__ void stage_gram(float* ps, const float* pmat,
-                                           int n, int r) {
-  const int rr = r * r;
-  for (int idx = threadIdx.x; idx < rr * n; idx += blockDim.x) {
-    const int ij = idx / n;
-    const int x = idx - ij * n;
-    const int i = ij / r;
-    const int j = ij - i * r;
-    ps[(x * r + i) * RMAX + j] = pmat[idx];
-  }
-}
-
-template <int RMAX>
-__device__ __forceinline__ void zero_gram_pad(float* ps, int n, int r) {
-  for (int idx = threadIdx.x; idx < n * r * (RMAX - r); idx += blockDim.x) {
-    const int xi = idx / (RMAX - r);
-    const int j = r + (idx - xi * (RMAX - r));
-    ps[xi * RMAX + j] = 0.0f;
-  }
-}
-
-// fk at one grid node for this thread's row: sum_i phi_i (sum_j P_ij
-// phi_j), for a general P.  pnode is the node's (r, RMAX) block of the
-// staged field, read as float4 broadcasts; p holds phi in registers for
-// the inner product over j, phicol is the thread's phi column in shared
-// memory (stride kThreads) for the outer factor, whose index runs over
-// the true rank.
-template <int RMAX>
-__device__ __forceinline__ float gram_node(const float* pnode,
-                                           const float* phicol,
-                                           const float (&p)[RMAX], int r) {
-  float f = 0.0f;
-  for (int i = 0; i < r; ++i) {
-    const float4* pc = reinterpret_cast<const float4*>(pnode + i * RMAX);
-    float v = 0.0f;
-#pragma unroll
-    for (int j4 = 0; j4 < RMAX / 4; ++j4) {
-      const float4 b = pc[j4];
-      v = fmaf(p[4 * j4 + 0], b.x, v);
-      v = fmaf(p[4 * j4 + 1], b.y, v);
-      v = fmaf(p[4 * j4 + 2], b.z, v);
-      v = fmaf(p[4 * j4 + 3], b.w, v);
-    }
-    f = fmaf(phicol[i * kThreads], v, f);
-  }
-  return f;
 }
 
 // acc /= max|acc| over the true rank (floor 1e-30).

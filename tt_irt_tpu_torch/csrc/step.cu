@@ -30,10 +30,11 @@
 // shared memory holds P alone (ps[(x*r + i)*rj + j] = P[i*r + j, x],
 // rj = r rounded up to 4, zero-padded): each float4 feeds 4R FMAs, the
 // inner loop stops at rj, and blocks are small enough to keep many warps
-// resident.  Every row's sum is the one-row-a-thread chain
-// (row_common.cuh: gram_node): v_i = sum_j P_ij phi_j by fmaf over j in
-// order, f = fmaf(phi_i, v_i, f) over i in order, so fk equals that
-// chain's bit for bit (the padding adds exact zeros).  Work goes out by
+// resident.  Every row's sum is the one-row-a-thread chain of the
+// first port's kernel (fused_irt.cu's Gram loop runs the same one):
+// v_i = sum_j P_ij phi_j by fmaf over j in order, f = fmaf(phi_i, v_i, f)
+// over i in order, so fk equals that chain's bit for bit (the padding
+// adds exact zeros).  Work goes out by
 // warp: a warp takes 32R consecutive rows at a time.  fk leaves by rows
 // (n floats a row).
 //

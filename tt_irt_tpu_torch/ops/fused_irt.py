@@ -2,8 +2,10 @@
 
 Counterpart of ``tt_irt_tpu/ops/pallas_irt.py``.  ``build_fused_data``
 prepares the per-dimension operands once (backward pass in f64 with the
-Gram carry, then cast); ``fused_irt_sqr_cuda`` launches the hand-written
-kernel ``csrc/fused_irt.cu`` on CUDA tensors; ``fused_irt_sqr_ref`` is the
+Gram carry, then cast); ``fused_irt_sqr_cuda`` packs them
+(``pack_fused``: each dimension's operands as one contiguous block in the
+layout the kernel stages) and launches the hand-written kernel
+``csrc/fused_irt.cu`` on CUDA tensors; ``fused_irt_sqr_ref`` is the
 same function in plain PyTorch, a Python loop over the dimensions that
 follows the kernel step by step.  ``fused_irt_sqr`` is the public entry
 point.  The inversion is one-sided (from the left, against q * total),
@@ -26,13 +28,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ._build import load_library
 from .rowmath import SMEM_LIMIT, check_cuda_operands, cumsum_rows
 from .step import condition_update_ref, gram_conditional_ref
 
 __all__ = ["build_fused_data", "fused_irt_sqr", "fused_irt_sqr_cuda",
-           "fused_irt_sqr_ref"]
+           "fused_irt_sqr_ref", "fused_layout", "pack_fused", "fused_irt_plan"]
 
 
 def build_fused_data(tt, grids, dtype=torch.float32) -> dict:
@@ -109,18 +112,64 @@ def fused_irt_sqr_ref(q, p2, coreu, x, h):
     return out, lf
 
 
+def fused_layout(n: int, r: int, cstride: int | None = None):
+    """(rj, cstride, block) of one dimension's block of the packed
+    operand: P regrouped by node and padded to rj = r rounded up to 4
+    (n*r*rj floats), the core at node stride cstride (r*r made odd by
+    default, so that rows at different nodes read different banks), the
+    grid (n) and the spacings (n-1), zero-padded to block floats, a
+    multiple of 4 (16-byte copies)."""
+    rj = -(-r // 4) * 4
+    if cstride is None:
+        cstride = (r * r) | 1
+    used = n * r * rj + n * cstride + 2 * n - 1
+    return rj, cstride, -(-used // 4) * 4
+
+
+def pack_fused(p2, coreu, x, h, cstride: int | None = None):
+    """The kernel's operand (d, block): for each dimension k the
+    contiguous block [P_k by node | C_k | x_k | h_k | 0], with
+    block[(x*r + i)*rj + j] = p2[k, i*r + j, x] (j < r; 0 up to rj) and
+    block[n*r*rj + x*cstride + i*r + j] = coreu[k, x, i*r + j]."""
+    d, rr, n = p2.shape
+    r = int(round(rr ** 0.5))
+    rj, cstride, block = fused_layout(n, r, cstride)
+    pn = F.pad(p2.reshape(d, r, r, n).permute(0, 3, 1, 2), (0, rj - r))
+    cn = F.pad(coreu, (0, cstride - rr))
+    pack = torch.cat([pn.reshape(d, -1), cn.reshape(d, -1), x, h], dim=1)
+    return F.pad(pack, (0, block - pack.shape[1])).contiguous()
+
+
 def _lib():
     lib = load_library("fused_irt")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_irt_launch.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.fused_irt_launch.argtypes = [p] * 4 + [i] * 7 + [p]
         lib.fused_irt_launch.restype = i
         for f in ("fused_irt_max_n", "fused_irt_max_r"):
             getattr(lib, f).restype = i
-        lib.fused_irt_smem_bytes.argtypes = [i, i]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.fused_irt_smem_bytes.argtypes = [i] * 5 + [ip] * 3
         lib.fused_irt_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
+
+
+def fused_irt_plan(n: int, r: int, m: int = 1, device: int | None = None):
+    """The kernel's launch plan for m rows at (n, r) on CUDA device
+    ``device`` (default: the current one): (rows a thread, staging
+    buffers, shared-memory bytes of a block, blocks of the grid); rows 0
+    where no plan fits.  Loads the kernel's library (the card's machine
+    only)."""
+    if device is None:
+        device = torch.cuda.current_device()
+    rows, bufs, grid = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = _lib().fused_irt_smem_bytes(
+        n, r, fused_layout(n, r)[2], m, device, ctypes.byref(rows),
+        ctypes.byref(bufs), ctypes.byref(grid))
+    if smem < 0:
+        raise RuntimeError("fused_irt: the launch plan's CUDA query failed")
+    return rows.value, bufs.value, smem, grid.value
 
 
 def fused_irt_sqr_cuda(q, p2, coreu, x, h):
@@ -144,17 +193,19 @@ def fused_irt_sqr_cuda(q, p2, coreu, x, h):
         raise ValueError(f"{fn}: n={n}, r={r} outside the kernel's caps "
                          f"n<={lib.fused_irt_max_n()}, "
                          f"r<={lib.fused_irt_max_r()}")
-    smem = lib.fused_irt_smem_bytes(n, r)
-    if smem > SMEM_LIMIT:
+    rows, _, smem, _ = fused_irt_plan(n, r, m, q.device.index)
+    if rows == 0:
         raise ValueError(f"{fn}: n={n}, r={r} needs {smem} bytes of shared "
                          f"memory (limit {SMEM_LIMIT})")
+    _, cstride, block = fused_layout(n, r)
+    pack = pack_fused(p2, coreu, x, h)
     out = torch.empty((m, d), dtype=torch.float32, device=q.device)
     lf = torch.empty((m,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fused_irt_launch(
-            q.data_ptr(), p2.data_ptr(), coreu.data_ptr(), x.data_ptr(),
-            h.data_ptr(), out.data_ptr(), lf.data_ptr(), m, d, n, r, stream)
+            q.data_ptr(), pack.data_ptr(), out.data_ptr(), lf.data_ptr(), m,
+            d, n, r, cstride, block, q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"fused_irt kernel launch failed: cudaError {err}")
     fused_irt_sqr_cuda.launches += 1
