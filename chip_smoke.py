@@ -77,6 +77,34 @@ Phases (any failure raises; nothing falls back to the CPU):
      each kernel and its matmul in turns, with their ratio; and
      condition_update at that shape, on the bracket and weights
      hi_step="bracket" gives it there, with its bound.
+ 13. lz40_ck: serve 2^log2n 'n3' seeds through the 12 transforms of
+     examples/data/lz40_ck (d=40, n=17, rank buckets 15, 16 and 19) with
+     DirtSampler(precision="auto") -> 'hi': dim_step against its plain
+     version through one level of each shape (_level_checks' rule),
+     launch counts (by shape), finite outputs, the card's first rows and
+     the CPU plain path's each against the 'f64' serve, the first 2^18
+     rows against the 'f64' serve beside the plain versions' 'hi' serve
+     on the card (the kernel path's 99th percentile at most twice the
+     plain path's plus 1e-6, in samples and log-weights), best of 3,
+     N/ESS of six seed sets against the exact posterior (recorded, not
+     gated), iw_prune's isstd, max_ratio and err1, hellinger, and
+     mcmc_prune's seconds at 2^log2n rows;
+ 14. the functional API: tt_dirt_sample on 2^18 seeds equal to
+     DirtSampler bit for bit (lz40n33_ck at 'hi', lz20_ck at 'f32'), each
+     call held to its launch counts; tt_dirt_inverse(tt_dirt_sample(q))
+     at 'f64' on lz10_ck back to q within 1e-6;
+ 15. dirt_round(lz40n33_ck, 1e-2): its ranks, dim_step against its plain
+     version at each rank bucket of ragged_step=4, the serve at 'hi'
+     (launches by shape, best of 3 beside the unrounded stack's, N/ESS of
+     six seed sets) and its first 2^18 rows against its own 'f64' serve
+     by the rule of phase 13;
+ 16. mode 'lin': tt_irt_lin(precision="f32") at 2^log2n seeds on the
+     density TT of a mixture of 12 product Gaussians (d=40, n=17, rank 12,
+     built with tt_add): condition_update against its plain update per
+     dimension (twice its error plus 1e-6) and through the transform,
+     launch counts, the first 2^18 rows against 'f64' by the rule of
+     phase 13, and tt_irt_debias ('iw' and 'mcmc') with the mixture's
+     exact log-density.
 The timing lines of phases 8 and 12 print beside condition_update's,
 gram_conditional's and fused_irt_sqr's times those of their previous
 designs (BEFORE_MS).
@@ -93,6 +121,7 @@ The port only: this script imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -105,6 +134,9 @@ CKPT = os.path.join(DATA, "lz40n33_ck")
 PROBLEM = os.path.join(DATA, "lz40n33")
 CKPT_A = os.path.join(DATA, "lz20_ck")
 PROBLEM_A = os.path.join(DATA, "lz20")
+CKPT_40 = os.path.join(DATA, "lz40_ck")
+PROBLEM_40 = os.path.join(DATA, "lz40")
+CKPT_10 = os.path.join(DATA, "lz10_ck")
 BENCH_SHAPE = (40, 17, 13)      # d, n, rank of the bench TT
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
@@ -816,7 +848,9 @@ def _lz40_path(run):
     # kept for paths C and D, which serve the same seeds
     run.lz40 = types.SimpleNamespace(
         dirt=dirt, lp=lp, seeds=seeds, rows=rows, z_dim=z[:rows].clone(),
-        z64=z64, lw64=le64 - l64, prep_last=prep, q_last=q, best_dim=best)
+        z64=z64, lw64=le64 - l64, prep_last=prep, q_last=q, best_dim=best,
+        shapes=sorted(_launches_by_shape(
+            [sampler._prep0] + sampler._upper, run.nblocks, launches)))
     run.lz40.errs_dim = _f64_errs(z, lfex - lfapp, run.lz40)
     lw_d = ((lfex[:rows] - lfapp[:rows]) - (le64 - l64)).abs()
     rec.update(lz40_rows_f64_vs_hi=rows,
@@ -1792,6 +1826,523 @@ def _factor_timings(run, ortho, kp_abs, launches):
     return entries, update
 
 
+@contextlib.contextmanager
+def _plain_steps():
+    """ops/kernel_plan.py's dispatchers swapped for the plain versions
+    while the block runs: a serve on the card through the same code
+    with no kernel launched (the plain side of the serve gates)."""
+    from tt_irt_tpu_torch.ops import kernel_plan as kp
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_ref,
+                                           condition_update_ref,
+                                           factor_conditional_ref,
+                                           gram_conditional_ref)
+
+    plain = {"dim_step": dim_step_ref, "odim_step": odim_step_ref,
+             "cdf_bracket_factor": cdf_bracket_factor_ref,
+             "factor_conditional": factor_conditional_ref,
+             "gram_conditional": gram_conditional_ref,
+             "condition_update": condition_update_ref}
+    saved = {k: getattr(kp, k) for k in plain}
+    for k, f in plain.items():
+        setattr(kp, k, f)
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(kp, k, f)
+
+
+def _launches_by_shape(preps, nblocks, launches):
+    """dim_step's launches of one served call split by shape (n, r):
+    each prepared level (a rank bucket) launches it once a dimension a
+    block.  Their sum must be ``launches``, the count the wrapper
+    measured for the same call."""
+    by_shape = {}
+    for prep in preps:
+        key = (int(prep.cmat.shape[1]), int(prep.bmat.shape[1]))
+        by_shape[key] = by_shape.get(key, 0) + nblocks * prep.bmat.shape[0]
+    assert sum(by_shape.values()) == launches, (by_shape, launches)
+    return by_shape
+
+
+def _serve_gate(rec, checks, key, kern, plain, ref):
+    """A served f32 path on the card against the 'f64' serve of the same
+    rows, beside the same path through the plain versions (_plain_steps):
+    kern, plain and ref are (samples, log-weight).  Records max and 99th
+    percentile (samples: row maximum) and requires the kernel path's 99th
+    percentile to be at most twice the plain path's plus 1e-6, in samples
+    and in log-weights."""
+    for what, i in (("x", 0), ("lw", 1)):
+        for name, run_ in (("kernel", kern), ("plain", plain)):
+            mx, p99 = _errs(run_[i].double(), ref[i])
+            rec[f"{key}_{what}_{name}_vs_f64_max"] = mx
+            rec[f"{key}_{what}_{name}_vs_f64_p99"] = p99
+        checks[f"{key}_{what}_p99"] = (
+            rec[f"{key}_{what}_kernel_vs_f64_p99"]
+            <= 2.0 * rec[f"{key}_{what}_plain_vs_f64_p99"] + 1e-6)
+
+
+def _dim_level_vs_plain(prep, q, rec, key):
+    """dim_step through one prepared level against its plain version, in
+    'sqr' mode on the seeds q and in 'rt' mode on the f64 run's samples
+    (_level_checks' quantities: samples x, log-density lf, seeds u, their
+    log-density lu, and the round trip |u - q|), each run against the
+    plain version run in f64: the kernel's 99th percentile at most twice
+    the plain version's plus 1e-6, its maximum (an extreme-value
+    statistic over 2^18 rows) at most four times, as _compare_gram_level
+    gates maxima: on lz40_ck the plain version's own maxima move by up
+    to 2.5x when its f32 sums run in another equally valid order, so
+    twice the plain maximum is no bound for the kernel's (PERF.md
+    section 6, tools/probe_level.py).  Returns the checks."""
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
+    from tt_irt_tpu_torch.samplers.irt_scan import _fwd
+
+    x64, l64 = _fwd("sqr", prep, q, step=_plain64)
+    ref = (x64, l64) + _fwd("rt", prep, x64, step=_plain64)
+    runs = {}
+    for name, st in (("kernel", dim_step_cuda), ("plain", dim_step_ref)):
+        runs[name] = _fwd("sqr", prep, q, step=st) + _fwd("rt", prep, x64,
+                                                         step=st)
+    checks = {}
+    for i, what in enumerate(("x", "lf", "u", "lu", "roundtrip")):
+        for name, out in runs.items():
+            got = out[2] if what == "roundtrip" else out[i]
+            mx, p99 = _errs(got, q if what == "roundtrip" else ref[i])
+            rec[f"{key}{what}_{name}_max"] = mx
+            rec[f"{key}{what}_{name}_p99"] = p99
+        for stat, factor in (("max", 4.0), ("p99", 2.0)):
+            checks[f"{key}{what}_{stat}"] = (
+                rec[f"{key}{what}_kernel_{stat}"]
+                <= factor * rec[f"{key}{what}_plain_{stat}"] + 1e-6)
+    rec[f"{key}x_kernel_vs_plain_max"] = float(
+        (runs["kernel"][0] - runs["plain"][0]).abs().max())
+    return checks
+
+
+def _dim_levels_vs_plain(run, preps, q, tag):
+    """dim_step against its plain version through one prepared level of
+    each shape (n, r) of ``preps`` (_dim_level_vs_plain).  Returns the
+    shapes held."""
+    rec = run.rec
+    shapes = {}
+    for level, prep in enumerate(preps):
+        shapes[(prep.cmat.shape[1], prep.bmat.shape[1])] = (level, prep)
+    for (n, r), (level, prep) in sorted(shapes.items()):
+        key = f"{tag}_level{level}_n{n}_r{r}_"
+        checks = _dim_level_vs_plain(prep, q, rec, key)
+        print(f"dim_step vs plain, {tag} level {level} (n={n}, r={r}, "
+              f"{q.shape[0]} rows): " + json.dumps(
+                  {k: v for k, v in rec.items() if k.startswith(key)}),
+              flush=True)
+        failed = [k for k, ok in checks.items() if not ok]
+        assert not failed, f"dim_step vs plain ({tag}, {n}, {r}): {failed}"
+    return sorted(shapes)
+
+
+def _hi_vs_f64(run, sampler, dirt, lp, seeds, z, lfapp, lfex, tag):
+    """The 'hi' serve's first 2^18 rows against the 'f64' serve of the
+    same rows and against the same 'hi' serve through the plain versions
+    on the card (_serve_gate).  Returns (f64 N/ESS, 'hi' N/ESS) on those
+    rows."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev = run.rec, run.dev
+    rows = min(run.m, 1 << 18)
+    q = seeds[:rows]
+    z64, l64 = tp.DirtSampler(dirt, precision="f64", device=dev)(q)
+    le64 = lp(z64)
+    with _plain_steps():
+        zp, lpp = sampler(q)
+    checks = {}
+    _serve_gate(rec, checks, f"{tag}_hi", (z[:rows], lfex[:rows] - lfapp[:rows]),
+                (zp, lp(zp) - lpp), (z64, le64 - l64))
+    print(f"{tag}: the 'hi' serve's first {rows} rows against the 'f64' "
+          f"serve, beside the plain versions' 'hi' serve on the card: "
+          + json.dumps({k: v for k, v in rec.items()
+                        if k.startswith(f"{tag}_hi_")}) + f" ({run.card})",
+          flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"{tag} 'hi' vs 'f64': {failed}"
+    assert bool(torch.isfinite(z64).all())
+    return (float(tp.essinv(le64, l64)),
+            float(tp.essinv(lfex[:rows], lfapp[:rows])))
+
+
+def _lz40_ck_path(run):
+    """Phase 13: serve examples/data/lz40_ck (d=40, n=17, 11 tempered
+    levels plus level 0) through DirtSampler('auto') -> 'hi'.  Returns
+    its dim_step launches and shapes."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m, mb, seed = (run.rec, run.card, run.dev, run.m, run.mb,
+                                   run.seed)
+    dirt = tp.load_dirt(CKPT_40, device=dev)
+    t0 = time.perf_counter()
+    sampler = tp.DirtSampler(dirt, precision="auto", device=dev)
+    torch.cuda.synchronize()
+    rec["lz40ck_prepare_s"] = time.perf_counter() - t0
+    assert sampler.precision == "hi", sampler.precision
+    q = torch.from_numpy(run.rng.uniform(size=(mb, dirt.d))).to(dev)
+    shapes = _dim_levels_vs_plain(run, [sampler._prep0] + sampler._upper, q,
+                                  "lz40ck")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seeds = tp.randref(dirt.reference, gen, (m, dirt.d))
+    launches = run.nblocks * (dirt.nlevels + 1) * dirt.d
+    best, (z, lfapp) = _serve_best_of_3(sampler, seeds,
+                                        {"dim_step": launches})
+    by_shape = _launches_by_shape([sampler._prep0] + sampler._upper,
+                                  run.nblocks, launches)
+    assert z.shape == (m, dirt.d)
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(lfapp).all())
+    # the CPU plain path on the first rows, each against the 'f64' serve
+    # of those rows on the card: the card's 99th percentile at most twice
+    # the CPU's plus 1e-6 (two f32 'hi' chains differ on this n=17 stack
+    # at about 1e-3 at the 99th percentile, in both packages)
+    prob = tp.LorenzProblem(d=dirt.d, n=17, a=10.0,
+                            x0true=np.load(PROBLEM_40 + "_x0base.npy"),
+                            data=np.load(PROBLEM_40 + "_data.npy"))
+    lp = prob.log_posterior_fn()
+    lfex = lp(z)
+    cpu = tp.DirtSampler(tp.load_dirt(CKPT_40, device="cpu"),
+                         precision="hi", device="cpu")
+    zc, lc = (a.to(dev) for a in cpu(seeds[:1024].cpu()))
+    z64c, l64c = tp.DirtSampler(dirt, precision="f64", device=dev)(
+        seeds[:1024])
+    checks = {}
+    _serve_gate(rec, checks, "lz40ck_cpu",
+                (z[:1024], lfex[:1024] - lfapp[:1024]), (zc, lp(zc) - lc),
+                (z64c, lp(z64c) - l64c))
+    rec["lz40ck_vs_cpu_dz_max"] = float((z[:1024] - zc).abs().max())
+    print("lz40_ck: the card's first 1024 rows and the CPU plain path's, "
+          "each against the 'f64' serve: " + json.dumps(
+              {k: v for k, v in rec.items()
+               if k.startswith("lz40ck_cpu") or k == "lz40ck_vs_cpu_dz_max"})
+          + f" ({card})", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"lz40_ck card vs CPU plain: {failed}"
+    assert bool(torch.isfinite(lfex).all())
+    ess64, ess_rows = _hi_vs_f64(run, sampler, dirt, lp, seeds, z, lfapp,
+                                 lfex, "lz40ck")
+    ess, share, _, bad, _ = _ess_sets(tp, sampler, dirt, lp,
+                                      (seeds, z, lfapp, lfex), seed, m, dev)
+    # the stack's ladder ends below beta = 1: N/ESS against its own last
+    # tempered target too (prior-tempered ratio from 0 to the last beta)
+    beta_last = float(dirt.beta[-1])
+    ess_last = float(tp.essinv(
+        prob.tempered_logratio_fn()(z, 0.0, beta_last), lfapp))
+    iw = tp.iw_prune(lfex, lfapp)
+    hel = float(tp.hellinger(lfex, lfapp))
+    t0 = time.perf_counter()
+    mh = tp.mcmc_prune(z, lfex, lfapp,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+    mh_s = time.perf_counter() - t0
+    rec.update(
+        lz40ck_serve_best_s=best, lz40ck_samples_per_s=m / best,
+        lz40ck_launches_per_call=launches,
+        lz40ck_dim_step_launches_by_shape={
+            f"n{n}_r{r}": c for (n, r), c in sorted(by_shape.items())},
+        lz40ck_kernel_shapes=[list(s) for s in shapes],
+        lz40ck_n_over_ess_sets=ess,
+        lz40ck_n_over_ess_median=float(np.median(ess)),
+        lz40ck_nonfinite_rows_sets=bad, lz40ck_max_weight_share_sets=share,
+        lz40ck_n_over_ess_f64_rows=ess64, lz40ck_n_over_ess_hi_rows=ess_rows,
+        lz40ck_beta_last=beta_last,
+        lz40ck_n_over_ess_tempered_last_beta=ess_last,
+        lz40ck_iw_isstd=float(iw.isstd), lz40ck_iw_max_ratio=float(
+            iw.max_ratio), lz40ck_iw_err1=float(iw.err1),
+        lz40ck_hellinger=hel, lz40ck_mcmc_prune_s=mh_s,
+        lz40ck_mcmc_reject_share=mh.num_rejects / (m - 1))
+    print(f"lz40_ck: served {m} x d={dirt.d} through {dirt.nlevels + 1} "
+          f"transforms at 'hi': best {best:.4f} s ({m / best:.1f} "
+          f"samples/s; prepare {rec['lz40ck_prepare_s']:.4f} s once), "
+          f"dim_step launches/call {launches} by shape (n, r) "
+          f"{rec['lz40ck_dim_step_launches_by_shape']} (4 calls), N/ESS per "
+          f"seed set {seed}..{seed + ESS_SETS - 1} "
+          f"{[round(e, 4) for e in ess]} (median "
+          f"{rec['lz40ck_n_over_ess_median']:.4f}; non-finite rows {bad}); "
+          f"first {min(m, 1 << 18)} rows of seed set {seed}: N/ESS at 'f64' "
+          f"{ess64:.4f}, at 'hi' {ess_rows:.4f}; seed set {seed} against "
+          f"the stack's last tempered target (beta {beta_last:.4f}) "
+          f"{ess_last:.4f}; iw_prune isstd "
+          f"{rec['lz40ck_iw_isstd']:.4f}, max_ratio "
+          f"{rec['lz40ck_iw_max_ratio']:.4f}, err1 "
+          f"{rec['lz40ck_iw_err1']:.4f}; hellinger {hel:.4f}; mcmc_prune of "
+          f"{m} rows {mh_s:.3f} s ({100 * rec['lz40ck_mcmc_reject_share']:.2f}"
+          f"% rejected) ({card})", flush=True)
+    return launches, shapes
+
+
+def _functional_api(run, dirt_a):
+    """Phase 14: tt_dirt_sample against DirtSampler on the same 2^18
+    seeds, bit for bit (lz40n33_ck at 'hi', lz20_ck at 'f32'), each call
+    held to its launch counts; tt_dirt_inverse(tt_dirt_sample(q)) at
+    'f64' on lz10_ck back to q within the JAX package's bar (1e-6).
+    Returns {tag: launch counts}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, mb, seed = run.rec, run.card, run.dev, run.mb, run.seed
+    counts = {}
+    for tag, dirt, prec in (("lz40n33 hi", run.lz40.dirt, "hi"),
+                            ("lz20 f32", dirt_a, "f32")):
+        q = tp.randref(dirt.reference, torch.Generator(
+            device=dev).manual_seed(seed + 10), (mb, dirt.d))
+        calls = (dirt.nlevels + 1) * dirt.d
+        expect = ({"dim_step": calls} if prec == "hi" else
+                  {"gram_conditional": calls, "condition_update": calls})
+        _, (zs, ls) = _counted(
+            lambda: tp.DirtSampler(dirt, precision=prec, device=dev)(q),
+            expect)
+        secs, (zf, lf) = _counted(
+            lambda: tp.tt_dirt_sample(dirt, q, precision=prec, device=dev),
+            expect)
+        same = bool(torch.equal(zs, zf) and torch.equal(ls, lf))
+        rec[f"api_{tag.replace(' ', '_')}_equal_to_sampler"] = same
+        rec[f"api_{tag.replace(' ', '_')}_call_s"] = secs
+        counts[tag] = expect
+        print(f"tt_dirt_sample, {tag}, {mb} seeds: equal to DirtSampler "
+              f"bit for bit {same}, launches {expect}, one call (every "
+              f"level prepared) {secs:.4f} s ({card})", flush=True)
+        assert same, tag
+    d10 = tp.load_dirt(CKPT_10, device=dev)
+    q = tp.randref(d10.reference, torch.Generator(device=dev).manual_seed(
+        seed + 11), (mb, d10.d))
+    z, lf = tp.tt_dirt_sample(d10, q, precision="f64", device=dev)
+    qb, lb = tp.tt_dirt_inverse(d10, z, device=dev)
+    rec["api_lz10_roundtrip_max"] = float((qb - q).abs().max())
+    print(f"tt_dirt_inverse(tt_dirt_sample(q)) at 'f64' on lz10_ck, {mb} "
+          f"seeds: max |q' - q| {rec['api_lz10_roundtrip_max']:.3e} (bar "
+          f"1e-6) ({card})", flush=True)
+    assert rec["api_lz10_roundtrip_max"] < 1e-6
+    assert bool(torch.isfinite(lb).all())
+    return counts
+
+
+def _rounded_path(run):
+    """Phase 15: dirt_round(lz40n33_ck, 1e-2) served at 'hi' with
+    ragged_step=4.  Returns its dim_step launches and the new shapes."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m, mb, seed = (run.rec, run.card, run.dev, run.m, run.mb,
+                                   run.seed)
+    lz = run.lz40
+    t0 = time.perf_counter()
+    rounded = tp.dirt_round(lz.dirt, 1e-2)
+    torch.cuda.synchronize()
+    rec["round_s"] = time.perf_counter() - t0
+    ranks = [max(rounded.f0.ranks)] + [max(f.ranks) for f in rounded.fs]
+    sampler = tp.DirtSampler(rounded, precision="hi", ragged_step=4,
+                             device=dev)
+    buckets = [sampler._prep0.bmat.shape[1]] + [p.bmat.shape[1]
+                                                 for p in sampler._upper]
+    print(f"dirt_round(lz40n33_ck, 1e-2) in {rec['round_s']:.3f} s: largest "
+          f"rank per transform (level 0, then levels 1..) {ranks}; rank "
+          f"buckets at ragged_step=4 {buckets}", flush=True)
+    shapes = _dim_levels_vs_plain(run, [sampler._prep0] + sampler._upper,
+                                  lz.q_last, "rounded")
+    launches = run.nblocks * (rounded.nlevels + 1) * rounded.d
+    best, (z, lfapp) = _serve_best_of_3(sampler, lz.seeds,
+                                        {"dim_step": launches})
+    by_shape = _launches_by_shape([sampler._prep0] + sampler._upper,
+                                  run.nblocks, launches)
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(lfapp).all())
+    lfex = lz.lp(z)
+    assert bool(torch.isfinite(lfex).all())
+    ess64, ess_rows = _hi_vs_f64(run, sampler, rounded, lz.lp, lz.seeds, z,
+                                 lfapp, lfex, "rounded")
+    ess, share, _, bad, _ = _ess_sets(tp, sampler, rounded, lz.lp,
+                                      (lz.seeds, z, lfapp, lfex), seed, m,
+                                      dev)
+    rec.update(
+        rounded_ranks=ranks, rounded_buckets=buckets,
+        rounded_serve_best_s=best, rounded_samples_per_s=m / best,
+        rounded_unrounded_best_s=lz.best_dim,
+        rounded_launches_per_call=launches,
+        rounded_dim_step_launches_by_shape={
+            f"n{n}_r{r}": c for (n, r), c in sorted(by_shape.items())},
+        rounded_kernel_shapes=[list(s) for s in shapes],
+        rounded_n_over_ess_sets=ess,
+        rounded_n_over_ess_median=float(np.median(ess)),
+        rounded_nonfinite_rows_sets=bad,
+        rounded_n_over_ess_f64_rows=ess64, rounded_n_over_ess_hi_rows=ess_rows)
+    print(f"rounded lz40n33: served {m} seeds at 'hi', ragged_step=4: best "
+          f"{best:.4f} s (the unrounded stack {lz.best_dim:.4f} s), dim_step "
+          f"launches/call {launches} by shape (n, r) "
+          f"{rec['rounded_dim_step_launches_by_shape']} (4 calls), N/ESS per "
+          f"seed set {seed}..{seed + ESS_SETS - 1} "
+          f"{[round(e, 4) for e in ess]} (median "
+          f"{rec['rounded_n_over_ess_median']:.4f}; the unrounded stack "
+          f"{rec['n_over_ess_median']:.4f}; non-finite rows {bad}); first "
+          f"{min(m, 1 << 18)} rows: N/ESS at 'f64' {ess64:.4f}, at 'hi' "
+          f"{ess_rows:.4f} ({card})", flush=True)
+    return launches, shapes
+
+
+def _mixture(d, n, comps, seed, dev):
+    """A mixture of ``comps`` product Gaussians on [-3, 3]^d: its density
+    TT on a uniform n-node grid (the sum of one rank-1 TT a component,
+    built with tt_add: rank ``comps``) and its exact log-density (up to
+    the constant the TT shares)."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(-1.5, 1.5, (comps, d))
+    sd = rng.uniform(0.5, 0.9, (comps, d))
+    w = rng.uniform(0.5, 1.5, comps)
+    w /= w.sum()
+    x = np.linspace(-3.0, 3.0, n)
+    tt = None
+    for c in range(comps):
+        g = np.exp(-0.5 * ((x[None, :] - mu[c][:, None]) / sd[c][:, None])
+                   ** 2)
+        one = tp.TT([torch.from_numpy(g[k].reshape(1, n, 1)).to(dev)
+                     for k in range(d)])
+        one = tp.tt_scale(one, float(w[c]))
+        tt = one if tt is None else tp.tt_add(tt, one)
+    mu_t = torch.from_numpy(mu).to(dev)
+    sd_t = torch.from_numpy(sd).to(dev)
+    lw = torch.from_numpy(np.log(w)).to(dev)
+
+    def logpdf(y):
+        z = (y[:, None, :] - mu_t[None]) / sd_t[None]
+        return torch.logsumexp(lw[None] - 0.5 * (z * z).sum(2), dim=1)
+
+    grids = [torch.from_numpy(x).to(dev)] * d
+    return tt, grids, logpdf
+
+
+def _lin_path(run):
+    """Phase 16: mode 'lin' through tt_irt_lin(precision='f32') on the
+    mixture TT (d=40, n=17, rank 12) at 2^log2n seeds, its prefix update
+    on condition_update, and tt_irt_debias on it.  Returns the
+    condition_update launches of one call."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                           condition_update_ref)
+    from tt_irt_tpu_torch.samplers.irt import _canon_grid
+    from tt_irt_tpu_torch.samplers.irt_scan import (_cdf_invert, _fwd,
+                                                    _prep, lin_conditional,
+                                                    stack_padded)
+
+    rec, card, dev, m, mb, seed = (run.rec, run.card, run.dev, run.m, run.mb,
+                                   run.seed)
+    d, n, comps = 40, 17, 12
+    tt, grids, logpdf = _mixture(d, n, comps, seed, dev)
+    assert max(tt.ranks) == comps
+    gs, tc = _canon_grid(grids, tt)
+    cs, xs = stack_padded(tc, gs)
+    p32 = _prep(cs, xs, "f32", mode="lin")
+    p64 = _prep(cs, xs, "f64", mode="lin")
+    q = torch.from_numpy(run.rng.uniform(size=(mb, d))).to(dev)
+    # per dimension on identical inputs: phi' from the kernel against the
+    # plain update in f32 and in f64
+    qs = q.float().T.contiguous()
+    phi = torch.zeros((mb, comps), dtype=torch.float32, device=dev)
+    phi[:, 0] = 1.0
+    worst = {"phin_kernel_vs_f64": 0.0, "phin_plain_vs_f64": 0.0,
+             "phin_kp": 0.0}
+    for k in range(d):
+        fk = lin_conditional(phi, p32.pmat[k])
+        _, _, la, lb, i0 = _cdf_invert("lin", fk, p32.xs[k], p32.hs[k], qs[k])
+        i32 = i0.to(torch.int32)
+        pk = condition_update_cuda(phi, i32, la, lb, p32.cmat[k])
+        pr = condition_update_ref(phi, i32, la, lb, p32.cmat[k])
+        p64_ = condition_update_ref(phi.double(), i32, la.double(),
+                                    lb.double(), p32.cmat[k].double())
+        worst["phin_kernel_vs_f64"] = max(worst["phin_kernel_vs_f64"], float(
+            (pk.double() - p64_).abs().max()))
+        worst["phin_plain_vs_f64"] = max(worst["phin_plain_vs_f64"], float(
+            (pr.double() - p64_).abs().max()))
+        worst["phin_kp"] = max(worst["phin_kp"], float((pk - pr).abs().max()))
+        phi = pr
+    rec.update({f"lin_per_dim_{k}": v for k, v in worst.items()})
+    checks = {"lin_phin_2x": worst["phin_kernel_vs_f64"]
+              <= 2.0 * worst["phin_plain_vs_f64"] + 1e-6}
+    # through the whole transform: kernel and plain update each against
+    # the f64 'lin' path
+    xk, lk = _fwd("lin", p32, q, step=(lin_conditional,
+                                       condition_update_cuda))
+    xp, lpl = _fwd("lin", p32, q, step=(lin_conditional,
+                                        condition_update_ref))
+    x64, l64 = _fwd("lin", p64, q)
+    _gate2x(rec, checks, "lin_level_x", xk, xp, x64, factor_max=4.0)
+    _gate2x(rec, checks, "lin_level_lf", lk, lpl, l64, factor_max=4.0)
+    print("condition_update vs plain in mode 'lin' (mixture, d=%d, n=%d, "
+          "r=%d, %d rows): %s" % (d, n, comps, mb, json.dumps(
+              {k: v for k, v in rec.items() if k.startswith("lin_")})),
+          flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"condition_update in mode 'lin': {failed}"
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seeds = torch.rand((m, d), generator=gen, dtype=torch.float64, device=dev)
+    launches = run.nblocks * d
+    best = float("inf")
+    for _ in range(3):
+        secs, (z, lf) = _counted(
+            lambda: tp.tt_irt_lin(grids, tt, seeds, precision="f32",
+                                  device=dev), {"condition_update": launches})
+        best = min(best, secs)
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(lf).all())
+    rows = min(m, 1 << 18)
+    z64, l64 = tp.tt_irt_lin(grids, tt, seeds[:rows], precision="f64",
+                             device=dev)
+    with _plain_steps():
+        zp, lp_ = tp.tt_irt_lin(grids, tt, seeds[:rows], precision="f32",
+                                device=dev)
+    checks = {}
+    _serve_gate(rec, checks, "lin_serve", (z[:rows], lf[:rows]), (zp, lp_),
+                (z64, l64))
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"tt_irt_lin('f32') vs 'f64': {failed}"
+    # the f32 copy of the TT: tt_irt_debias runs tt_irt_lin at 'f32'
+    tt32 = tp.TT([c.float() for c in tt.cores])
+    iw = tp.tt_irt_debias(seeds, logpdf, tt32, grids, correction="iw",
+                          device=dev)
+    mc = tp.tt_irt_debias(seeds, logpdf, tt32, grids, correction="mcmc",
+                          device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(4))
+    ess = float(tp.essinv(logpdf(z), lf))
+    rec.update(
+        lin_best_s=best, lin_samples_per_s=m / best,
+        lin_launches_per_call=launches, lin_n_over_ess=ess,
+        lin_debias_iw={"bias_isstd": float(iw["bias"]),
+                       "max_ratio": float(iw["max_ratio"]),
+                       "err1": float(iw["err1"]),
+                       "time_invcdf": iw["time_invcdf"],
+                       "time_eval": iw["time_eval"]},
+        lin_debias_mcmc={"bias_rejects": int(mc["bias"]),
+                         "reject_share": int(mc["bias"]) / (m - 1),
+                         "time_invcdf": mc["time_invcdf"],
+                         "time_eval": mc["time_eval"]})
+    print(f"mode 'lin': tt_irt_lin(precision='f32') on a mixture of {comps} "
+          f"product Gaussians (d={d}, n={n}, rank {comps}), {m} seeds: best "
+          f"{best:.4f} s ({m / best:.1f} samples/s), condition_update "
+          f"launches/call {launches}; first {rows} rows against 'f64' "
+          f"beside the plain update: " + json.dumps(
+              {k: v for k, v in rec.items() if k.startswith("lin_serve")})
+          + f"; N/ESS against the mixture {ess:.4f}; tt_irt_debias 'iw' "
+          f"{json.dumps(rec['lin_debias_iw'])}, 'mcmc' "
+          f"{json.dumps(rec['lin_debias_mcmc'])} ({card})", flush=True)
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -1975,6 +2526,35 @@ def main(argv=None):
             if entry["name"] in counts:
                 entry["launches_by_path"]["D " + tag] = counts[entry["name"]]
     _lap(run, "12 timings")
+
+    # ---- 13-16. lz40_ck at 'hi', the functional API, the rounded
+    #             lz40n33 stack, mode 'lin' ----
+    launches_ck, shapes_ck = _lz40_ck_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "13 lz40_ck at 'hi'")
+    api = _functional_api(run, dirt_a)
+    torch.cuda.empty_cache()
+    _lap(run, "14 functional API")
+    launches_rd, shapes_rd = _rounded_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "15 rounded lz40n33")
+    launches_lin = _lin_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "16 mode lin")
+    for entry in kernels:
+        by = entry["launches_by_path"]
+        if entry["name"] == "dim_step":
+            by.update({"lz40_ck": launches_ck,
+                       "lz40n33 rounded": launches_rd})
+            entry["shapes_by_path"] = {
+                "lz40n33": [list(s_) for s_ in run.lz40.shapes],
+                "lz40_ck": [list(s_) for s_ in shapes_ck],
+                "lz40n33 rounded": [list(s_) for s_ in shapes_rd]}
+        if entry["name"] == "condition_update":
+            by["lin"] = launches_lin
+        for tag, counts in api.items():
+            if entry["name"] in counts:
+                by["tt_dirt_sample " + tag] = counts[entry["name"]]
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start
     print("seconds per phase: " + ", ".join(

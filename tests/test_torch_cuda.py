@@ -52,8 +52,12 @@ def _operands(m, n, r, seed):
 # (8, 16, 24, 32, 64), and two where the split factor does not fit and
 # the mma.sync variant runs ((50, 24), (30, 32); (9, 40) and (9, 64) run
 # it too, at tier 64).
+# The even ranks the served stacks give dim_step (lz40_ck: (17, 16);
+# dirt_round(lz40n33_ck): n=33 at 12, 16, 20), whose second pass stages its
+# node slices at an odd stride since r^2 is even.
+EVEN_SHAPES = [(17, 16), (17, 20), (33, 12), (33, 16), (33, 20)]
 TC_SHAPES = SHAPES + [(9, 8), (9, 16), (9, 24), (9, 32), (9, 64), (50, 24),
-                      (30, 32)]
+                      (30, 32)] + EVEN_SHAPES
 
 
 def _check_dim_step(t, mode):
@@ -809,3 +813,67 @@ def test_hi_steps_launch_their_kernels_on_the_card(precision, hi_step, counts):
         e_card = float((card - ref).abs().max())
         e_cpu = float((cpu - ref.cpu()).abs().max())
         assert e_card <= 2.0 * e_cpu + 1e-6, (e_card, e_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,counts", [("f32", 1), ("hi", 1),
+                                              ("f64", 0)])
+def test_lin_launches_condition_update_on_the_card(precision, counts):
+    """Mode 'lin' on the card: its prefix update goes through
+    condition_update once per dimension and block at an f32 contraction
+    (none at 'f64'), its conditional |phi P| is a plain product (no other
+    kernel launches), and it is as accurate against 'f64' as the same
+    path through the plain update on the CPU (twice its error plus
+    1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(1)
+    d, n, r = 5, 17, 4
+    x = np.linspace(-2.0, 2.0, n)
+    cores = [np.exp(-(x[None, :, None] - 0.3) ** 2
+                    / rng.uniform(0.1, 0.5, (1 if k == 0 else r, 1,
+                                             1 if k == d - 1 else r)))
+             for k in range(d)]
+    tt = tp.TT([torch.from_numpy(np.ascontiguousarray(c)) for c in cores])
+    grids = [torch.from_numpy(x)] * d
+    q = torch.from_numpy(rng.uniform(size=(3000, d)))
+    fns = (dim_step_cuda, odim_step_cuda, cdf_bracket_factor_cuda,
+           factor_conditional_cuda, gram_conditional_cuda)
+    x64, l64 = tp.tt_irt_lin(grids, tt, q, precision="f64")
+    before = [f.launches for f in fns]
+    u0 = condition_update_cuda.launches
+    xo, lo = tp.tt_irt_lin(grids, tt, q, precision=precision, block=1024)
+    torch.cuda.synchronize()
+    assert condition_update_cuda.launches - u0 == 3 * d * counts
+    assert [f.launches for f in fns] == before
+    xc, lc = tp.tt_irt_lin(grids, tt, q, precision=precision, block=1024,
+                           device="cpu")
+    for card, cpu, ref in ((xo, xc, x64), (lo, lc, l64)):
+        e_card = float((card.double() - ref).abs().max())
+        e_cpu = float((cpu.double() - ref.cpu()).abs().max())
+        assert e_card <= 2.0 * e_cpu + 1e-6, (e_card, e_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["hi", "f32"])
+def test_dirt_sample_equals_dirt_sampler_on_the_card(precision):
+    """tt_dirt_sample and DirtSampler on the card: the same preparations
+    and rank buckets, so the same outputs bit for bit, through the same
+    kernels (lz10_ck, 4096 seeds)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import os
+
+    import tt_irt_tpu_torch as tp
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", "data",
+                        "lz10_ck")
+    dirt = tp.load_dirt(path)
+    q = tp.randref(dirt.reference, torch.Generator(device="cuda").manual_seed(
+        4), (4096, dirt.d))
+    zs, ls = tp.DirtSampler(dirt, precision=precision)(q)
+    zt, lt = tp.tt_dirt_sample(dirt, q, precision=precision)
+    assert torch.equal(zs, zt) and torch.equal(ls, lt)
+    assert bool(torch.isfinite(zt).all())

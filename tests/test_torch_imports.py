@@ -36,7 +36,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "import chip_smoke\n"
         "for need in ('ops.step', 'ops.fused_irt', 'ops.rowmath',"
         " 'ops.odim_step', 'ops.kernel_plan', 'samplers.irt_scan',"
-        " 'samplers.irt'):\n"
+        " 'samplers.irt', 'ops.tt', 'samplers.dirt', 'samplers.serve',"
+        " 'samplers.debias', 'samplers.diagnostics', 'models.ode',"
+        " 'models.lorenz', 'utils.checkpoint'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
@@ -91,6 +93,38 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     fn = getattr(tp, entry)
     call = (lambda **kw: fn(grids, tt, **kw)(q)) if entry == "IrtSampler" \
         else (lambda **kw: fn(grids, tt, q, **kw))
+    with pytest.raises(RuntimeError, match="not available"):
+        call()
+    x, lf = call(device="cpu")
+    assert x.shape == (8, 2) and bool(torch.isfinite(lf).all())
+
+
+def _small_dirt():
+    tt, grids, q = _small_tt()
+    return tp.DIRT(tt, [tt], grids, grids, torch.tensor([0.5, 1.0])), q
+
+
+@pytest.mark.parametrize("entry", ["tt_irt_lin", "IrtSampler_lin",
+                                   "tt_dirt_sample", "tt_dirt_inverse",
+                                   "tt_irt_debias"])
+def test_slice_four_entry_points_default_to_the_card(entry, monkeypatch):
+    """The entry points of the functional DIRT API, mode 'lin' and the
+    debias entry point run on the card by default: without one they raise
+    (no CPU fallback), and device='cpu' runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tt, grids, q = _small_tt()
+    dirt, _ = _small_dirt()
+    call = {
+        "tt_irt_lin": lambda **kw: tp.tt_irt_lin(grids, tt, q, **kw),
+        "IrtSampler_lin": lambda **kw: tp.IrtSampler(grids, tt, "lin",
+                                                     **kw)(q),
+        "tt_dirt_sample": lambda **kw: tp.tt_dirt_sample(dirt, q, **kw),
+        "tt_dirt_inverse": lambda **kw: tp.tt_dirt_inverse(dirt, q * 0.5,
+                                                           **kw),
+        "tt_irt_debias": lambda **kw: tuple(tp.tt_irt_debias(
+            q, lambda y: -0.5 * (y ** 2).sum(1), tt, grids, "iw",
+            **kw)[k] for k in ("y", "lFapp")),
+    }[entry]
     with pytest.raises(RuntimeError, match="not available"):
         call()
     x, lf = call(device="cpu")

@@ -227,17 +227,32 @@ def test_stable_false_matches_jax():
 
 
 def test_non_scan_tt_and_lin_raise():
-    """What this slice does not port raises NotImplementedError naming
-    ROADMAP.md: a TT with non-uniform grid sizes, a marginal of the first
-    D < d variables, and mode 'lin'."""
+    """What raised NotImplementedError before the general path and mode
+    'lin' were ported now runs and agrees with JAX f64 (1e-12): a
+    marginal of the first D < d variables, a TT with non-uniform grid
+    sizes, and mode 'lin' on the scan path.  A mode that does not exist
+    raises ValueError."""
     cores, x = stress_cores(d=3, n=9, rank=2, seed=1)
-    _, _, ttt, tg = _pair(cores, x)
-    q = torch.rand((8, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.tt_irt_sqr(tg, ttt, q[:, :2], device="cpu")
-    odd = tp.TT([ttt.cores[0], ttt.cores[1][:, :7, :], ttt.cores[2]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.tt_irt_sqr([tg[0], tg[0][:7], tg[0]], odd, q, device="cpu")
+    jtt, jg, ttt, tg = _pair(cores, x)
+    q = np.random.default_rng(2).uniform(size=(8, 3))
+    xt, lt = tp.tt_irt_sqr(tg, ttt, torch.from_numpy(q[:, :2]), device="cpu")
+    xj, lj = ti.tt_irt_sqr(jg, jtt, jnp.asarray(q[:, :2]))
+    assert np.max(np.abs(xt.numpy() - np.asarray(xj))) < 1e-12
+    assert np.max(np.abs(lt.numpy() - np.asarray(lj))) < 1e-12
+    odd = [cores[0], cores[1][:, :7, :], cores[2]]
+    og = [x, np.linspace(-2.0, 2.0, 7), x]
+    xt, lt = tp.tt_irt_sqr([torch.from_numpy(g) for g in og],
+                           tp.TT([torch.from_numpy(c.copy()) for c in odd]),
+                           torch.from_numpy(q), device="cpu")
+    xj, lj = ti.tt_irt_sqr([jnp.asarray(g) for g in og],
+                           ti.TT([jnp.asarray(c) for c in odd]),
+                           jnp.asarray(q))
+    assert np.max(np.abs(xt.numpy() - np.asarray(xj))) < 1e-12
+    assert np.max(np.abs(lt.numpy() - np.asarray(lj))) < 1e-12
     cs, xs = tp.samplers.irt_scan.stack_padded(ttt, tg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.irt_scan("lin", cs, xs, q, 1024, "f64")
+    xt, lt = tp.irt_scan("lin", cs, xs, torch.from_numpy(q), 1024, "f64")
+    xj, lj = ti.tt_irt_lin(jg, jtt, jnp.asarray(q), precision="f64")
+    assert np.max(np.abs(xt.numpy() - np.asarray(xj))) < 1e-12
+    assert np.max(np.abs(lt.numpy() - np.asarray(lj))) < 1e-12
+    with pytest.raises(ValueError):
+        tp.irt_scan("cube", cs, xs, torch.from_numpy(q), 1024, "f64")

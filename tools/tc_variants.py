@@ -62,6 +62,17 @@ hi_step="bracket" at lz40n33_ck's last level, dimension 20 (33, 23), for
 condition_update.  Every variant's ptxas registers and spills are
 printed.  Output in chiprun_out/tc_variants_step.json.
 
+    python3 tools/tc_variants.py --stride --baseline CSRC
+
+holds dim_step and odim_step, whose second pass stages its node slices
+at an odd stride (r^2 | 1, csrc/tc_dim.cuh), against the other
+checkout's builds of dim_step.cu and odim_step.cu (e.g. the parent
+commit's, staged at r^2): phi' and out9 bit for bit in 'irt' and 'rt'
+modes, and both timed in turns (shipped, baseline, baseline, shipped) at
+2^18 rows on random operands at STRIDE_SHAPES, the even ranks (whose
+stride r^2 put a warp's nodes in shared banks) and odd ones beside
+them.  Output in chiprun_out/tc_variants_stride.json.
+
     python3 tools/tc_variants.py --fused [--baseline CSRC]
 
 times the whole-transform kernel of csrc/fused_irt.cu (design CU,
@@ -447,6 +458,9 @@ def main(argv=None):
     ap.add_argument("--fused", action="store_true",
                     help="the whole-transform kernel of csrc/fused_irt.cu "
                          "only")
+    ap.add_argument("--stride", action="store_true",
+                    help="dim_step and odim_step against --baseline's "
+                         "(the staged node stride) only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tc_variants: torch.cuda is not available", file=sys.stderr)
@@ -461,6 +475,8 @@ def main(argv=None):
         return step_main(args, card)
     if args.fused:
         return fused_main(args, card)
+    if args.stride:
+        return stride_main(args, card)
     one = _edited_copy("one_pass", [("tc_dim.cuh", FIRST_PASS, ONE_PASS)])
     wg2 = _edited_copy("wg2", [("tc_conditional.cuh", WARPGROUPS,
                                 WARPGROUPS.replace("t == 24 ? 3 : 2", "2"))])
@@ -518,6 +534,79 @@ def main(argv=None):
               "w") as fh:
         json.dump(rec, fh, indent=1)
     return 0
+
+
+# ---- the staged node stride of dim_step and odim_step (--stride) ----
+
+STRIDE_SHAPES = ((17, 16), (17, 20), (33, 16), (33, 12), (33, 20),
+                 (17, 15), (17, 19), (33, 23), (9, 8), (9, 32))
+
+
+def stride_main(args, card):
+    if not args.baseline:
+        raise SystemExit("--stride needs --baseline CSRC")
+    base = _edited_copy("baseline", [], src=args.baseline)
+    ptxas = {}
+    libs = _build_variants({"dim_base": os.path.join(base, "dim_step.cu"),
+                            "odim_base": os.path.join(base, "odim_step.cu")},
+                           ("dim_step", "odim_step"), ptxas)
+    dim_b = ctypes.CDLL(libs["dim_base"]).dim_step_launch
+    dim_b.argtypes = [P] * 9 + [I] * 5 + [P]
+    od_b = ctypes.CDLL(libs["odim_base"]).odim_step_launch
+    od_b.argtypes = [P] * 8 + [I] * 5 + [P]
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(8)
+    m = 1 << 18
+    rows = []
+    for n, r in STRIDE_SHAPES:
+        raw = _random_operands(m, n, r, rng)
+        ortho = [raw[0], raw[1], raw[2], raw[3], raw[5], raw[6]]
+        pn = torch.empty_like(raw[0])
+        o9 = torch.empty((m, 9), device="cuda")
+        equal = {}
+        cases = {}
+        for kname, ops, ship, based in (
+                ("dim_step", raw, dim_step_cuda, dim_b),
+                ("odim_step", ortho, odim_step_cuda, od_b)):
+            ptr = [a.data_ptr() for a in ops]
+            for rt in (0, 1):
+                mode = "rt" if rt else "irt"
+                sp, so = ship(*ops, mode=mode)
+                assert based(*ptr, pn.data_ptr(), o9.data_ptr(), m, n, r,
+                             rt, 0, stream) == 0, (kname, n, r)
+                torch.cuda.synchronize()
+                equal[f"{kname} {mode}"] = bool(
+                    torch.equal(pn, sp) and torch.equal(o9, so))
+            cases[kname] = (lambda f=ship, o=ops: f(*o))
+            cases[kname + " baseline"] = (
+                lambda f=based, p_=ptr: f(*p_, pn.data_ptr(), o9.data_ptr(),
+                                          m, n, r, 0, 0, stream))
+        ms = {k: [] for k in cases}
+        for order in (list(cases), list(cases)[::-1]):
+            for k in order:
+                ms[k].append(_time_ms(cases[k]))
+        rows.append({"n": n, "r": r, "rows": m, "stride": (r * r) | 1,
+                     "baseline_stride": r * r, "ms": ms,
+                     "equal_to_baseline": equal})
+    rec = {"card": card, "baseline": args.baseline, "ptxas": ptxas,
+           "timings": rows}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}")
+    for row in rows:
+        parts = ", ".join(f"{k} {min(v):.4f}" for k, v in row["ms"].items())
+        print(f"ms at n={row['n']}, r={row['r']}, {row['rows']} rows (best "
+              f"of 2; stride {row['stride']}, baseline "
+              f"{row['baseline_stride']}): {parts}; equal to the baseline "
+              f"{json.dumps(row['equal_to_baseline'])} ({card})")
+    same = all(all(r_["equal_to_baseline"].values()) for r_ in rows)
+    print(f"dim_step and odim_step equal to the baseline's at every shape "
+          f"and mode: {same}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tc_variants_stride.json"),
+              "w") as fh:
+        json.dump(rec, fh, indent=1)
+    return 0 if same else 1
 
 
 # ---- the Gram-step kernels (--step) ----

@@ -9,13 +9,20 @@ kernel's wrapper and plain version (``*_cuda``, ``*_ref``) live in
 """
 
 from .models.lorenz import LorenzProblem, lorenz_ll, lorenz_rhs
+from .models.ode import (dopri5_step, integrate_adaptive, integrate_observed,
+                         integrate_observed_adaptive, integrate_to, rk4)
 from .ops.fused_irt import build_fused_data, fused_irt_sqr
 from .ops.kernel_plan import condition_update, dim_step, gram_conditional
-from .ops.tt import TT
-from .samplers.debias import mcmc_prune
-from .samplers.diagnostics import essinv
-from .samplers.dirt import DIRT, serve_precision
-from .samplers.irt import tt_irt_sqr, tt_rt_sqr
+from .ops.tt import (TT, tkron, tt_add, tt_dot, tt_eval_indices,
+                     tt_from_dense, tt_full, tt_hadamard, tt_mean_field,
+                     tt_meshgrid, tt_norm, tt_ones, tt_orthogonalize,
+                     tt_partial_eval, tt_permute, tt_rand, tt_reverse,
+                     tt_round, tt_scale, tt_sum_many, tt_sum_modes)
+from .samplers.debias import IWResult, iw_prune, mcmc_prune, tt_irt_debias
+from .samplers.diagnostics import essinv, hellinger, iact, tt_marginals
+from .samplers.dirt import (DIRT, dirt_permute, dirt_round, serve_precision,
+                            tt_dirt_inverse, tt_dirt_sample)
+from .samplers.irt import tt_irt_lin, tt_irt_sqr, tt_rt_sqr
 from .samplers.irt_scan import HI_STEPS, irt_scan, resolved_serve_modes
 from .samplers.reference import (randref, reference_sigma,
                                  tnormal_logdensity_shift,
@@ -25,12 +32,20 @@ from .utils.checkpoint import (dirt_from_numpy, load_dirt, save_dirt,
                                tt_from_numpy)
 
 __all__ = [
-    "TT", "DIRT", "DirtSampler", "HI_STEPS", "IrtSampler", "LorenzProblem",
-    "resolved_serve_modes",
+    "TT", "DIRT", "DirtSampler", "HI_STEPS", "IWResult", "IrtSampler",
+    "LorenzProblem", "resolved_serve_modes",
     "build_fused_data", "condition_update", "dim_step", "dirt_from_numpy",
-    "essinv", "fused_irt_sqr", "gram_conditional", "irt_scan", "load_dirt",
-    "lorenz_ll",
-    "lorenz_rhs", "mcmc_prune", "randref", "reference_sigma", "save_dirt",
-    "serve_precision", "tnormal_logdensity_shift", "tnormal_to_uniform",
-    "tt_from_numpy", "tt_irt_sqr", "tt_rt_sqr", "uniform_to_tnormal",
+    "dirt_permute", "dirt_round", "dopri5_step", "essinv", "fused_irt_sqr",
+    "gram_conditional", "hellinger", "iact", "integrate_adaptive",
+    "integrate_observed", "integrate_observed_adaptive", "integrate_to",
+    "irt_scan", "iw_prune", "load_dirt", "lorenz_ll", "lorenz_rhs",
+    "mcmc_prune", "randref", "reference_sigma", "rk4", "save_dirt",
+    "serve_precision", "tkron", "tnormal_logdensity_shift",
+    "tnormal_to_uniform", "tt_add", "tt_dirt_inverse", "tt_dirt_sample",
+    "tt_dot", "tt_eval_indices", "tt_from_dense", "tt_from_numpy",
+    "tt_full", "tt_hadamard", "tt_irt_debias", "tt_irt_lin", "tt_irt_sqr",
+    "tt_marginals", "tt_mean_field", "tt_meshgrid", "tt_norm", "tt_ones",
+    "tt_orthogonalize", "tt_partial_eval", "tt_permute", "tt_rand",
+    "tt_reverse", "tt_round", "tt_rt_sqr", "tt_scale", "tt_sum_many",
+    "tt_sum_modes", "uniform_to_tnormal",
 ]

@@ -34,9 +34,10 @@
 // per row from L2 inside the first pass it cost more than the rest of
 // the kernel, because the split factor leaves too little L1 to hold C.
 // So it runs as a second pass over the block's rows once the products
-// are done: C is staged into the shared memory the factor held, and each
-// row re-forms its bracket and cell weight from its out9 (bit for bit)
-// and reads its two slices from shared memory.  cdf_bracket_factor
+// are done: C is staged into the shared memory the factor held, at an
+// odd node stride (tc_dim.cuh, slice_stride), and each row re-forms its
+// bracket and cell weight from its out9 (bit for bit) and reads its two
+// slices from shared memory.  cdf_bracket_factor
 // (factor_step.cu) runs the first pass's stages, so its out9 equals
 // this kernel's bit for bit.  The kernel body is tc_dim.cuh's, which
 // odim_step.cu shares.
@@ -93,7 +94,8 @@ int dim_step_launch(const void* phi, const void* qp, const void* um,
                     const void* xg, void* phin, void* out9, int m, int n,
                     int r, int rt, int device, void* stream) {
   if (m == 0) return 0;
-  if (!in_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_caps(n, r) || slices_bytes(n, r) > tc_smem_bytes(n, r))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* p[7];
   const void* in[7] = {phi, qp, um, bmat, cmat, h, xg};
   for (int k = 0; k < 7; ++k) p[k] = static_cast<const float*>(in[k]);

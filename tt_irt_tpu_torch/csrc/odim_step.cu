@@ -85,7 +85,8 @@ int odim_step_launch(const void* psi, const void* qp, const void* um,
                      void* psin, void* out9, int m, int n, int r, int rt,
                      int device, void* stream) {
   if (m == 0) return 0;
-  if (!in_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_caps(n, r) || slices_bytes(n, r) > tc_smem_bytes(n, r))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* p[6];
   const void* in[6] = {psi, qp, um, qmat, h, xg};
   for (int k = 0; k < 6; ++k) p[k] = static_cast<const float*>(in[k]);

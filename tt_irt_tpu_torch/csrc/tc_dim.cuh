@@ -6,9 +6,13 @@
 //     fk = sum_j v^2, the two-sided CDF, the bracket and out9 (the
 //     stages of cdf_bracket_factor, factor_step.cu);
 //   second pass, over the same rows: the node slices S_x (r, r) staged
-//     into the shared memory the factor held (n r^2 floats never exceed
-//     it), then phi' from phi, S_i0, S_i0+1 and the cell weight la, with
-//     the bracket and la re-formed from out9 bit for bit.
+//     into the shared memory the factor and the fk tiles held, at the
+//     odd node stride slice_stride(r) = r^2 | 1 (n (r^2 + 1) floats never
+//     exceed it), then phi' from phi, S_i0, S_i0+1 and the cell weight
+//     la, with the bracket and la re-formed from out9 bit for bit.  A
+//     warp's rows read the same (i, j) of their own nodes; at an even
+//     stride r^2 those words share banks (at r = 16 all of them one bank),
+//     which the odd stride spreads (csrc/step.cu stages its core so too).
 // dim_step stages the core, S_x = C[:, x, :], and forms
 // phi' = phi (la S_i0 + (1 - la) S_i0+1) / max|.| (prefix_update, the
 // plain version's order).  odim_step stages Q's own node blocks,
@@ -52,7 +56,18 @@ __device__ __forceinline__ Bracket bracket_from_out9(const float* o,
   return b;
 }
 
-// The second pass's node slices, s[x*r*r + i*r + j] = S_x[i, j] (stage),
+// Floats between two nodes' slices in the second pass: odd, so that the
+// nodes of a warp's rows fall in distinct banks.
+__host__ __device__ inline int slice_stride(int r) { return (r * r) | 1; }
+
+// Bytes of the staged slices at (n, r); the launchers check that they fit
+// the block's shared memory (the factor and the fk tiles, free by then).
+inline size_t slices_bytes(int n, int r) {
+  return static_cast<size_t>(n) * slice_stride(r) * sizeof(float);
+}
+
+// The second pass's node slices, s[x*S + i*r + j] = S_x[i, j] with
+// S = slice_stride(r) (stage),
 // and the update of a row p from the two slices sa, sb of its bracket
 // (update; entries j >= r of acc are 0).
 // CoreSlices: the core as it comes, cmat (n, r*r), cmat[x, i*r + j] =
@@ -60,8 +75,12 @@ __device__ __forceinline__ Bracket bracket_from_out9(const float* o,
 struct CoreSlices {
   __device__ __forceinline__ static void stage(float* s, const float* cmat,
                                                int n, int r) {
-    for (int idx = threadIdx.x; idx < n * r * r; idx += blockDim.x)
-      s[idx] = cmat[idx];
+    const int rr = r * r;
+    const int stride = slice_stride(r);
+    for (int idx = threadIdx.x; idx < n * rr; idx += blockDim.x) {
+      const int x = idx / rr;
+      s[x * stride + (idx - x * rr)] = cmat[idx];
+    }
   }
 
   template <int T>
@@ -80,11 +99,12 @@ struct FactorSlices {
   __device__ __forceinline__ static void stage(float* s, const float* qmat,
                                                int n, int r) {
     const int nr = n * r;
+    const int stride = slice_stride(r);
     for (int idx = threadIdx.x; idx < r * nr; idx += blockDim.x) {
       const int i = idx / nr;
       const int col = idx - i * nr;
       const int x = col / r;
-      s[x * r * r + i * r + (col - x * r)] = qmat[idx];
+      s[x * stride + i * r + (col - x * r)] = qmat[idx];
     }
   }
 
@@ -165,9 +185,9 @@ __device__ __forceinline__ void tc_dim_step(
     const float la = cell_weight<RT>(b, q);
     float p[T];
     load_row<T>(p, phi, row, r);
-    const float* sa = smem + b.i0 * r * r;
+    const float* sa = smem + b.i0 * slice_stride(r);
     float acc[T];
-    Slices::template update<T>(p, la, sa, sa + r * r, r, acc);
+    Slices::template update<T>(p, la, sa, sa + slice_stride(r), r, acc);
     store_row<T>(phin, row, r, acc);
   }
 }

@@ -1,7 +1,9 @@
-"""Metropolis-Hastings debiasing of transport proposals (counterpart of
-``tt_irt_tpu/samplers/debias.py::mcmc_prune``).
+"""Debiasing of transport proposals (counterpart of
+``tt_irt_tpu/samplers/debias.py``): Metropolis-Hastings rejection
+(``mcmc_prune``), self-normalised importance weights (``iw_prune``) and
+the single-TT entry point ``tt_irt_debias``.
 
-The proposals are independent, so acceptance depends only on the
+The proposals are independent, so MH acceptance depends only on the
 log-density pairs: the sequential chain runs as a plain host loop over
 f64 scalars, and the pruned rows are then gathered on the device.
 """
@@ -9,12 +11,18 @@ f64 scalars, and the pruned rows are then gathered on the device.
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["mcmc_prune", "rejection_histogram", "MCMCResult"]
+from ..ops.tt import TT
+from ..utils.device import resolve_device
+from .irt import tt_irt_lin
+
+__all__ = ["mcmc_prune", "rejection_histogram", "MCMCResult", "IWResult",
+           "iw_prune", "tt_irt_debias"]
 
 
 class MCMCResult(NamedTuple):
@@ -79,3 +87,85 @@ def mcmc_prune(y, lfex, lfapp, generator=None, u=None) -> MCMCResult:
                       int(m - 1 - acc[1:].sum()),
                       torch.as_tensor(acc, device=y.device),
                       rejection_histogram(acc))
+
+
+class IWResult(NamedTuple):
+    lfex: torch.Tensor       # weighted data: data * (Fex/Fapp) / Z
+    isstd: torch.Tensor      # relative std of the normalised ratio
+    max_ratio: torch.Tensor  # largest normalised ratio
+    err1: torch.Tensor       # empirical L1 error <|Fex/Z - Fapp| / Fapp>
+
+
+def iw_prune(lfex, lfapp) -> IWResult:
+    """Self-normalised importance-weight correction.  lfex is (M,) or
+    (M, R+1) with the log-density in column 0."""
+    lfex = torch.as_tensor(lfex)
+    lfapp = torch.as_tensor(lfapp).reshape(-1)
+    lfex2 = lfex if lfex.ndim == 2 else lfex[:, None]
+    ratio = torch.exp(lfex2[:, 0] - lfapp)
+    renorm = torch.mean(ratio)
+    w = ratio / renorm
+    err1 = torch.mean(torch.abs(torch.exp(lfex2[:, 0] - torch.log(renorm))
+                                - torch.exp(lfapp)) / torch.exp(lfapp))
+    weighted = lfex2 * w[:, None]
+    if lfex.ndim == 1:
+        weighted = weighted[:, 0]
+    isstd = torch.sqrt(torch.mean((w - 1.0) ** 2))
+    return IWResult(weighted, isstd, torch.max(w), err1)
+
+
+def _host_read(*ts) -> None:
+    """Wait for the tensors' values by reading a sum of each on the
+    host (the timings below end on it)."""
+    for t in ts:
+        float(torch.as_tensor(t).sum())
+
+
+def tt_irt_debias(m, lffun, f: TT, grid, correction: str = "mcmc",
+                  generator=None, device="cuda"):
+    """Single-level TT proposal and its debiasing.
+
+    Args:
+      m: number of samples (uniform seeds drawn from ``generator``) or
+        an (M, d) seed array.
+      lffun: exact log-density, (M, d) -> (M,) or (M, R+1).
+      f: TT of the density itself (not its square root); its dtype sets
+        tt_irt_lin's precision ('f64' or 'f32').
+      grid: the grids, as tt_irt_lin takes them.
+      correction: 'mcmc' (mcmc_prune, uniforms from ``generator``) or
+        'iw' (iw_prune).
+      generator: a ``torch.Generator`` on ``device``; needed for an
+        integer m and for 'mcmc'.
+      device: where the proposal runs (default "cuda").
+    Returns a dict with the JAX package's keys: y, lFex, lFapp, bias
+    (the rejection count, or isstd), accepted or max_ratio and err1, and
+    time_invcdf / time_eval (seconds to a forced host read of the
+    proposal, and of the exact log-density).
+    """
+    dev = resolve_device(device)
+    d = f.d
+    if isinstance(m, (int, np.integer)):
+        if generator is None:
+            raise ValueError("tt_irt_debias needs a generator to draw "
+                             "seeds")
+        z = torch.rand((int(m), d), generator=generator,
+                       dtype=torch.float64, device=dev)
+    else:
+        z = torch.as_tensor(m, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    y, lfapp = tt_irt_lin(grid, f, z, device=dev)
+    _host_read(y, lfapp)
+    time_invcdf = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lfex = lffun(y)
+    _host_read(lfex)
+    time_eval = time.perf_counter() - t0
+    if correction.lower().startswith("mcmc"):
+        res = mcmc_prune(y, lfex, lfapp, generator=generator)
+        return {"y": res.y, "lFex": res.lfex, "lFapp": res.lfapp,
+                "bias": res.num_rejects, "accepted": res.accepted,
+                "time_invcdf": time_invcdf, "time_eval": time_eval}
+    res = iw_prune(lfex, lfapp)
+    return {"y": y, "lFex": res.lfex, "lFapp": lfapp, "bias": res.isstd,
+            "max_ratio": res.max_ratio, "err1": res.err1,
+            "time_invcdf": time_invcdf, "time_eval": time_eval}

@@ -1,6 +1,13 @@
 """Deep Inverse Rosenblatt Transport stack (counterpart of
-``tt_irt_tpu/samplers/dirt.py``: ``DIRT``, ``serve_precision``,
-``_resolve_precision`` and the rank-bucketed level preparation)."""
+``tt_irt_tpu/samplers/dirt.py``): ``DIRT``, ``serve_precision``, the
+rank-bucketed level preparation, ``dirt_round``, ``dirt_permute`` and the
+functional API ``tt_dirt_sample`` / ``tt_dirt_inverse``.
+
+``tt_dirt_sample`` prepares every level on each call; ``DirtSampler``
+(samplers/serve.py) prepares once and gives the same outputs bit for bit
+on the same seeds (same preparations, same rank buckets).  Spline stacks
+only: the Chebyshev and Fourier levels and the fused whole-stack program
+(the JAX package's ``dirt_scan.py``) are ROADMAP.md Queue 1 item 8."""
 
 from __future__ import annotations
 
@@ -9,15 +16,19 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.tt import TT
-from .irt import _canon_grid
-from .irt_scan import _prep, can_use_scan, prep_level, stack_padded
-from .reference import reference_sigma
+from ..ops.tt import TT, tt_permute, tt_round
+from ..utils.device import resolve_device
+from .irt import _canon_grid, auto_block, tt_irt_sqr, tt_rt_sqr
+from .irt_scan import _prep, can_use_scan, fwd_blocked, prep_level, \
+    stack_padded
+from .reference import (reference_sigma, tnormal_logdensity_shift,
+                        tnormal_to_uniform, uniform_to_tnormal)
 
-__all__ = ["DIRT", "serve_precision"]
+__all__ = ["DIRT", "serve_precision", "dirt_round", "dirt_permute",
+           "tt_dirt_sample", "tt_dirt_inverse"]
 
-# Rank-bucket step of the upper-level preparation: the JAX package's
-# default ragged_step.
+# Default rank-bucket step of the upper-level preparation: the JAX
+# package's default ragged_step.
 RAGGED_STEP = 4
 
 
@@ -94,16 +105,18 @@ def _resolve_precision(dirt: DIRT, precision):
 
 
 def _prepare_level_preps(dirt: DIRT, precision: str = "hi",
-                         hi_step: str = "dim"):
+                         hi_step: str = "dim",
+                         ragged_step: int = RAGGED_STEP):
     """Per-level forward preparations of the spline upper levels at
     ``precision`` (and, at 'hi', ``hi_step``), batched per rank bucket.
 
     Levels are zero-padded to their rank rounded up to a multiple of
-    ``RAGGED_STEP`` (capped at the stack max) and prepared together per
-    bucket, exactly as the JAX package buckets them (padding changes
-    the prep only at working precision, so both packages must pad
-    alike to compare).  Returns a per-level list of preps, or None
-    when the stack is not scan-eligible."""
+    ``ragged_step`` (capped at the stack max; 0 pads every level to the
+    stack max) and prepared together per bucket, exactly as the JAX
+    package buckets them (padding changes the prep only at working
+    precision, so both packages must pad alike to compare).  Returns a
+    per-level list of preps, or None when the stack is not
+    scan-eligible."""
     if dirt.nlevels < 1:
         return None
     level_cs, xstack = [], None
@@ -116,9 +129,10 @@ def _prepare_level_preps(dirt: DIRT, precision: str = "hi",
     if len({(c.shape[0], c.shape[2]) for c in level_cs}) > 1:
         return None
     rmax = max(c.shape[1] for c in level_cs)
+    step = int(ragged_step)
     buckets: dict = {}
     for j, cs in enumerate(level_cs):
-        rb = min(-(-cs.shape[1] // RAGGED_STEP) * RAGGED_STEP, rmax)
+        rb = rmax if step <= 0 else min(-(-cs.shape[1] // step) * step, rmax)
         buckets.setdefault(rb, []).append((j, cs))
     per_level = [None] * dirt.nlevels
     for rb, items in sorted(buckets.items()):
@@ -134,3 +148,138 @@ def _prepare_level_preps(dirt: DIRT, precision: str = "hi",
         for pos, (j, _) in enumerate(items):
             per_level[j] = prep_level(preps, pos)
     return per_level
+
+
+def dirt_round(dirt: DIRT, eps: float, rmax=None) -> DIRT:
+    """Every level's TT rounded to relative accuracy ``eps``
+    (ops/tt.py ``tt_round``): a serve-side rank knob.  Serving cost per
+    level goes about as r^2 with rank-bucketed preparation
+    (``ragged_step``); debiasing stays exact, since the log-density is
+    that of the realised map."""
+    return DIRT(tt_round(dirt.f0, eps, rmax),
+                [tt_round(t, eps, rmax) for t in dirt.fs],
+                dirt.x0, dirt.x, dirt.beta, dirt.lfshift, dirt.reference,
+                dirt.interpolation, evalcnt=dirt.evalcnt, fprev=dirt.fprev,
+                history=dirt.history)
+
+
+def dirt_permute(dirt: DIRT, perm, eps: float = 1e-12) -> DIRT:
+    """The stack on permuted coordinates: each level's TT permuted
+    (ops/tt.py ``tt_permute``, relative truncation <= ``eps``) and the
+    grids with it.  Every level's map is dimension-wise, so this is the
+    stack that would have been built on the permuted target."""
+    perm = [int(p) for p in perm]
+    return DIRT(tt_permute(dirt.f0, perm, eps),
+                [tt_permute(t, perm, eps) for t in dirt.fs],
+                [dirt.x0[p] for p in perm],
+                [dirt.x[p] for p in perm] if dirt.x else dirt.x,
+                dirt.beta, dirt.lfshift, dirt.reference, dirt.interpolation,
+                evalcnt=dirt.evalcnt, fprev=None, history=dirt.history)
+
+
+def _check_spline(dirt: DIRT, what: str) -> None:
+    if dirt.nlevels and not str(dirt.interpolation).lower().startswith("s"):
+        raise NotImplementedError(
+            f"{what}: only spline DIRT stacks are ported; Chebyshev and "
+            "Fourier levels are ROADMAP.md Queue 1 item 8")
+
+
+def _serve_upper_levels(dirt: DIRT, preps, z, lfapp, precision: str,
+                        hi_step: str = "dim", block: int | None = None):
+    """Levels L..1: each through its prepared blocked forward pass
+    (``preps``, from _prepare_level_preps) or, where ``preps`` is None
+    (a stack that is not scan-eligible), through ``_level_irt``.
+    ``precision`` is resolved.  Returns (z, lfapp)."""
+    sigma = dirt.sigma
+    block = auto_block(z.shape[0], block)
+    for j in range(dirt.nlevels - 1, -1, -1):
+        if sigma is not None:
+            z = tnormal_to_uniform(z, sigma)
+        if preps is not None:
+            z, dlf = fwd_blocked("sqr", preps[j], z, block)
+        else:
+            z, dlf = _level_irt(dirt, dirt.fs[j], z, precision, hi_step,
+                                block)
+        lfapp = lfapp + dlf
+        if sigma is not None:
+            lfapp = lfapp - tnormal_logdensity_shift(
+                z, sigma, reduced=precision != "f64")
+    return z, lfapp
+
+
+def _level_irt(dirt: DIRT, f: TT, z, precision=None, hi_step="dim",
+               block: int | None = None):
+    """One upper level's transform by the stack's interpolation: the
+    spline IRT (any TT, through the general path where the scan path
+    does not apply) in blocks of ``block`` rows."""
+    _check_spline(dirt, "_level_irt")
+    return tt_irt_sqr(dirt.x, f, z, block=block, precision=precision,
+                      device=z.device, hi_step=hi_step)
+
+
+def tt_dirt_sample(dirt: DIRT, q, logpostfun=None, precision=None,
+                   hi_step: str = "dim", use_fused=None, device="cuda"):
+    """Push reference seeds through the stack: levels L..1, then the
+    level-0 spline IRT.  Every level is prepared on this call.
+
+    Args:
+      dirt: a spline DIRT stack (moved to ``device``).
+      q: (M, d) seeds: [0, 1]^d for a uniform reference, the truncated
+        normal's box otherwise.
+      logpostfun: optional exact log-density, evaluated at the output.
+      precision: any precision name (samplers/irt_scan.py); None = by
+        the cores' dtype.
+      hi_step: the algorithm of the 'hi' step; only legal at 'hi'.
+      use_fused: True asks for the fused whole-stack program, which is
+        not ported (ROADMAP.md Queue 1 item 8); None or False run the
+        level loop.
+      device: where the stack is served (default "cuda").
+    Returns:
+      (z, lfapp) or (z, lfapp, logpostfun(z)).
+    """
+    if use_fused:
+        raise NotImplementedError(
+            "the fused whole-stack program (dirt_scan.py) is not ported; "
+            "see ROADMAP.md Queue 1 item 8")
+    _check_spline(dirt, "tt_dirt_sample")
+    dev = resolve_device(device)
+    dirt = dirt.to(dev)
+    z = torch.as_tensor(q, dtype=torch.float64, device=dev)
+    prec = _resolve_precision(dirt, precision)
+    lfapp = torch.zeros((z.shape[0],), dtype=z.dtype, device=dev)
+    preps = (_prepare_level_preps(dirt, prec, hi_step) if dirt.nlevels
+             else None)
+    z, lfapp = _serve_upper_levels(dirt, preps, z, lfapp, prec, hi_step)
+    sigma = dirt.sigma
+    if sigma is not None:
+        z = tnormal_to_uniform(z, sigma)
+    z, dlf = tt_irt_sqr(dirt.x0, dirt.f0, z, precision=precision,
+                        device=dev, hi_step=hi_step)
+    lfapp = lfapp + dlf
+    if logpostfun is not None:
+        return z, lfapp, logpostfun(z)
+    return z, lfapp
+
+
+def tt_dirt_inverse(dirt: DIRT, x, device="cuda"):
+    """The inverse map, samples -> reference seeds: level 0's forward
+    Rosenblatt transform, then levels 1..L (spline stacks only, as in
+    the JAX package).  Returns (q, lfapp)."""
+    if not str(dirt.interpolation).lower().startswith("s"):
+        raise NotImplementedError(
+            "tt_dirt_inverse supports spline interpolation only")
+    dev = resolve_device(device)
+    dirt = dirt.to(dev)
+    sigma = dirt.sigma
+    q = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    q, lfapp = tt_rt_sqr(dirt.x0, dirt.f0, q, device=dev)
+    if sigma is not None:
+        q = uniform_to_tnormal(q, sigma)
+    for j in range(dirt.nlevels):
+        if sigma is not None:
+            lfapp = lfapp + 0.5 * torch.sum(q * q, dim=-1)
+        q, dlf = tt_rt_sqr(dirt.x, dirt.fs[j], q, device=dev)
+        lfapp = lfapp + dlf
+        if sigma is not None:
+            q = uniform_to_tnormal(q, sigma)
+    return q, lfapp

@@ -1,7 +1,7 @@
 """Rank-padded scan path of the IRT/RT transforms (counterpart of
 ``tt_irt_tpu/samplers/irt_scan.py``): every precision name of the JAX
-package ('f64', 'f32', 'mixed', 'hi', 'hid', 'ds', 'gs'), modes 'sqr' and
-'rt'.
+package ('f64', 'f32', 'mixed', 'hi', 'hid', 'ds', 'gs'), modes 'sqr',
+'rt' and 'lin'.
 
 All TT ranks are zero-padded to the maximum rank so every dimension has
 the same shape (exact: every contraction is linear in the padded
@@ -31,6 +31,14 @@ entries).
                ``_serve_solve`` -> ``condition_update``;
     "pair"     ``factor_conditional`` -> ``_cdf_invert_serve`` (f32 rows,
                f64 bracket scalars) -> ``condition_update``.
+* 'lin' (the density itself in TT, linear splines) has no factor form:
+  every precision name runs it in the Gram family's dtypes (the JAX
+  package's table: 'f64' f64 throughout, 'f32' f32 throughout, every
+  other name f32 contractions with an f64 CDF).  ``_prepare_scan_lin``
+  integrates the raw cores backward into fields P_k (r, n); the
+  conditional is fk = |phi P_k| (a plain product, as in the JAX
+  package), then the Gram family's CDF inversion and prefix update, the
+  latter through ``condition_update`` at an f32 contraction.
 * 'hid' is "pair" with the CDF in native f64 (``_cdf_invert`` on
   fk.double()); 'ds' is the factor form with an f64 carry, plain PyTorch
   on either device; 'gs' is the Gram conditional on f64-prepared,
@@ -58,11 +66,11 @@ from ..ops.rowmath import (cdf_rows32, cdf_sums32, cumsum_rows,
                            full_f32_matmul)
 from ..ops.rowmath import invert_quadratic as _invert_quadratic
 from ..ops.tt import TT
-from .irt import _grid_spacings, _num_blocks, _pad_rows
+from .irt import _grid_spacings, _num_blocks, _pad_rows, _trapz_w2
 
 __all__ = ["stack_padded", "can_use_scan", "FactorPrep", "OrthoPrep",
-           "GramPrep", "GramBPrep", "fwd_blocked", "irt_scan", "HI_STEPS",
-           "resolved_serve_modes"]
+           "GramPrep", "GramBPrep", "LinPrep", "fwd_blocked", "irt_scan",
+           "HI_STEPS", "resolved_serve_modes"]
 
 # name -> (contraction dtype, CDF dtype, family), as the JAX package's
 # table, except that 'ds' contracts in native f64 here (there: f32 pairs).
@@ -76,6 +84,12 @@ _PRECISIONS = {
     "gs": (torch.float32, torch.float64, "gramb"),
 }
 PRECISIONS = tuple(_PRECISIONS)
+# Mode 'lin': name -> (contraction dtype, CDF dtype); the Gram family's
+# dtypes of the JAX package's table for every name.
+_LIN_DTYPES = {name: ((torch.float64, torch.float64) if name == "f64" else
+                      (torch.float32, torch.float32) if name == "f32" else
+                      (torch.float32, torch.float64))
+               for name in _PRECISIONS}
 # The algorithms of the 'hi' per-dimension step (module docstring).
 HI_STEPS = ("dim", "odim", "bracket", "pair")
 
@@ -116,13 +130,6 @@ def stack_padded(tt: TT, grids):
         cp[:r1, :, :r2] = c
         cores.append(cp)
     return torch.stack(cores, dim=0), torch.stack(list(grids), dim=0)
-
-
-def _trapz_w2(hstack):
-    """Composite trapezoid weights from the spacing rows."""
-    return 0.5 * torch.cat([hstack[:, 1:2],
-                            hstack[:, 1:-1] + hstack[:, 2:],
-                            hstack[:, -1:]], dim=1)
 
 
 def _prepare_scan(cstack, xstack, stable: bool = False):
@@ -172,6 +179,28 @@ def _prepare_scan(cstack, xstack, stable: bool = False):
                 carry = gnew / amax(gnew)
             out[k] = pk
     return torch.stack(out, dim=-4), hstack
+
+
+def _prepare_scan_lin(cstack, xstack):
+    """Backward trapezoid integration of the raw cores for mode 'lin',
+    in cstack's dtype: P_k = C_k p_(k+1) with p_(k+1) the integral of
+    the suffix over x_(>k), renormalised by its largest entry.
+    cstack (d, r, n, r), xstack (d, n).  Returns (pstack (d, r, n),
+    hstack (d, n))."""
+    xstack = xstack.to(cstack.dtype)
+    d, r = cstack.shape[0], cstack.shape[1]
+    hstack = _grid_spacings(xstack)
+    pprev = torch.zeros((r,), dtype=cstack.dtype, device=cstack.device)
+    pprev[0] = 1.0
+    out = [None] * d
+    with full_f32_matmul():
+        for k in range(d - 1, -1, -1):
+            b = torch.einsum("anb,b->an", cstack[k], pprev)
+            pnext = torch.sum(0.5 * (b[:, :-1] + b[:, 1:]) * hstack[k, 1:],
+                              dim=1)
+            pprev = pnext / torch.clamp(pnext.abs().max(), min=1e-300)
+            out[k] = b
+    return torch.stack(out, dim=0), hstack
 
 
 def _chol_jittered(gram):
@@ -280,6 +309,17 @@ class GramPrep(NamedTuple):
     hs: torch.Tensor      # (d, n) spacings, hs[:, 0] = 0
 
 
+class LinPrep(NamedTuple):
+    """Per-dimension operands of the 'lin' forward pass (one TT): the
+    fields and the core in the contraction dtype, grids and spacings in
+    the CDF dtype."""
+
+    pmat: torch.Tensor    # (d, r, n), pmat[k, i, x] = P_k(x)[i]
+    cmat: torch.Tensor    # (d, n, r*r), C_k unfolded
+    xs: torch.Tensor      # (d, n) grids
+    hs: torch.Tensor      # (d, n) spacings, hs[:, 0] = 0
+
+
 def prep_level(prep, j: int):
     """Level j of a prep whose tensor fields carry a leading level
     axis."""
@@ -356,13 +396,26 @@ def _prep_gram(cstack, xstack, precision, stable) -> GramPrep:
                     _per_level(lead, hstack.to(pdt)))
 
 
+def _prep_lin(cstack, xstack, precision) -> LinPrep:
+    """Backward preparation of mode 'lin' (one TT) in the contraction
+    dtype of ``precision``'s row of _LIN_DTYPES."""
+    cdt, pdt = _LIN_DTYPES[precision]
+    cs = cstack.to(cdt)
+    pstack, hstack = _prepare_scan_lin(cs, xstack)
+    return LinPrep(pstack.contiguous(), _unfold_cores(cs).contiguous(),
+                   xstack.to(pdt), hstack.to(pdt))
+
+
 def _prep(cstack, xstack, precision: str = "hi", stable: bool = True,
-          hi_step: str = "dim"):
+          hi_step: str = "dim", mode: str = "sqr"):
     """Backward preparation: everything the forward pass needs except
     the seeds; the type of the result (and a FactorPrep's ``step``)
-    names the forward pass.  cstack may carry a leading level dimension;
-    every tensor field then carries it too (``prep_level`` picks one)."""
+    names the forward pass.  cstack may carry a leading level dimension
+    (not in mode 'lin'); every tensor field then carries it too
+    (``prep_level`` picks one)."""
     check_precision(precision, hi_step)
+    if mode == "lin":
+        return _prep_lin(cstack, xstack, precision)
     family = _family(precision)
     if family == "gram":
         return _prep_gram(cstack, xstack, precision, stable)
@@ -637,22 +690,35 @@ def _fwd_split(mode, prep: FactorPrep, q, step=None):
     return outs.T, lf
 
 
-def _fwd_gram(mode, prep: GramPrep, q, step=None):
-    """Gram-family forward pass over one block of rows.  Per dimension:
-    the conditional, ``_cdf_invert`` in the CDF dtype (at 'mixed' on fk
-    clamped at 0, as the JAX package does before its f64 CDF; at 'f32'
-    fk may come out slightly negative by cancellation and is left so),
-    and the prefix update.  ``step`` is the pair (gram_conditional,
-    condition_update) and defaults to the choice of ops/kernel_plan.py.
-    Samples and log-density come back in the CDF dtype."""
-    d, rr, n = prep.pmat.shape
-    r = int(round(rr ** 0.5))
+def lin_conditional(phi, pmat):
+    """Mode 'lin''s conditional fk = |phi P_k| (M, n), a plain product
+    in full f32 or f64 (the JAX package has no kernel for it)."""
+    with full_f32_matmul():
+        return torch.abs(torch.matmul(phi, pmat))
+
+
+def _fwd_gram(mode, prep, q, step=None):
+    """Gram-family forward pass over one block of rows (a GramPrep, or a
+    LinPrep in mode 'lin').  Per dimension: the conditional,
+    ``_cdf_invert`` in the CDF dtype (at 'mixed' on fk clamped at 0, as
+    the JAX package does before its f64 CDF; at 'f32' fk may come out
+    slightly negative by cancellation and is left so), and the prefix
+    update.  ``step`` is the pair (conditional, condition_update) and
+    defaults to the choice of ops/kernel_plan.py, with
+    ``lin_conditional`` for a LinPrep.  Samples and log-density come
+    back in the CDF dtype."""
+    d, n = prep.pmat.shape[0], prep.pmat.shape[2]
+    r = int(round(prep.cmat.shape[2] ** 0.5))
     cdt, pdt = prep.pmat.dtype, prep.xs.dtype
     mixed = cdt != pdt
     mb = q.shape[0]
     qs = q.to(pdt).T.contiguous()                          # (d, mb)
-    gram, update = (step if step is not None
-                    else kernel_plan.gram_step(cdt))
+    if step is not None:
+        gram, update = step
+    else:
+        gram, update = kernel_plan.gram_step(cdt)
+        if isinstance(prep, LinPrep):
+            gram = lin_conditional
     phi = torch.zeros((mb, r), dtype=cdt, device=q.device)
     phi[:, 0] = 1.0
     lf = torch.zeros((mb,), dtype=pdt, device=q.device)
@@ -675,7 +741,7 @@ def _fwd(mode, prep, q, step=None):
     ``step`` replaces the kernel-plan choice of the per-dimension
     functions; the chip smoke test passes the plain versions to compare
     on the card."""
-    if isinstance(prep, GramPrep):
+    if isinstance(prep, (GramPrep, LinPrep)):
         return _fwd_gram(mode, prep, q, step)
     if isinstance(prep, GramBPrep):
         return _fwd_gramb(mode, prep, q, step)
@@ -705,19 +771,20 @@ def fwd_blocked(mode, prep, q, block: int):
 def _irt_scan_one(mode, cstack, xstack, q, precision="f64", stable=False,
                   hi_step="dim"):
     """One-shot transform of a single block of rows (for tests)."""
-    return _fwd(mode, _prep(cstack, xstack, precision, stable, hi_step), q)
+    return _fwd(mode, _prep(cstack, xstack, precision, stable, hi_step,
+                            mode=mode), q)
 
 
 def irt_scan(mode, cstack, xstack, q, block, precision="f64",
              hi_step="dim"):
-    """Blocked scan transform, mode in {'sqr', 'rt'}: the backward
-    preparation runs once (QR-stabilised for the Gram family), then the
-    forward pass runs block by block.  ``hi_step`` names the algorithm
-    of the 'hi' step (module docstring)."""
-    if mode not in ("sqr", "rt"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported to PyTorch yet (see ROADMAP.md)")
-    prep = _prep(cstack, xstack, precision, stable=True, hi_step=hi_step)
+    """Blocked scan transform, mode in {'sqr', 'rt', 'lin'}: the
+    backward preparation runs once (QR-stabilised for the Gram family),
+    then the forward pass runs block by block.  ``hi_step`` names the
+    algorithm of the 'hi' step (module docstring; not used by 'lin')."""
+    if mode not in ("sqr", "rt", "lin"):
+        raise ValueError(f"unknown mode {mode!r}")
+    prep = _prep(cstack, xstack, precision, stable=True, hi_step=hi_step,
+                 mode=mode)
     return fwd_blocked(mode, prep, q, block)
 
 
