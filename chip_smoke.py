@@ -105,6 +105,41 @@ Phases (any failure raises; nothing falls back to the CPU):
      launch counts, the first 2^18 rows against 'f64' by the rule of
      phase 13, and tt_irt_debias ('iw' and 'mcmc') with the mixture's
      exact log-density.
+ 17. amen_cross_s at bench.py's cross configuration (d=50, n=192,
+     (sum (i+1)^2)^-1/2 evaluated on the card, tol 1e-4, kickrank 4,
+     stop_sweep 1): cold and warm seconds, the profile= split, evals, the
+     largest rank, errors at 2^16 random indices; gated on finite values
+     and on the card's cross being bit for bit the same cross with a
+     numpy function on the host (which is the JAX package's,
+     tests/test_torch_cross.py); the reference's Frobenius figure
+     1.7048e-4 is reported beside the error, met or not;
+ 18. TT-MH on the shock absorber (bench.py::_ttmh_bench): the cross of
+     the posterior on the card, 2^14 seeds through tt_irt_lin at 'f64'
+     and 'f32' (condition_update; 'f32' against 'f64' by phase 16's rule),
+     mcmc_prune, iact, ESS/s, and QMC-IW beside MH, with the bars of
+     tests/test_shock_absorber.py;
+ 19. tt_dirt_approx on the Lorenz-10 problem of examples/data/lz10_ck at
+     run_lorenz_dirt.py's --fine-ladder --r0 19 settings (f64 pushes,
+     every accepted level saved): seconds, each level's history, the split
+     into cross host time and probe batches, one probe batch's idle share,
+     the save_dirt/load_dirt round trip served bit for bit, the stack
+     served at 'f32' (launch counts) with N/ESS of six seed sets beside
+     lz10_ck's; every accepted level's N/ESS at most 50 and the median at
+     most twice lz10_ck's.  If the construction gives up on a level (its
+     N/ESS gate failed five times), the give-up is recorded, the levels
+     accepted before it are served against their own last tempered target,
+     and the criterion is reported as not met: at these settings the JAX
+     package's own builds on IEEE f64 give up or miss it too, as a change
+     of one ulp in their pushes decides (tests/bits_witness.py,
+     tests/data/bits_witness.json);
+ 20. the same build with precision="hi": dim_step launches (one a
+     dimension a transform a probe batch), their shapes (n, r) and the
+     probe batches' rows M, dim_step against its plain version
+     through the built stack's levels on a probe batch's rows (phase
+     13's rule), phase 19's gates;
+ 21. the predator-prey DIRT at the reference's settings (d=8, n=18, 9
+     betas, y0 13, 'n4', 100 test samples) built on the card, 1024 seeds:
+     N/ESS < 150, MH rejection < 0.9, posterior mean within 0.25 of 1.
 The timing lines of phases 8 and 12 print beside condition_update's,
 gram_conditional's and fused_irt_sqr's times those of their previous
 designs (BEFORE_MS).
@@ -2343,6 +2378,526 @@ def _lin_path(run):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 17-21: building transports on the card (the constructors)
+# ---------------------------------------------------------------------------
+
+# Phase 17: bench.py's cross configuration (amen_cross_s.m:74-82).
+CROSS_D, CROSS_N = 50, 192
+# The reference's own Frobenius error at this configuration (the MATLAB
+# header's figure, ROADMAP.md Queue 1 item 5).
+CROSS_REF_FRO = 1.7048e-4
+# Phases 19-20: the problem examples/data/lz10_ck was built on, and
+# run_lorenz_dirt.py's --fine-ladder --r0 19 build settings (also those
+# of tools/lz10_build_variants.py and tests/bits_witness.py).
+LZ10_PROBLEM = os.path.join(DATA, "lz10")
+LZ10_BUILD = dict(nswp=1, kickrank=0, y0=19, boundary=True, stoptol=0.1,
+                  reference="n3", testsamples=1000, seed=0)
+RECOMPUTE = 50.0          # DirtOptions.recompute: the level gate
+
+
+def _no_launch(fn):
+    """fn() with every launch count set to 0 just before it and read just
+    after it: no kernel may have launched.  Returns fn()'s output."""
+    _zero_counts()
+    out = fn()
+    got = {k: f.launches for k, f in _wrappers().items() if f.launches}
+    assert not got, got
+    return out
+
+
+def _cross_path(run):
+    """Phase 17: amen_cross_s at bench.py::_cross_bench's configuration,
+    the function evaluated on the card."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev = run.rec, run.card, run.dev
+    d, n = CROSS_D, CROSS_N
+
+    def fun(ind):
+        s = torch.sum((ind.to(torch.float64) + 1.0) ** 2, dim=1)
+        return torch.sqrt(1.0 / s)
+
+    def fun_np(ind):
+        x = ind.astype(np.float64) + 1.0
+        return np.sqrt(1.0 / np.sum(x * x, axis=1))
+
+    kw = dict(kickrank=4, seed=0, stop_sweep=1)
+    secs, prof = [], {}
+    for _ in range(2):                       # cold, warm
+        prof = {}
+        t0 = time.perf_counter()
+        res = _no_launch(lambda: tp.amen_cross_s(
+            [n] * d, fun, 1e-4, torch_fun=True, device=dev, profile=prof,
+            **kw))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    # the same cross with the function in numpy on this host: the port's
+    # cross is then the JAX package's bit for bit
+    # (tests/test_torch_cross.py::test_headline_cross_bit_for_bit_with_
+    # numpy_fun), and the card's must be this one
+    t0 = time.perf_counter()
+    res_np = tp.amen_cross_s([n] * d, fun_np, 1e-4, device=dev, **kw)
+    host_s = time.perf_counter() - t0
+    same = (res.evalcnt == res_np.evalcnt
+            and len(res.tt.cores) == len(res_np.tt.cores)
+            and all(torch.equal(a, b)
+                    for a, b in zip(res.tt.cores, res_np.tt.cores)))
+    rng = np.random.default_rng(5)
+    idx_np = rng.integers(0, n, size=(1 << 16, d))
+    idx = torch.from_numpy(idx_np).to(dev)
+    approx = tp.tt_eval_indices(res.tt, idx)
+    exact = fun(idx)
+    values_equal = bool(np.array_equal(exact.cpu().numpy(), fun_np(idx_np)))
+    rel = (approx - exact).abs() / exact.abs()
+    fro = float(torch.sqrt(torch.mean((approx - exact) ** 2)
+                           / torch.mean(exact ** 2)))
+    split = {k: prof.get(k, 0.0) for k in ("eval_fun", "eval_merge",
+                                           "qrmaxvol", "truncate")}
+    split["rest"] = secs[1] - sum(split.values())
+    rec.update(
+        cross_cold_s=secs[0], cross_warm_s=secs[1], cross_profile_s=prof,
+        cross_split_s=split, cross_evals=int(res.evalcnt[0]),
+        cross_rank_max=int(max(res.tt.ranks)),
+        cross_err_rel_rms=float(torch.sqrt(torch.mean(rel ** 2))),
+        cross_err_rel_max=float(rel.max()), cross_err_fro_mc=fro,
+        cross_ref_fro=CROSS_REF_FRO,
+        cross_ref_fro_met=fro <= CROSS_REF_FRO,
+        cross_host_numpy_s=host_s, cross_same_as_host_numpy=same,
+        cross_values_equal_numpy=values_equal)
+    print(f"cross: amen_cross_s d={d}, n={n}, (sum (i+1)^2)^-1/2 on the "
+          f"card, tol 1e-4, kickrank 4, stop_sweep 1: cold "
+          f"{secs[0]:.3f} s, warm {secs[1]:.3f} s (warm split: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
+          + f"); evals {rec['cross_evals']}, largest rank "
+          f"{rec['cross_rank_max']}; at 2^16 indices (default_rng(5)) "
+          f"relative rms {rec['cross_err_rel_rms']:.4e}, max "
+          f"{rec['cross_err_rel_max']:.4e}, Monte-Carlo Frobenius "
+          f"{fro:.6e} (the reference's figure {CROSS_REF_FRO:.4e}: "
+          f"{'met' if fro <= CROSS_REF_FRO else 'NOT MET'}); the same "
+          f"cross with a numpy function on the host ({host_s:.3f} s): "
+          f"{'equal bit for bit' if same else 'DIFFERENT'}, function "
+          f"values {'equal' if values_equal else 'DIFFERENT'} ({card})",
+          flush=True)
+    assert bool(torch.isfinite(approx).all()), "non-finite cross values"
+    assert all(bool(torch.isfinite(c).all()) for c in res.tt.cores)
+    # the card's cross is the host's numpy cross, which is the JAX
+    # package's; the reference's Frobenius figure is reported beside it
+    # (met or not, as the JAX package's own cross on this host would)
+    assert values_equal, "the card's function values differ from numpy's"
+    assert same, (res.evalcnt, res_np.evalcnt)
+
+
+def _ttmh_path(run):
+    """Phase 18: TT-MH on the shock absorber (bench.py::_ttmh_bench):
+    the cross of the posterior density on the card, 2^14 seeds through
+    tt_irt_lin at 'f64' (plain) and at 'f32' (condition_update), the
+    exact density, mcmc_prune and iact; QMC-IW beside MH.  Returns the
+    condition_update launches of one 'f32' call."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.models import shock_absorber as sa
+
+    rec, card, dev, seed = run.rec, run.card, run.dev, run.seed
+    cfg = sa.ShockConfig(d=6, n=17, x=sa.paper_covariates())
+    lp = cfg.log_posterior_fn()
+    grids = [torch.from_numpy(g).to(dev) for g in cfg.grids()]
+    gmat = torch.stack(grids, dim=1)
+
+    def cross_fun(ind):
+        return torch.exp(lp(torch.gather(gmat, 0, ind.long())))
+
+    t0 = time.perf_counter()
+    res = _no_launch(lambda: tp.amen_cross_s(
+        [cfg.n] * (cfg.d + 2), cross_fun, 0.0, tol_exit=0.05, y0=8,
+        kickrank=2, seed=0, torch_fun=True, device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m, d = 1 << 14, cfg.d + 2
+    z = torch.rand((m, d), generator=torch.Generator(device=dev).manual_seed(
+        seed), dtype=torch.float64, device=dev)
+    out, best = {}, {}
+    launches = d                              # one block of 2^14 rows
+    for prec, expect in (("f64", {}), ("f32", {"condition_update": launches})):
+        best[prec] = float("inf")
+        for rep in range(4):                  # a warm-up, then best of 3
+            gen = torch.Generator(device=dev).manual_seed(seed + 100)
+            _zero_counts()
+            t0 = time.perf_counter()
+            y, lfapp = tp.tt_irt_lin(grids, res.tt, z, precision=prec,
+                                     device=dev)
+            lfex = lp(y)
+            mh = tp.mcmc_prune(y, lfex, lfapp, generator=gen)
+            float(mh.y.sum())
+            secs = time.perf_counter() - t0
+            got = {k: f.launches for k, f in _wrappers().items()
+                   if f.launches}
+            assert got == expect, (prec, got)
+            if rep:
+                best[prec] = min(best[prec], secs)
+        out[prec] = (y, lfapp, lfex, mh)
+    y32, l32 = out["f32"][:2]
+    y64, l64 = out["f64"][:2]
+    with _plain_steps():
+        yp, lpp = tp.tt_irt_lin(grids, res.tt, z, precision="f32",
+                                device=dev)
+    checks = {}
+    _serve_gate(rec, checks, "ttmh_f32", (y32, l32), (yp, lpp), (y64, l64))
+    qn = torch.from_numpy(tp.qmcnodes(d, 14, seed=7)).to(dev)
+    yq, lfq = tp.tt_irt_lin(grids, res.tt, qn, device=dev)
+    lq = lp(yq)
+    q_iw, q_iw_n = sa.quantile_qoi(yq, is_weight=torch.exp(lq - lfq))
+    stats = {}
+    for prec, (y, lfapp, lfex, mh) in out.items():
+        tau = float(np.mean(tp.iact(mh.y)))
+        q_mh, q_mh_n = sa.quantile_qoi(mh.y)
+        stats[prec] = {
+            "sample_best_s": best[prec], "iact": tau,
+            "ess_per_s": m / max(tau, 1.0) / best[prec],
+            "reject_rate": mh.num_rejects / m, "q_mh": float(q_mh),
+            "q_mh_newton": float(q_mh_n),
+            "q_rel_vs_iw": abs(float(q_mh) - float(q_iw)) / float(q_iw),
+            "q_newton_rel_vs_iw": abs(float(q_mh_n) - float(q_iw_n))
+            / float(q_iw_n)}
+    rec.update(ttmh_build_s=build_s, ttmh_ranks=list(res.tt.ranks),
+               ttmh_evals=int(res.evalcnt[0]), ttmh=stats,
+               ttmh_iw_n_over_ess=float(tp.essinv(lq, lfq)),
+               ttmh_q_iw=float(q_iw), ttmh_q_iw_newton=float(q_iw_n),
+               ttmh_f32_launches_per_call=launches)
+    print(f"TT-MH shock absorber (d=6, n=17, 2^14 seeds): cross "
+          f"{build_s:.3f} s (ranks {list(res.tt.ranks)}, evals "
+          f"{rec['ttmh_evals']}); " + "; ".join(
+              f"'{p}': best {s['sample_best_s']:.4f} s, IACT "
+              f"{s['iact']:.3f}, ESS/s {s['ess_per_s']:.1f}, rejected "
+              f"{100 * s['reject_rate']:.2f}%, q {s['q_mh']:.1f} (Newton "
+              f"{s['q_mh_newton']:.1f})" for p, s in stats.items())
+          + f"; QMC-IW N/ESS {rec['ttmh_iw_n_over_ess']:.4f}, q "
+          f"{float(q_iw):.1f} (Newton {float(q_iw_n):.1f}); "
+          f"condition_update launches per 'f32' call {launches}; 'f32' "
+          f"against 'f64' beside the plain update: " + json.dumps(
+              {k: v for k, v in rec.items() if k.startswith("ttmh_f32_")})
+          + f" ({card})", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"tt_irt_lin('f32') vs 'f64' on the shock TT: {failed}"
+    assert rec["ttmh_iw_n_over_ess"] < 3.0, rec["ttmh_iw_n_over_ess"]
+    for prec, s in stats.items():
+        assert s["reject_rate"] < 0.40, (prec, s)
+        assert s["iact"] < 6.0, (prec, s)
+        assert s["q_rel_vs_iw"] < 0.05 and s["q_newton_rel_vs_iw"] < 0.05, \
+            (prec, s)
+        assert 5e3 < s["q_mh"] < 5e4, (prec, s)
+    return launches
+
+
+def _lz10_problem():
+    import numpy as np
+
+    import tt_irt_tpu_torch as tp
+
+    return tp.LorenzProblem(d=10, n=17, a=10.0,
+                            x0true=np.load(LZ10_PROBLEM + "_x0base.npy"),
+                            data=np.load(LZ10_PROBLEM + "_data.npy"))
+
+
+def _build_lz10(run, tag, precision, may_give_up=False):
+    """tt_dirt_approx on the Lorenz-10 problem at run_lorenz_dirt.py's
+    --fine-ladder --r0 19 settings, pushes at ``precision``, saving every
+    accepted level to chiprun_out/<tag>_ck.  With ``may_give_up`` the
+    construction's own give-up (a level over the N/ESS gate five times)
+    is recorded and the levels accepted before it are loaded back from
+    the checkpoint.  Returns (stack, the give-up message or None, the
+    probe batches as (rows, transforms pushed through), launch
+    counts)."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev = run.rec, run.dev
+    prob = _lz10_problem()
+    beta = tp.load_dirt(CKPT_10, device="cpu").beta.numpy()
+    assert np.allclose(beta, np.concatenate(
+        [10.0 ** np.arange(-4, -2, 0.5), 10.0 ** np.arange(-2, 0.25, 0.25)]))
+    ratio = prob.tempered_logratio_fn()
+    level = {float(b): i for i, b in enumerate(beta)}
+    probes = []
+
+    def logratio(x, b1, b2):
+        # a probe batch of level l (b1 = beta[l-1] > 0) was pushed
+        # through the l transforms below it; the level self-tests call
+        # with b1 = 0 after tt_dirt_sample at f64
+        if b1 > 0.0:
+            probes.append((int(x.shape[0]), level[float(b2)]))
+        return ratio(x, b1, b2)
+
+    prof, gave_up = {}, None
+    path = os.path.join(OUT_DIR, f"{tag}_ck")
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        dirt = tp.tt_dirt_approx(
+            prob.grids(), logratio, beta, precision=precision, device=dev,
+            checkpoint_path=path, profile=prof, **LZ10_BUILD)
+    except RuntimeError as e:
+        if not (may_give_up and "giving up" in str(e)):
+            raise
+        gave_up = str(e)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in _wrappers().items() if f.launches}
+    back = tp.load_dirt(path, device=dev)     # the last accepted stack
+    if gave_up is None:
+        # save_dirt / load_dirt round trip: the same stack, served bit for
+        # bit by the same sampler
+        q = tp.randref(dirt.reference, torch.Generator(
+            device=dev).manual_seed(9), (1 << 16, dirt.d))
+        za, la = tp.DirtSampler(dirt, "auto", device=dev)(q)
+        zb, lb = tp.DirtSampler(back, "auto", device=dev)(q)
+        assert torch.equal(za, zb) and torch.equal(la, lb), "save/load"
+    dirt = back
+    hist = [{k: h[k] for k in ("level", "attempt", "accepted", "ranks",
+                               "evals", "tau", "reject_rate", "ntest")}
+            for h in dirt.history]
+    probe = {k: v for k, v in prof.items()
+             if k in ("eval_fun", "dirt_push", "density")}
+    host = sum(v for k, v in prof.items()
+               if k not in ("eval_fun", "dirt_push", "density",
+                            "test_samples"))
+    rec.update({f"{tag}_build_s": secs, f"{tag}_history": hist,
+                f"{tag}_gave_up": gave_up,
+                f"{tag}_profile_s": prof, f"{tag}_cross_host_s": host,
+                f"{tag}_probe_batch_s": probe,
+                f"{tag}_build_launches": launches,
+                f"{tag}_probe_batch_rows": sorted({m for m, _ in probes})})
+    accepted = [h for h in hist if h["accepted"]]
+    attempts = {}
+    for h in hist:
+        attempts[h["level"]] = attempts.get(h["level"], 0) + 1
+    print(f"{tag}: tt_dirt_approx(Lorenz-10, 13-beta fine ladder, n=17 on "
+          f"[-10, 10], nswp 1, kickrank 0, y0 19, 'n3', 1000 test "
+          f"samples, seed 0, pushes at {precision or 'f64'}) in "
+          f"{secs:.2f} s: cross host {host:.2f} s, probe batches "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in probe.items())
+          + f", test samples {prof.get('test_samples', 0.0):.2f} s; "
+          f"levels (largest rank, evals, N/ESS, attempts): "
+          + "; ".join(f"{h['level']}: {max(h['ranks'])}, {h['evals']}, "
+                      f"{h['tau']:.3f}, {attempts[h['level']]}"
+                      for h in accepted)
+          + (f"; GAVE UP: {gave_up}" if gave_up else "")
+          + f"; kernel launches {launches} ({run.card})", flush=True)
+    bad = [h for h in accepted if h["level"] > 0 and h["tau"] > RECOMPUTE]
+    assert not bad, bad
+    assert gave_up or dirt.nlevels == len(beta) - 1
+    for f in (dirt.f0,) + dirt.fs:
+        assert all(bool(torch.isfinite(c).all()) for c in f.cores)
+    return dirt, gave_up, probes, launches
+
+
+def _serve_lz10(run, tag, dirt, lp):
+    """Serve 2^log2n 'n3' seeds through DirtSampler(dirt, "auto") ->
+    'f32', held to its launch counts; N/ESS of the six seed sets."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev, m, seed = run.rec, run.dev, run.m, run.seed
+    sampler = tp.DirtSampler(dirt, precision="auto", device=dev)
+    assert sampler.precision == "f32", sampler.precision
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seeds = tp.randref(dirt.reference, gen, (m, dirt.d))
+    launches = run.nblocks * (dirt.nlevels + 1) * dirt.d
+    best, (z, lfapp) = _serve_best_of_3(
+        sampler, seeds, {"gram_conditional": launches,
+                         "condition_update": launches})
+    assert bool(torch.isfinite(z).all())
+    lfex = lp(z)
+    ess, share, _, bad, _ = _ess_sets(tp, sampler, dirt, lp,
+                                      (seeds, z, lfapp, lfex), seed, m, dev)
+    assert max(bad) <= NONFINITE_ROWS_BAR, bad
+    rec.update({f"{tag}_serve_best_s": best,
+                f"{tag}_launches_per_call": launches,
+                f"{tag}_n_over_ess_sets": ess,
+                f"{tag}_n_over_ess_median": float(np.median(ess)),
+                f"{tag}_nonfinite_rows_sets": bad,
+                f"{tag}_max_weight_share_sets": share})
+    return sampler, seeds, launches
+
+
+def _lz10_build_path(run):
+    """Phase 19: build the Lorenz-10 DIRT on the card (f64 pushes), then
+    serve it at 'f32' beside lz10_ck.  Returns {path: {kernel:
+    launches}}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m = run.rec, run.card, run.dev, run.m
+    dirt, gave_up, probes, launches = _build_lz10(run, "lz10b", None,
+                                                  may_give_up=True)
+    assert not launches, launches             # f64 pushes: plain PyTorch
+    prob = _lz10_problem()
+    lp = prob.log_posterior_fn()
+    # the idle share of one probe batch of the stack's last level: the
+    # push through the levels below it at f64 and the Lorenz solves
+    last = tp.DIRT(dirt.f0, dirt.fs[:-1], dirt.x0, dirt.x, dirt.beta[:-1],
+                   dirt.lfshift, dirt.reference, dirt.interpolation)
+    push = tp.DirtSampler(last, device=dev)
+    qp = tp.randref(dirt.reference, torch.Generator(device=dev).manual_seed(
+        7), (max(m for m, _ in probes), dirt.d))
+    float(lp(push(qp)[0]).sum())                # warm-up
+    t0 = time.perf_counter()
+    float(lp(push(qp)[0]).sum())
+    batch_s = time.perf_counter() - t0
+    _, busy, _, top = _trace_call(lambda: float(lp(push(qp)[0]).sum()), [])
+    rec.update(lz10b_probe_batch_rows_traced=int(qp.shape[0]),
+               lz10b_probe_batch_s=batch_s, lz10b_probe_trace_busy_s=busy,
+               lz10b_probe_trace_top_kernels_s=top)
+    print(f"lz10 build: one probe batch of the stack's last level "
+          f"({qp.shape[0]} rows: f64 push through {last.nlevels + 1} "
+          f"transforms and the Lorenz solves) {batch_s:.4f} s; traced: "
+          "device busy "
+          + (f"{busy:.4f} s (idle {100 * max(0.0, 1 - busy / batch_s):.1f}%)"
+             if busy is not None else "not measured (no device time seen)")
+          + f" ({card})", flush=True)
+    # a stack whose build gave up ends below beta = 1: its N/ESS is taken
+    # against its own last tempered target
+    beta_last = float(dirt.beta[-1])
+    target = lp if gave_up is None else (
+        lambda x: prob.tempered_logratio_fn()(x, 0.0, beta_last))
+    _, _, n_serve = _serve_lz10(run, "lz10b", dirt, target)
+    ck = tp.load_dirt(CKPT_10, device=dev)
+    _, _, n_ck = _serve_lz10(run, "lz10ck", ck, lp)
+    med = rec["lz10b_n_over_ess_median"]
+    med_ck = rec["lz10ck_n_over_ess_median"]
+    rec["lz10b_beta_last"] = beta_last
+    print(f"lz10 build served: {m} 'n3' seeds at 'f32' best "
+          f"{rec['lz10b_serve_best_s']:.4f} s (gram_conditional / "
+          f"condition_update launches/call {n_serve} / {n_serve}); N/ESS "
+          f"per seed set {[round(e, 4) for e in rec['lz10b_n_over_ess_sets']]}"
+          f" (median {med:.4f}, against beta {beta_last:.4g}); lz10_ck "
+          f"served the same way "
+          f"{[round(e, 4) for e in rec['lz10ck_n_over_ess_sets']]} (median "
+          f"{med_ck:.4f}); save_dirt/load_dirt "
+          + ("served bit for bit" if gave_up is None else
+             "gave back the stack accepted before the give-up")
+          + f" ({card})", flush=True)
+    met = gave_up is None and med <= 2.0 * med_ck
+    rec["lz10b_criterion_met"] = met
+    print("lz10 build (f64 pushes), the criterion 'the built stack's "
+          "N/ESS median at most twice lz10_ck's': "
+          + ("met" if met else "NOT MET (" + (
+              f"the build gave up at beta {gave_up.split('beta=')[1].split()[0]}"
+              if gave_up else f"median {med:.4f}") + "; the JAX package's "
+             "own builds at these settings on IEEE f64 give up or miss it "
+             "in most runs: tests/data/bits_witness.json)"), flush=True)
+    if gave_up is None:
+        assert med <= 2.0 * med_ck, (med, med_ck)
+    return {"lz10 built f32": {"gram_conditional": n_serve,
+                               "condition_update": n_serve},
+            "lz10_ck f32": {"gram_conditional": n_ck,
+                            "condition_update": n_ck}}
+
+
+def _lz10_build_hi_path(run):
+    """Phase 20: the same build with DirtOptions(precision='hi'): every
+    probe push through dim_step.  Returns the build's dim_step launches,
+    their shapes (n, r) and the launches of one 'f32' serve of the
+    stack (each Gram-step kernel)."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev = run.rec, run.card, run.dev
+    dirt, _, probes, launches = _build_lz10(run, "lz10h", "hi")
+    # every probe batch of level l launched dim_step once a dimension in
+    # each of the l transforms below it, and nothing else launched
+    expect = sum(l_ * dirt.d for _, l_ in probes)
+    assert expect > 0 and launches == {"dim_step": expect}, (launches,
+                                                             expect)
+    rows = sorted({m for m, _ in probes})
+    sampler = tp.DirtSampler(dirt, precision="hi", device=dev)
+    preps = [sampler._prep0] + sampler._upper
+    shapes = sorted({(int(p.cmat.shape[1]), int(p.bmat.shape[1]))
+                     for p in preps})
+    rec.update(lz10h_probe_batches_by_rows={
+        str(r): sum(1 for m, _ in probes if m == r) for r in rows})
+    # dim_step against its plain version through the built stack's
+    # levels, on the rows of the probe batches that launched it most
+    # (phase 13's rule)
+    m_probe = max(rows, key=lambda r: sum(l_ for m, l_ in probes
+                                          if m == r))
+    q = torch.from_numpy(run.rng.uniform(size=(m_probe, dirt.d))).to(dev)
+    held = _dim_levels_vs_plain(run, preps, q, "lz10h")
+    lp = _lz10_problem().log_posterior_fn()
+    _, _, n_serve = _serve_lz10(run, "lz10h", dirt, lp)
+    med = rec["lz10h_n_over_ess_median"]
+    med_ck = rec["lz10ck_n_over_ess_median"]
+    print(f"lz10 build at 'hi': {launches['dim_step']} dim_step launches at "
+          f"(n, r) {shapes}, probe batch rows M {rows}; held against the "
+          f"plain version at M={m_probe} at (n, r) {held}; build "
+          f"{rec['lz10h_build_s']:.2f} s against {rec['lz10b_build_s']:.2f} "
+          f"s at f64; served at 'f32': N/ESS per seed set "
+          f"{[round(e, 4) for e in rec['lz10h_n_over_ess_sets']]} (median "
+          f"{med:.4f}; lz10_ck {med_ck:.4f}) ({card})", flush=True)
+    assert med <= 2.0 * med_ck, (med, med_ck)
+    return launches["dim_step"], shapes, n_serve
+
+
+def _pp_build_path(run):
+    """Phase 21: the predator-prey DIRT at the reference's settings
+    (tests/test_models.py::test_pp_dirt_end_to_end), built and served on
+    the card."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev = run.rec, run.card, run.dev
+    prob = tp.PredatorPreyProblem(seed=2, steps_per_interval=32)
+    prof = {}
+    t0 = time.perf_counter()
+    dirt = _no_launch(lambda: tp.tt_dirt_approx(
+        prob.grids(), prob.tempered_logratio_fn(),
+        10.0 ** np.arange(-4, 0.5, 0.5), nswp=1, kickrank=0, y0=13,
+        boundary=True, stoptol=0.1, reference="n4", testsamples=100,
+        seed=0, device=dev, profile=prof))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lp = prob.log_posterior_fn()
+    q = tp.randref("n4", torch.Generator(device=dev).manual_seed(5),
+                   (1024, prob.d))
+    z, lfapp, lfex = tp.tt_dirt_sample(dirt, q, lp, device=dev)
+    tau = float(tp.essinv(lfex, lfapp))
+    mh = tp.mcmc_prune(z, lfex, lfapp,
+                       generator=torch.Generator(device=dev).manual_seed(6))
+    rej = mh.num_rejects / 1024
+    dev_mean = float((mh.y.mean(0) - 1.0).abs().max())
+    rec.update(pp_build_s=secs, pp_profile_s=prof,
+               pp_history=[{k: h[k] for k in ("level", "attempt",
+                                              "accepted", "ranks", "evals",
+                                              "tau")}
+                           for h in dirt.history],
+               pp_n_over_ess=tau, pp_reject_rate=rej,
+               pp_mean_max_dev_from_1=dev_mean)
+    print(f"predator-prey DIRT (d=8, n=18, 9 betas, y0 13, 'n4', 100 test "
+          f"samples): built in {secs:.2f} s (probe batches "
+          f"{prof.get('eval_fun', 0.0):.2f} s, of which density "
+          f"{prof.get('density', 0.0):.2f} s); 1024 seeds: N/ESS {tau:.3f}"
+          f" (bar 150), rejected {100 * rej:.1f}% (bar 90%), posterior "
+          f"mean at most {dev_mean:.4f} from 1 (bar 0.25); attempts "
+          f"{len(dirt.history)} for {dirt.nlevels + 1} levels ({card})",
+          flush=True)
+    assert bool(torch.isfinite(z).all())
+    assert tau < 150.0 and rej < 0.9 and dev_mean < 0.25, (tau, rej,
+                                                           dev_mean)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -2541,6 +3096,27 @@ def main(argv=None):
     launches_lin = _lin_path(run)
     torch.cuda.empty_cache()
     _lap(run, "16 mode lin")
+
+    # ---- 17-21. building transports on the card: the cross, TT-MH on
+    #             the shock absorber, the Lorenz-10 DIRT (f64 and 'hi'
+    #             pushes), the predator-prey DIRT ----
+    _cross_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "17 cross d=50")
+    launches_ttmh = _ttmh_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "18 TT-MH shock absorber")
+    built = _lz10_build_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "19 Lorenz-10 DIRT build")
+    launches_bh, shapes_bh, n_serve_bh = _lz10_build_hi_path(run)
+    built["lz10 built hi f32"] = {"gram_conditional": n_serve_bh,
+                                  "condition_update": n_serve_bh}
+    torch.cuda.empty_cache()
+    _lap(run, "20 Lorenz-10 DIRT build at 'hi'")
+    _pp_build_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "21 predator-prey DIRT build")
     for entry in kernels:
         by = entry["launches_by_path"]
         if entry["name"] == "dim_step":
@@ -2552,9 +3128,17 @@ def main(argv=None):
                 "lz40n33 rounded": [list(s_) for s_ in shapes_rd]}
         if entry["name"] == "condition_update":
             by["lin"] = launches_lin
+            by["TT-MH shock f32"] = launches_ttmh
         for tag, counts in api.items():
             if entry["name"] in counts:
                 by["tt_dirt_sample " + tag] = counts[entry["name"]]
+        for tag, counts in built.items():
+            if entry["name"] in counts:
+                by[tag] = counts[entry["name"]]
+        if entry["name"] == "dim_step":
+            by["lz10 build hi"] = launches_bh
+            entry["shapes_by_path"]["lz10 build hi"] = [
+                list(s_) for s_ in shapes_bh]
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start
     print("seconds per phase: " + ", ".join(

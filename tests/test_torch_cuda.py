@@ -877,3 +877,80 @@ def test_dirt_sample_equals_dirt_sampler_on_the_card(precision):
     zt, lt = tp.tt_dirt_sample(dirt, q, precision=precision)
     assert torch.equal(zs, zt) and torch.equal(ls, lt)
     assert bool(torch.isfinite(zt).all())
+
+
+@pytest.mark.cuda
+def test_amen_cross_with_a_torch_function_on_the_card():
+    """amen_cross_s hands a torch function its probe batches as int32
+    tensors on the card; the result TT lies there and meets the JAX
+    test's bar against the exact function (tests/test_cross.py,
+    d=20, n=32: max relative error 1e-4 at 200 indices)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    seen = set()
+
+    def fun(ind):
+        seen.add((ind.device.type, ind.dtype))
+        return torch.sqrt(1.0 / torch.sum((ind.to(torch.float64) + 1.0) ** 2,
+                                          dim=1))
+
+    d, n = 20, 32
+    res = tp.amen_cross_s([n] * d, fun, 1e-6, nswp=12, kickrank=4,
+                          torch_fun=True)
+    assert seen == {("cuda", torch.int32)}
+    assert all(c.device.type == "cuda" for c in res.tt.cores)
+    probe = torch.from_numpy(np.random.default_rng(0).integers(
+        0, n, size=(200, d))).cuda()
+    approx = tp.tt_eval_indices(res.tt, probe)
+    exact = fun(probe)
+    assert float(((approx - exact).abs() / exact).max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_dirt_build_at_hi_launches_dim_step_on_the_card():
+    """A 2-level tt_dirt_approx(precision='hi') on the card pushes every
+    probe batch through dim_step; built again with the plain 'hi' step on
+    the card, its stack serves the same seeds as accurately: against the
+    f64-push build's serve, the kernel build's 99th percentile is at most
+    twice the plain build's plus 1e-6, in samples and log-densities
+    (chip_smoke.py phase 13's rule)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops import kernel_plan
+
+    d = 4
+    grids = [np.linspace(-5.0, 5.0, 17)] * d
+
+    def logratio(x, b0, b1):
+        quad = (x * x).sum(1) + (x[:, :-1] * x[:, 1:]).sum(1)
+        return -0.5 * (b1 - b0) * quad
+
+    kw = dict(nswp=1, kickrank=0, y0=5, stoptol=0.1, testsamples=0, seed=3)
+    before = dim_step_cuda.launches
+    built = tp.tt_dirt_approx(grids, logratio, [0.3, 1.0], precision="hi",
+                              **kw)
+    torch.cuda.synchronize()
+    assert dim_step_cuda.launches - before > 0
+    saved = kernel_plan.dim_step
+    kernel_plan.dim_step = dim_step_ref
+    try:
+        plain = tp.tt_dirt_approx(grids, logratio, [0.3, 1.0],
+                                  precision="hi", **kw)
+    finally:
+        kernel_plan.dim_step = saved
+    ref = tp.tt_dirt_approx(grids, logratio, [0.3, 1.0], **kw)
+    assert [f.ranks for f in built.fs] == [f.ranks for f in plain.fs]
+    q = torch.rand((8192, d), generator=torch.Generator(
+        device="cuda").manual_seed(5), dtype=torch.float64, device="cuda")
+    zr, lr = tp.tt_dirt_sample(ref, q)
+    for i, r in enumerate((zr, lr)):
+        errs = []
+        for stack in (built, plain):
+            out = tp.tt_dirt_sample(stack, q)[i]
+            e = (out - r).abs()
+            e = e.amax(1) if e.ndim == 2 else e
+            errs.append(float(torch.quantile(e, 0.99)))
+        assert errs[0] <= 2.0 * errs[1] + 1e-6, errs

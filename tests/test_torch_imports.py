@@ -38,7 +38,10 @@ def test_port_and_chip_smoke_import_no_jax():
         " 'ops.odim_step', 'ops.kernel_plan', 'samplers.irt_scan',"
         " 'samplers.irt', 'ops.tt', 'samplers.dirt', 'samplers.serve',"
         " 'samplers.debias', 'samplers.diagnostics', 'models.ode',"
-        " 'models.lorenz', 'utils.checkpoint'):\n"
+        " 'models.lorenz', 'utils.checkpoint', 'ops.maxvol', 'ops.interp',"
+        " 'constructors.amen_cross', 'constructors.greedy_cross',"
+        " 'constructors.dirt_build', 'samplers.qmc',"
+        " 'models.shock_absorber', 'models.predator_prey'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
@@ -53,12 +56,14 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_card_only_files_name_no_jax():
-    """chip_smoke.py, the card tests and every module of the port hold
-    no import of jax, the JAX package or bench.py."""
+    """chip_smoke.py, the card tests, the card tools and every module of
+    the port hold no import of jax, the JAX package or bench.py."""
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
-    for base, _, names in os.walk(os.path.join(ROOT, "tt_irt_tpu_torch")):
-        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for sub in ("tt_irt_tpu_torch", "tools"):
+        for base, _, names in os.walk(os.path.join(ROOT, sub)):
+            files += [os.path.join(base, n) for n in names
+                      if n.endswith(".py")]
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|tt_irt_tpu|bench)\b(?!_)",
                      re.M)
     for path in files:
@@ -178,3 +183,29 @@ def test_cpu_serve_launches_no_kernel():
                factor_conditional_cuda, gram_conditional_cuda,
                condition_update_cuda, fused_irt_sqr_cuda):
         assert fn.launches == 0, fn.__name__
+
+
+@pytest.mark.parametrize("entry", ["amen_cross_s", "greedy_cross",
+                                   "tt_dirt_approx"])
+def test_slice_five_entry_points_default_to_the_card(entry, monkeypatch):
+    """The constructors build on the card by default: without one they
+    raise (no CPU fallback), and device='cpu' builds there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grids = [torch.linspace(-1.0, 1.0, 7, dtype=torch.float64)] * 3
+
+    def index_fun(ind):
+        return torch.exp(-sum(grids[k][ind[:, k]] ** 2 for k in range(3)))
+
+    call = {
+        "amen_cross_s": lambda **kw: tp.amen_cross_s(
+            [7] * 3, index_fun, 1e-8, nswp=2, **kw).tt,
+        "greedy_cross": lambda **kw: tp.greedy_cross(
+            [7] * 3, index_fun, 1e-8, nswp=2, **kw).tt,
+        "tt_dirt_approx": lambda **kw: tp.tt_dirt_approx(
+            grids, lambda x, b0, b1: -0.5 * (b1 - b0) * (x * x).sum(1),
+            [0.5, 1.0], nswp=1, kickrank=0, testsamples=16, **kw).f0,
+    }[entry]
+    with pytest.raises(RuntimeError, match="not available"):
+        call()
+    tt = call(device="cpu")
+    assert tt.device.type == "cpu" and tt.d == 3

@@ -177,11 +177,16 @@ def dirt_permute(dirt: DIRT, perm, eps: float = 1e-12) -> DIRT:
                 evalcnt=dirt.evalcnt, fprev=None, history=dirt.history)
 
 
-def _check_spline(dirt: DIRT, what: str) -> None:
-    if dirt.nlevels and not str(dirt.interpolation).lower().startswith("s"):
+def _spline_only(interpolation: str, what: str) -> None:
+    if not str(interpolation).lower().startswith("s"):
         raise NotImplementedError(
             f"{what}: only spline DIRT stacks are ported; Chebyshev and "
             "Fourier levels are ROADMAP.md Queue 1 item 8")
+
+
+def _check_spline(dirt: DIRT, what: str) -> None:
+    if dirt.nlevels:
+        _spline_only(dirt.interpolation, what)
 
 
 def _serve_upper_levels(dirt: DIRT, preps, z, lfapp, precision: str,
