@@ -140,6 +140,38 @@ Phases (any failure raises; nothing falls back to the CPU):
  21. the predator-prey DIRT at the reference's settings (d=8, n=18, 9
      betas, y0 13, 'n4', 100 test samples) built on the card, 1024 seeds:
      N/ESS < 150, MH rejection < 0.9, posterior mean within 0.25 of 1.
+ 22. the spectral samplers alone: tt_irt_fourier (n=16 on (-4, 4]) and
+     tt_irt_cheb (n=17 Lobatto nodes) on random positive TTs (d=8, rank
+     8): 2^12 rows on the card against device='cpu' (1e-10 on 99% of
+     rows, 1e-6 on all), 2^log2n rows best of 3 through a precomputed
+     prep, device operations a dimension a block and the idle share of
+     one traced call;
+ 23. TT-MH on inverse diffusion (examples/run_diffusion.py at meshlevel 1,
+     ny 7, npi 32, rmax 128, delta 0.1): coefficient cross, ALS-Cross with
+     the FEM solves on the card, the surrogate against 16 direct solves
+     (rtol 2e-2, atol 1e-4), the posterior cross, 2^14 seeds through
+     tt_irt_lin at 'f64', the exact FEM likelihood on every row,
+     mcmc_prune, IACT; rejection and flux QoI against the JAX package's
+     witness (tests/data/diffusion_witness.json); the rank-128 posterior
+     at 'f32' must raise at the kernels' caps;
+ 24. the Fourier DIRT on inverse diffusion (examples/run_diffusion_dirt.py
+     at meshlevel 1: d=8, 1023 interior dofs, npi 17, rpi 8, 'n4', 3
+     betas, the example's numpy exp in the coefficient cross) built on
+     the card; 2^16 seeds through tt_dirt_sample, DirtSampler (equal bit
+     for bit) and DirtSampler('auto') -> 'f32' (level 0 through
+     gram_conditional and condition_update, at p99 no further from 'f64'
+     in samples and log-density than 1.5x the same serve through the
+     plain steps); the exact FEM likelihood on all 2^16 rows (dense f64
+     Cholesky, blocks of 128); N/ESS, rejection and flux QoI against the
+     witness's gates.  The JAX package's own seed-0 build (the
+     witness's, tests/data/diffusion_stacks/seed0) is served the same
+     way against the same gates;
+ 25. the Chebyshev DIRT of tests/test_fourier.py built and served on the
+     card (N/ESS < 1.5); tt_dirt_sample(use_fused=True) (every upper
+     level padded to the stack's largest rank) against the level loop:
+     lz20_ck at 'f64' (2^18 rows, within 1e-12 / 1e-10) and 'f32',
+     lz40n33_ck at 'hi' (no further from 'f64' at p99 than 1.5x the
+     loop), both times and the launch counts.
 The timing lines of phases 8 and 12 print beside condition_update's,
 gram_conditional's and fused_irt_sqr's times those of their previous
 designs (BEFORE_MS).
@@ -162,6 +194,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "examples", "data")
@@ -462,27 +495,35 @@ def _ess_sets(tp, sampler, dirt, lp, first, seed, m, dev):
     return ess, share, top, bad, lws
 
 
-def _trace_call(fn, names):
-    """Run fn() under torch.profiler.  Returns (call seconds, device busy
-    seconds or None, {name: seconds of kernels whose name contains it},
-    the 8 largest kernels)."""
+def _device_events(fn):
+    """fn() under torch.profiler, device activity only (recording the
+    host's operators as well makes the profiler's own processing the
+    longest part of a host-bound call).  Returns (call seconds,
+    {event name: (device microseconds, count)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # device activity only: recording the host's operators as well makes
-    # the profiler's own processing the longest part of a host-bound call
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         call_s = time.perf_counter() - t0
-    kern_us = {}
+    events = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = ev.self_cuda_time_total
-        kern_us[ev.key] = kern_us.get(ev.key, 0.0) + t
+        us, count = events.get(ev.key, (0.0, 0))
+        events[ev.key] = (us + (ev.self_cuda_time_total if t is None else t),
+                          count + ev.count)
+    return call_s, events
+
+
+def _trace_call(fn, names):
+    """Run fn() under torch.profiler.  Returns (call seconds, device busy
+    seconds or None, {name: seconds of kernels whose name contains it},
+    the 8 largest kernels)."""
+    call_s, events = _device_events(fn)
+    kern_us = {k: us for k, (us, _) in events.items()}
     busy = sum(kern_us.values()) * 1e-6
     split = {n: sum(t for k, t in kern_us.items() if n in k) * 1e-6
              for n in names}
@@ -985,7 +1026,7 @@ def _path_a(run, dirt_a):
     prob = tp.LorenzProblem(d=dirt_a.d,
                             x0true=np.load(PROBLEM_A + "_x0base.npy"),
                             data=np.load(PROBLEM_A + "_data.npy"))
-    lp = prob.log_posterior_fn()
+    lp = run.lp_a = prob.log_posterior_fn()
     lfex = lp(z)
     assert bool(torch.isfinite(lfex).all())
     ess, share, top, bad, _ = _ess_sets(
@@ -1902,21 +1943,23 @@ def _launches_by_shape(preps, nblocks, launches):
     return by_shape
 
 
-def _serve_gate(rec, checks, key, kern, plain, ref):
+def _serve_gate(rec, checks, key, kern, plain, ref, factor=2.0, slack=1e-6,
+                names=("x", "lw")):
     """A served f32 path on the card against the 'f64' serve of the same
     rows, beside the same path through the plain versions (_plain_steps):
-    kern, plain and ref are (samples, log-weight).  Records max and 99th
-    percentile (samples: row maximum) and requires the kernel path's 99th
-    percentile to be at most twice the plain path's plus 1e-6, in samples
-    and in log-weights."""
-    for what, i in (("x", 0), ("lw", 1)):
+    kern, plain and ref are (samples, log-weight), or what ``names``
+    says.  Records max and 99th percentile (samples: row maximum) and
+    requires the kernel path's 99th percentile to be at most ``factor``
+    times the plain path's plus ``slack`` (default twice plus 1e-6), in
+    both."""
+    for what, i in zip(names, (0, 1)):
         for name, run_ in (("kernel", kern), ("plain", plain)):
             mx, p99 = _errs(run_[i].double(), ref[i])
             rec[f"{key}_{what}_{name}_vs_f64_max"] = mx
             rec[f"{key}_{what}_{name}_vs_f64_p99"] = p99
         checks[f"{key}_{what}_p99"] = (
             rec[f"{key}_{what}_kernel_vs_f64_p99"]
-            <= 2.0 * rec[f"{key}_{what}_plain_vs_f64_p99"] + 1e-6)
+            <= factor * rec[f"{key}_{what}_plain_vs_f64_p99"] + slack)
 
 
 def _dim_level_vs_plain(prep, q, rec, key):
@@ -2394,6 +2437,38 @@ LZ10_PROBLEM = os.path.join(DATA, "lz10")
 LZ10_BUILD = dict(nswp=1, kickrank=0, y0=19, boundary=True, stoptol=0.1,
                   reference="n3", testsamples=1000, seed=0)
 RECOMPUTE = 50.0          # DirtOptions.recompute: the level gate
+
+# Phases 22-25: inverse diffusion.  Phase 23 is examples/run_diffusion.py
+# (TT-MH), phase 24 examples/run_diffusion_dirt.py (Fourier DIRT), both
+# at meshlevel 1 (n = 33, 1023 interior dofs, KLE d = 8); the JAX
+# package's figures at these settings are tests/data/diffusion_witness.json
+# (tests/diffusion_witness.py), from which the gates below are read.
+DIFF_MESHLEVEL = 1
+DIFF_TTMH = dict(ny=7, npi=32, rmax=128, delta=0.1, y0=1.5, log2n=14)
+DIFF_DIRT = dict(ny=7, npi=17, rpi=8, y0=1.5, log2n=16, nq=16,
+                 build=dict(nswp=1, kickrank=0, boundary=True, stoptol=0.1,
+                            reference="n4", interpolation="fourier",
+                            testsamples=256, seed=0))
+DIFF_BETA_EXP = (-1.0, 0.5, 0.5)   # beta = 10^(-1:0.5:0)
+# The gates against the witness: N/ESS at most 1.5x its figure, the MH
+# rejection rate within 10 points, the flux QoI within 0.05.
+DIFF_ESS_FACTOR, DIFF_REJ_POINTS, DIFF_FLUX_ABS = 1.5, 0.10, 0.05
+DIFF_WITNESS = os.path.join(ROOT, "tests", "data", "diffusion_witness.json")
+# The JAX package's own phase-24 builds (seeds, one ulp), saved by
+# tests/diffusion_witness.py --stacks; phase 24 serves seed 0's,
+# tools/diffusion_spread.py all of them.
+DIFF_STACKS = os.path.join(ROOT, "tests", "data", "diffusion_stacks")
+
+
+def diff_tol(meshlevel):
+    """The FEM tolerance of the diffusion examples (htolfun, :57)."""
+    return 7.6742e-03 * 4.0 ** (-meshlevel - 1)
+
+
+def diff_beta():
+    import numpy as np
+
+    return 10.0 ** np.arange(*DIFF_BETA_EXP)
 
 
 def _no_launch(fn):
@@ -2898,6 +2973,581 @@ def _pp_build_path(run):
                                                            dev_mean)
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: inverse diffusion on the card (the spectral samplers,
+# ALS-Cross and the Q1 FEM model) and the fused whole-stack program
+# ---------------------------------------------------------------------------
+
+# Phase 22: the random TT of the spectral samplers (d, rank).
+SPECTRAL_SHAPE = (8, 8)
+
+
+def _trace_kernels(fn):
+    """fn() under torch.profiler.  Returns (call seconds, device busy
+    seconds or None, device operations launched)."""
+    call_s, events = _device_events(fn)
+    busy = sum(us for us, _ in events.values()) * 1e-6
+    return (call_s, busy if busy > 0 else None,
+            sum(c for _, c in events.values()))
+
+
+def _spectral_path(run):
+    """Phase 22: tt_irt_fourier and tt_irt_cheb alone on random positive
+    TTs (d=8, rank 8; n=16 on the Fourier grid of (-4, 4], n=17 on
+    Lobatto nodes of [-4, 4]): 2^12 rows on the card against
+    device='cpu' (1e-10 on at least 99% of rows, 1e-6 on every row),
+    2^log2n rows through a precomputed prep best of 3, and the device
+    operations a dimension and the idle share of one traced block of
+    rows.  No kernel of the port launches."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.chebyshev import (cheb_precompute,
+                                                     lobatto_nodes)
+    from tt_irt_tpu_torch.samplers.fourier import (_MAX_BLOCK,
+                                                   fourier_precompute)
+    from tt_irt_tpu_torch.samplers.irt import auto_block
+
+    rec, card, dev, m = run.rec, run.card, run.dev, run.m
+    d, r = SPECTRAL_SHAPE
+    rng = np.random.default_rng(run.seed + 22)
+    for name, n, grid, pre, fn in (
+            ("fourier", 16, [np.arange(-7, 9) * 0.5] * d,
+             fourier_precompute, tp.tt_irt_fourier),
+            ("chebyshev", 17, [lobatto_nodes(17, -4.0, 4.0)] * d,
+             cheb_precompute, tp.tt_irt_cheb)):
+        cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                        1 if k == d - 1 else r))
+                 for k in range(d)]
+        tt = tp.tt_from_numpy(cores, device=dev)
+        q = torch.from_numpy(rng.uniform(size=(1 << 12, d)))
+        x, lf = _no_launch(lambda: fn(grid, tt, q.to(dev), device=dev))
+        xc, lc = fn(grid, tp.tt_from_numpy(cores, device="cpu"), q,
+                    device="cpu")
+        dx = (x.cpu() - xc).abs().amax(1)
+        dl = (lf.cpu() - lc).abs()
+        off = int(((dx >= 1e-10) | (dl >= 1e-10)).sum())
+        t0 = time.perf_counter()
+        prep = pre(grid, tt)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        qb = torch.rand((m, d), generator=torch.Generator(
+            device=dev).manual_seed(run.seed), dtype=torch.float64,
+            device=dev)
+
+        def call():
+            return fn(None, prep, qb, device=dev)
+
+        float(call()[0].sum())
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            xb, lb = _no_launch(call)
+            float(xb.sum()) + float(lb.sum())
+            best = min(best, time.perf_counter() - t0)
+        assert bool(torch.isfinite(xb).all() and torch.isfinite(lb).all())
+        # one block of rows traced: the operations a dimension a block
+        # and the idle share are those of every block of the call
+        block = min(auto_block(m), _MAX_BLOCK)
+        qt = qb[:block]
+        call_s, busy, ops = _trace_kernels(
+            lambda: float(fn(None, prep, qt, device=dev)[0].sum()))
+        rec[f"spectral_{name}"] = {
+            "n": n, "rows_vs_cpu": q.shape[0], "rows_past_1e-10": off,
+            "dx_max": float(dx.max()), "dlf_max": float(dl.max()),
+            "prep_s": prep_s, "best_s": best, "samples_per_s": m / best,
+            "traced_call_s": call_s, "device_busy_s": busy,
+            "idle_share": None if busy is None else 1.0 - busy / call_s,
+            "device_ops": ops, "traced_rows": block,
+            "device_ops_per_dim_block": ops / d}
+        e = rec[f"spectral_{name}"]
+        print(f"{name} sampler (d={d}, n={n}, rank {r}): card vs CPU on "
+              f"{q.shape[0]} rows: {off} rows past 1e-10, largest "
+              f"{e['dx_max']:.3e} in samples, {e['dlf_max']:.3e} in "
+              f"log-density; {m} rows through the prep (built in "
+              f"{prep_s:.4f} s) best of 3 {best:.4f} s "
+              f"({e['samples_per_s']:.1f} samples/s); one block of {block} "
+              f"rows traced: {call_s:.4f} s, device busy "
+              + ("not measured" if busy is None else f"{busy:.4f} s (idle "
+                 f"{100 * e['idle_share']:.1f}%)")
+              + f", {ops} device operations = "
+              f"{e['device_ops_per_dim_block']:.1f} a dimension ({card})",
+              flush=True)
+        assert off <= 0.01 * q.shape[0], (name, off)
+        assert e["dx_max"] < 1e-6 and e["dlf_max"] < 1e-6, (name, e)
+
+
+def _witness(part):
+    with open(DIFF_WITNESS) as fh:
+        return json.load(fh)[part]
+
+
+def _witness_gates(rec, key, stats, w, ess=True):
+    """The gates of phases 23-24 against the JAX package's witness
+    (tests/data/diffusion_witness.json): N/ESS at most DIFF_ESS_FACTOR
+    times its figure, the rejection rate within DIFF_REJ_POINTS, the flux
+    QoI within DIFF_FLUX_ABS.  Records each figure beside its bar."""
+    checks = {
+        "reject_rate": abs(stats["reject_rate"] - w["reject_rate"])
+        <= DIFF_REJ_POINTS,
+        "qoi_flux": abs(stats["qoi_flux"] - w["qoi_flux"]) <= DIFF_FLUX_ABS}
+    if ess:
+        checks["n_over_ess"] = (stats["n_over_ess"]
+                                <= DIFF_ESS_FACTOR * w["n_over_ess"])
+    rec[f"{key}_witness"] = {k: w[k] for k in (
+        "n_over_ess", "reject_rate", "iact_flux", "qoi_flux",
+        "qoi_p_flux_gt_1p5", "rows")}
+    rec[f"{key}_gates"] = checks
+    return [k for k, ok in checks.items() if not ok]
+
+
+def _chain(tp, z, out, lfapp, gen):
+    """N/ESS, the MH chain, IACT of the flux and the QoI of a served set
+    against the exact likelihood's columns [logL, flux, flux > 1.5]."""
+    mh = tp.mcmc_prune(z, out, lfapp, generator=gen)
+    qoi = mh.lfex[:, 1:3].mean(0)
+    return {"n_over_ess": float(tp.essinv(out[:, 0], lfapp)),
+            "reject_rate": mh.num_rejects / z.shape[0],
+            "iact_flux": float(tp.iact(mh.lfex[:, 1])),
+            "qoi_flux": float(qoi[0]), "qoi_p_flux_gt_1p5": float(qoi[1])}
+
+
+def _likelihood(prob, q_obs, y):
+    """The exact FEM likelihood on every row of y: (columns, seconds,
+    peak device memory in GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = prob.likelihood_fn(q_obs)(y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    assert bool(torch.isfinite(out).all())
+    return out, secs, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _diffusion_problem(run):
+    import tt_irt_tpu_torch as tp
+
+    return tp.DiffusionProblem(meshlevel=DIFF_MESHLEVEL,
+                               tol_kle=diff_tol(DIFF_MESHLEVEL) * 3,
+                               device=run.dev)
+
+
+def _diffusion_ttmh_path(run, prob):
+    """Phase 23: examples/run_diffusion.py's pipeline (TT-MH) at
+    meshlevel 1 on the card: coefficient cross (the example's numpy
+    exp), ALS-Cross with the FEM
+    callback, the surrogate against direct solves at 16 random grid
+    points (tests/test_als_cross.py's bars), the posterior cross of the
+    re-interpolated observables, 2^14 seeds through tt_irt_lin at 'f64',
+    the exact likelihood on every row, mcmc_prune, IACT; the same TT at
+    'f32' must raise at the kernels' rank cap."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, seed = run.rec, run.card, run.dev, run.seed
+    a = types.SimpleNamespace(**DIFF_TTMH)
+    tol = diff_tol(DIFF_MESHLEVEL)
+    ell = prob.kle_dim
+    ygrids = prob.gauss_grids(a.ny)
+    t0 = time.perf_counter()
+    coeff = _no_launch(lambda: tp.amen_cross_s(
+        [prob.log_coefficient_tt(ygrids)], lambda v: np.exp(v[:, 0]),
+        min(tol, 1e-4), y0=a.rmax, nswp=1, kickrank=0, device=dev)).tt
+    t_coeff = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = _no_launch(lambda: tp.als_cross_parametric(
+        coeff, prob.assem_solve_fun(), tol, pua=prob.pua(),
+        random_init=a.rmax, nswp=1, kickrank=0, device=dev))
+    t_als = time.perf_counter() - t0
+    uav = prob.observables_tt(res.u)
+    # the surrogate against direct solves at 16 random grid points
+    rng = np.random.default_rng(seed + 23)
+    idx = np.stack([rng.integers(0, len(g), 16) for g in ygrids], axis=1)
+    pred = tp.tt_eval_indices(tp.tt_reverse(uav), torch.from_numpy(
+        idx[:, ::-1].copy()).to(dev))
+    yv = np.stack([g[idx[:, k]] for k, g in enumerate(ygrids)], axis=1)
+    cn = np.exp(np.sqrt(prob.sigma) * (yv @ prob.phil.T))
+    qdir = torch.stack([prob.observe(prob.solve_one(c)) for c in cn])
+    surr_ok = bool(((pred - qdir).abs()
+                    <= 1e-4 + 2e-2 * qdir.abs()).all())
+    surr_rel = float(((pred - qdir).abs() / qdir.abs()).max())
+    q_obs = prob.observations(a.y0)
+    qo = torch.from_numpy(q_obs).to(dev)
+    ys = [np.linspace(-np.sqrt(3), np.sqrt(3), a.npi) for _ in range(ell)]
+    ys_t = [torch.from_numpy(y).to(dev) for y in ys]
+    uni_rev = tp.tt_reverse(tp.TT([
+        torch.einsum("pm,amb->apb", tp.lagrange_matrix(g, y, device=dev), c)
+        for g, y, c in zip(ygrids, ys, uav.cores)]))
+
+    def post_fun(ind):
+        vals = tp.tt_eval_indices(uni_rev, ind.flip(1))
+        return torch.exp(-torch.sum((vals - qo) ** 2, dim=1)
+                         / (2.0 * prob.sigma_n))
+
+    t0 = time.perf_counter()
+    pi = _no_launch(lambda: tp.amen_cross_s(
+        [a.npi] * ell, post_fun, 0.0, tol_exit=a.delta, y0=a.rmax,
+        kickrank=0, nswp=1, seed=1, torch_fun=True, device=dev)).tt
+    t_pi = time.perf_counter() - t0
+    m = 1 << a.log2n
+    z = torch.rand((m, ell), generator=torch.Generator(
+        device=dev).manual_seed(seed + 23), dtype=torch.float64, device=dev)
+    t_irt, (y, lfapp) = _counted(lambda: tp.tt_irt_lin(
+        ys_t, pi, z, precision="f64", device=dev), {})
+    try:
+        tp.tt_irt_lin(ys_t, pi, z[:1024], precision="f32", device=dev)
+        cap = None
+    except ValueError as e:
+        cap = str(e)
+    out, t_lik, peak = _likelihood(prob, q_obs, y)
+    stats = _chain(tp, y, out, lfapp, torch.Generator(
+        device=dev).manual_seed(seed + 123))
+    failed = _witness_gates(rec, "ttmh_diff", stats, _witness("ttmh"),
+                            ess=False)
+    rec.update(ttmh_diff={
+        "kle_dim": ell, "coeff_cross_s": t_coeff, "als_s": t_als,
+        "coeff_ranks": list(coeff.ranks), "als_ranks": list(res.u.ranks),
+        "pde_solves": res.funevals, "als_time_extern_s": list(
+            res.time_extern), "surrogate_max_rel_vs_direct": surr_rel,
+        "posterior_cross_s": t_pi, "posterior_ranks": list(pi.ranks),
+        "irt_lin_f64_s": t_irt, "rows": m, "likelihood_s": t_lik,
+        "likelihood_rows_per_s": m / t_lik, "likelihood_peak_gib": peak,
+        "f32_at_rank_cap": cap, **stats})
+    e = rec["ttmh_diff"]
+    print(f"TT-MH inverse diffusion (meshlevel {DIFF_MESHLEVEL}, n="
+          f"{prob.n}, KLE d={ell}): coefficient cross {t_coeff:.2f} s "
+          f"(ranks {e['coeff_ranks']}), ALS-Cross {t_als:.2f} s "
+          f"({res.funevals} PDE solves, ranks {e['als_ranks']}); surrogate "
+          f"vs direct solves at 16 grid points max rel {surr_rel:.3e} "
+          f"(bars rtol 2e-2, atol 1e-4: {'met' if surr_ok else 'NOT MET'})"
+          f"; posterior cross {t_pi:.2f} s (ranks {e['posterior_ranks']}); "
+          f"tt_irt_lin 'f64' {m} rows {t_irt:.4f} s; exact likelihood on "
+          f"{m} rows {t_lik:.2f} s ({m / t_lik:.1f} rows/s, peak "
+          f"{peak:.2f} GiB); N/ESS {e['n_over_ess']:.4f}, rejected "
+          f"{100 * e['reject_rate']:.1f}%, IACT(flux) {e['iact_flux']:.3f}, "
+          f"QoI [flux, P(flux>1.5)] [{e['qoi_flux']:.4f}, "
+          f"{e['qoi_p_flux_gt_1p5']:.4f}]; the witness "
+          + json.dumps(rec["ttmh_diff_witness"]) + f", gates "
+          + json.dumps(rec["ttmh_diff_gates"])
+          + f"; 'f32' at rank {max(pi.ranks)}: {cap} ({card})", flush=True)
+    assert surr_ok, surr_rel
+    # the step kernels' rank cap (csrc/row_common.cuh kMaxR)
+    assert (cap is not None and "caps" in cap) == (max(pi.ranks) > 64), cap
+    assert not failed, failed
+
+
+def _diffusion_dirt_build(prob, dev, torch_fun=False, seed=0):
+    """examples/run_diffusion_dirt.py's build at phase 24's settings
+    (DIFF_DIRT, DIRT seed ``seed``) on the card: the coefficient cross,
+    ALS-Cross with the FEM callback, tt_dirt_approx(interpolation=
+    "fourier") on the surrogate's observables, with no kernel launched.
+    The coefficient cross takes exp as the example does, in numpy on the
+    host, or with ``torch_fun`` in torch on the card (the build depends
+    on those last bits).  Returns (stack, ALS-Cross result, the
+    observations, {stage: seconds}, the DIRT build's profile)."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    a = types.SimpleNamespace(**DIFF_DIRT)
+    tol = diff_tol(DIFF_MESHLEVEL)
+    ell = prob.kle_dim
+    ygrids = prob.gauss_grids(a.ny)
+    expf = ((lambda v: torch.exp(v[:, 0])) if torch_fun
+            else (lambda v: np.exp(v[:, 0])))
+    secs = {}
+    t_start = time.perf_counter()
+    coeff = _no_launch(lambda: tp.amen_cross_s(
+        [prob.log_coefficient_tt(ygrids)], expf, min(tol, 1e-4) * 0.1,
+        y0=a.rpi, nswp=3, kickrank=2, torch_fun=torch_fun,
+        device=dev)).tt
+    secs["coeff_cross"] = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    res = _no_launch(lambda: tp.als_cross_parametric(
+        coeff, prob.assem_solve_fun(), tol, pua=prob.pua(),
+        random_init=a.rpi, nswp=2, kickrank=2, device=dev))
+    secs["als"] = time.perf_counter() - t0
+    rev = tp.tt_reverse(prob.observables_tt(res.u))
+    rev_grids = list(reversed(ygrids))
+    q_obs = prob.observations(a.y0)
+    qo = torch.from_numpy(q_obs).to(dev)
+
+    def surrogate(theta, b0, b1):
+        # the observables by Lagrange interpolation of the surrogate TT
+        # (test_diffusion_dirt.m:146)
+        vals = tp.tt_sample_lagrange(rev, rev_grids, theta.flip(1))
+        return -(b1 - b0) * torch.sum((vals - qo) ** 2, dim=1) \
+            / (2.0 * prob.sigma_n)
+
+    grids0 = [np.linspace(-np.sqrt(3), np.sqrt(3), a.npi)] * ell
+    prof = {}
+    t0 = time.perf_counter()
+    dirt = _no_launch(lambda: tp.tt_dirt_approx(
+        grids0, surrogate, diff_beta(), nq=[a.nq] * ell, y0=a.rpi,
+        device=dev, profile=prof, **dict(a.build, seed=seed)))
+    torch.cuda.synchronize()
+    secs["dirt"] = time.perf_counter() - t0
+    secs["build"] = time.perf_counter() - t_start
+    return dirt, res, q_obs, secs, prof
+
+
+def _served_chain(prob, q_obs, dirt, q, gen_seed):
+    """A stack served through tt_dirt_sample at 'f64' on the seeds q, the
+    exact likelihood on every row and the chain statistics (_chain),
+    with the likelihood's seconds."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    z, lfapp = tp.tt_dirt_sample(dirt, q, device=q.device)
+    out, secs, _ = _likelihood(prob, q_obs, z)
+    stats = _chain(tp, z, out, lfapp, torch.Generator(
+        device=q.device).manual_seed(gen_seed))
+    stats["likelihood_s"] = secs
+    return stats
+
+
+def _diffusion_dirt_path(run, prob):
+    """Phase 24: examples/run_diffusion_dirt.py's build and serve at
+    meshlevel 1 on the card: coefficient cross (the example's numpy
+    exp), ALS-Cross, the Fourier DIRT (f64 pushes); 2^16 'n4' seeds
+    through tt_dirt_sample (f64), DirtSampler (f64, equal bit for bit)
+    and DirtSampler('auto') -> 'f32' (level 0 through gram_conditional
+    and condition_update; its 99th-percentile distance to the 'f64'
+    serve, in samples and log-density, at most 1.5x that of the same
+    serve through the plain steps); the exact FEM likelihood on all 2^16
+    rows in blocks of 128, N/ESS, mcmc_prune, IACT, QoI against the
+    witness's gates; the JAX package's seed-0 build (the witness's)
+    served the same way against the same gates.  Returns the step
+    kernels' launches of one 'auto' call."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.irt import auto_block
+
+    rec, card, dev, seed = run.rec, run.card, run.dev, run.seed
+    dirt, res, q_obs, secs, prof = _diffusion_dirt_build(prob, dev)
+    ell = prob.kle_dim
+    m = 1 << DIFF_DIRT["log2n"]
+    q = tp.randref("n4", torch.Generator(device=dev).manual_seed(seed + 24),
+                   (m, ell))
+    t_sample, (z, lfapp) = _counted(
+        lambda: tp.tt_dirt_sample(dirt, q, device=dev), {})
+    sampler = tp.DirtSampler(dirt, device=dev)
+    best64, (zs, ls) = _serve_best_of_3(sampler, q, {})
+    same = bool(torch.equal(zs, z) and torch.equal(ls, lfapp))
+    auto = tp.DirtSampler(dirt, precision="auto", device=dev)
+    assert auto.precision == "f32", auto.precision
+    launches = -(-m // auto_block(m)) * ell      # level 0: d steps a block
+    best32, (za, la) = _serve_best_of_3(
+        auto, q, {"gram_conditional": launches,
+                  "condition_update": launches})
+    with _plain_steps():
+        zp, lp_ = auto(q)
+    checks = {}
+    _serve_gate(rec, checks, "dirt_diff_f32", (za, la), (zp, lp_),
+                (z, lfapp), factor=1.5, slack=0.0, names=("x", "lf"))
+    out, t_lik, peak = _likelihood(prob, q_obs, z)
+    stats = _chain(tp, z, out, lfapp, torch.Generator(
+        device=dev).manual_seed(seed + 124))
+    failed = _witness_gates(rec, "dirt_diff", stats, _witness("dirt"))
+    rec.update(dirt_diff={
+        "kle_dim": ell, "coeff_cross_s": secs["coeff_cross"],
+        "als_s": secs["als"], "als_ranks": list(res.u.ranks),
+        "pde_solves": res.funevals, "dirt_build_s": secs["dirt"],
+        "build_s": secs["build"], "build_profile_s": prof,
+        "level_ranks": [list(f.ranks) for f in [dirt.f0] + list(dirt.fs)],
+        "history": [{k: h[k] for k in ("level", "attempt", "accepted",
+                                       "ranks", "evals", "tau")}
+                    for h in dirt.history],
+        "rows": m, "tt_dirt_sample_s": t_sample, "serve_f64_best_s": best64,
+        "sampler_equal_to_tt_dirt_sample": same,
+        "serve_auto_f32_best_s": best32, "auto_launches_per_call": launches,
+        "likelihood_s": t_lik, "likelihood_rows_per_s": m / t_lik,
+        "likelihood_peak_gib": peak, **stats})
+    e = rec["dirt_diff"]
+    print(f"Fourier DIRT inverse diffusion (meshlevel {DIFF_MESHLEVEL}, "
+          f"KLE d={ell}, 'n4', beta "
+          f"{[round(float(b), 4) for b in diff_beta()]}): "
+          f"build {secs['build']:.2f} s (coefficient cross "
+          f"{secs['coeff_cross']:.2f} s, ALS-Cross {secs['als']:.2f} s with "
+          f"{res.funevals} PDE solves, ranks {e['als_ranks']}, DIRT "
+          f"{secs['dirt']:.2f} s; level ranks {e['level_ranks']}); {m} "
+          f"seeds: tt_dirt_sample {t_sample:.4f} s, DirtSampler 'f64' best "
+          f"{best64:.4f} s (equal bit for bit: {same}), 'auto' -> 'f32' "
+          f"best {best32:.4f} s ({launches} + {launches} step-kernel "
+          f"launches); 'f32' against 'f64' beside the plain steps: "
+          + json.dumps({k: v for k, v in rec.items()
+                        if k.startswith("dirt_diff_f32_")})
+          + f"; exact likelihood on all {m} rows {t_lik:.2f} s "
+          f"({m / t_lik:.1f} rows/s, peak {peak:.2f} GiB); N/ESS "
+          f"{e['n_over_ess']:.4f}, rejected {100 * e['reject_rate']:.1f}%, "
+          f"IACT(flux) {e['iact_flux']:.3f}, QoI [flux, P(flux>1.5)] "
+          f"[{e['qoi_flux']:.4f}, {e['qoi_p_flux_gt_1p5']:.4f}]; the witness "
+          + json.dumps(rec["dirt_diff_witness"]) + ", gates "
+          + json.dumps(rec["dirt_diff_gates"])
+          + (" met" if not failed else " NOT MET") + f" ({card})",
+          flush=True)
+    assert same
+    bad = [k for k, ok in checks.items() if not ok]
+    assert not bad, f"DirtSampler('auto') vs 'f64' beside the plain: {bad}"
+    assert not failed, f"the card's build against the witness: {failed}"
+    _jax_seed0_stack(run, prob, q)
+    return launches
+
+
+def _jax_seed0_stack(run, prob, q):
+    """The JAX package's own phase-24 build at seed 0, the witness's
+    (tests/data/diffusion_stacks/seed0, saved by tests/diffusion_witness.py
+    --stacks), served on the card on the seeds q against the exact
+    likelihood on every row: it must meet the witness's gates.
+    tools/diffusion_spread.py serves the other saved builds."""
+    import numpy as np
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev = run.rec, run.card, run.dev
+    with open(DIFF_WITNESS) as fh:
+        w = json.load(fh)["stacks"]["seed0"]
+    dirt = tp.load_dirt(os.path.join(DIFF_STACKS, "seed0"), device=dev)
+    stats = _served_chain(prob, np.asarray(w["q_obs"]), dirt, q,
+                          run.seed + 200)
+    failed = _witness_gates(rec, "dirt_diff_jax_seed0", stats,
+                            _witness("dirt"))
+    rec["dirt_diff_jax_seed0"] = stats
+    print(f"the JAX package's seed-0 build at phase 24's settings, served "
+          f"on the card ({q.shape[0]} seeds, exact likelihood on every "
+          f"row): N/ESS {stats['n_over_ess']:.4f}, rejected "
+          f"{100 * stats['reject_rate']:.1f}%, flux {stats['qoi_flux']:.4f}"
+          f"; against the witness's gates "
+          + json.dumps(rec["dirt_diff_jax_seed0_gates"]) + f" ({card})",
+          flush=True)
+    assert not failed, failed
+
+
+def _cheb_logratio(x, b0, b1):
+    import torch
+
+    quad = torch.sum(x * x, dim=1) + 0.6 * torch.sum(x[:, :-1] * x[:, 1:],
+                                                     dim=1)
+    return -0.5 * (b1 - b0) * quad
+
+
+def _p99_rowmax(a, ref):
+    import torch
+
+    e = (a.double() - ref).abs()
+    e = e.amax(1) if e.ndim == 2 else e
+    return float(torch.quantile(e.cpu(), 0.99))
+
+
+def _fused_path(run, dirt_a):
+    """Phase 25: the Chebyshev DIRT of tests/test_fourier.py::
+    test_dirt_chebyshev_interpolation built and served on the card
+    (N/ESS < 1.5); tt_dirt_sample(use_fused=True) against the level loop
+    on the same seeds, each call held to its launch counts: lz20_ck at
+    'f64' (2^18 rows; within 1e-12 in samples and 1e-10 in log-density)
+    and 'f32' (2^log2n), lz40n33_ck at 'hi' (2^log2n); at 'f32' and 'hi'
+    the fused program no further from the 'f64' loop at the 99th
+    percentile, in samples and log-weights (first 2^18 rows), than 1.5x
+    the loop's own distance.  Returns {tag: launch counts}."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, card, dev, m, mb, seed = (run.rec, run.card, run.dev, run.m,
+                                   run.mb, run.seed)
+    grids = [np.linspace(-5, 5, 17) for _ in range(4)]
+    t0 = time.perf_counter()
+    cheb = _no_launch(lambda: tp.tt_dirt_approx(
+        grids, _cheb_logratio, [0.1, 0.4, 1.0], interpolation="chebyshev",
+        reference="n3", nswp=3, kickrank=2, stoptol=0.1, testsamples=256,
+        seed=6, device=dev))
+    t_cheb = time.perf_counter() - t0
+    qc = tp.randref("n3", torch.Generator(device=dev).manual_seed(seed + 25),
+                    (2048, 4))
+    _, lfc, lec = tp.tt_dirt_sample(
+        cheb, qc, lambda x: _cheb_logratio(x, 0.0, 1.0), device=dev)
+    tau_c = float(tp.essinv(lec, lfc))
+    rec["cheb_dirt"] = {"build_s": t_cheb, "n_over_ess": tau_c,
+                        "ranks": [list(f.ranks) for f in cheb.fs]}
+    print(f"Chebyshev DIRT (d=4, 'n3', 3 betas) built on the card in "
+          f"{t_cheb:.2f} s, level ranks {rec['cheb_dirt']['ranks']}; 2048 "
+          f"seeds N/ESS {tau_c:.4f} (bar 1.5) ({card})", flush=True)
+    assert tau_c < 1.5, tau_c
+
+    counts, checks = {}, {}
+    rows = min(m, 1 << 18)
+    lz = run.lz40
+    qa = tp.randref(dirt_a.reference, torch.Generator(
+        device=dev).manual_seed(seed + 26), (m, dirt_a.d))
+    cases = (("lz20 f64", dirt_a, "f64", qa[:rows], run.lp_a),
+             ("lz20 f32", dirt_a, "f32", qa, run.lp_a),
+             ("lz40n33 hi", lz.dirt, "hi", lz.seeds, lz.lp))
+    ref = {}
+    for tag, dirt, prec, q, lp in cases:
+        nb = -(-q.shape[0] // mb)
+        calls = nb * (dirt.nlevels + 1) * dirt.d
+        expect = ({} if prec == "f64" else {"dim_step": calls}
+                  if prec == "hi" else
+                  {"gram_conditional": calls, "condition_update": calls})
+        t_loop, (zl, ll) = _counted(lambda: tp.tt_dirt_sample(
+            dirt, q, precision=prec, device=dev), expect)
+        t_fused, (zf, lf) = _counted(lambda: tp.tt_dirt_sample(
+            dirt, q, precision=prec, use_fused=True, device=dev), expect)
+        key = "fused_" + tag.replace(" ", "_")
+        # the one padded shape (n, r) of use_fused=True: every upper
+        # level at the stack's largest rank
+        padded = [int(dirt.x[0].shape[0]),
+                  max(max(c.shape[0], c.shape[2])
+                      for f in dirt.fs for c in f.cores)]
+        e = rec[key] = {"rows": q.shape[0], "loop_s": t_loop,
+                        "fused_s": t_fused, "launches": expect,
+                        "padded_shape": padded}
+        if prec == "f64":
+            e["dz_max"] = float((zf - zl).abs().max())
+            e["dlf_max"] = float((lf - ll).abs().max())
+            checks[tag] = e["dz_max"] < 1e-12 and e["dlf_max"] < 1e-10
+            ref[id(dirt)] = (zl, lp(zl) - ll)
+        else:
+            z64, lw64 = ((lz.z64, lz.lw64) if dirt is lz.dirt
+                         else ref[id(dirt)])
+            lwl = lp(zl[:rows]) - ll[:rows]
+            lwf = lp(zf[:rows]) - lf[:rows]
+            ok = torch.isfinite(lwl) & torch.isfinite(lwf) & \
+                torch.isfinite(lw64)
+            e["rows_nonfinite_lw"] = int((~ok).sum())
+            for what, lo, fu, r64 in (("x", zl[:rows], zf[:rows], z64),
+                                      ("lw", lwl[ok], lwf[ok], lw64[ok])):
+                e[f"{what}_loop_vs_f64_p99"] = _p99_rowmax(lo, r64)
+                e[f"{what}_fused_vs_f64_p99"] = _p99_rowmax(fu, r64)
+                checks[f"{tag} {what}"] = (e[f"{what}_fused_vs_f64_p99"]
+                                           <= 1.5 * e[f"{what}_loop_vs_f64_p99"])
+            e["dz_fused_vs_loop_max"] = float((zf - zl).abs().max())
+        counts["fused " + tag] = expect
+        print(f"fused whole-stack program, {tag} ({dirt.nlevels + 1} "
+              f"transforms, {q.shape[0]} seeds): level loop {t_loop:.4f} s,"
+              f" fused {t_fused:.4f} s (every level prepared in each call),"
+              f" launches {expect} at the padded shape (n, r) "
+              f"{tuple(padded)} of the upper levels; " + json.dumps(
+                  {k: v for k, v in e.items()
+                   if k not in ("rows", "loop_s", "fused_s", "launches",
+                                "padded_shape")})
+              + f" ({card})", flush=True)
+        del zl, ll, zf, lf
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"fused program vs the level loop: {failed}"
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3117,6 +3767,27 @@ def main(argv=None):
     _pp_build_path(run)
     torch.cuda.empty_cache()
     _lap(run, "21 predator-prey DIRT build")
+
+    # ---- 22-25. inverse diffusion: the spectral samplers, TT-MH and the
+    #             Fourier DIRT at meshlevel 1, the Chebyshev DIRT and the
+    #             fused whole-stack program ----
+    _spectral_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "22 spectral samplers")
+    prob = _diffusion_problem(run)
+    _diffusion_ttmh_path(run, prob)
+    torch.cuda.empty_cache()
+    _lap(run, "23 TT-MH inverse diffusion")
+    launches_dd = _diffusion_dirt_path(run, prob)
+    del prob
+    torch.cuda.empty_cache()
+    _lap(run, "24 Fourier DIRT inverse diffusion")
+    fused = _fused_path(run, dirt_a)
+    torch.cuda.empty_cache()
+    _lap(run, "25 Chebyshev DIRT, fused program")
+    built["diffusion DIRT auto f32"] = {"gram_conditional": launches_dd,
+                                        "condition_update": launches_dd}
+    built.update(fused)
     for entry in kernels:
         by = entry["launches_by_path"]
         if entry["name"] == "dim_step":

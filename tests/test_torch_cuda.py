@@ -954,3 +954,106 @@ def test_dirt_build_at_hi_launches_dim_step_on_the_card():
             e = e.amax(1) if e.ndim == 2 else e
             errs.append(float(torch.quantile(e, 0.99)))
         assert errs[0] <= 2.0 * errs[1] + 1e-6, errs
+
+
+def _spectral_case(kind, d=4, r=5, seed=0):
+    """A random positive TT (n=16 on the Fourier grid of (-4, 4], or
+    n=17 on Lobatto nodes), its grids and 4096 seeds, made with numpy."""
+    from tt_irt_tpu_torch.samplers.chebyshev import lobatto_nodes
+
+    rng = np.random.default_rng(seed)
+    n = 16 if kind == "fourier" else 17
+    grid = ([np.arange(-7, 9) * 0.5] if kind == "fourier"
+            else [lobatto_nodes(17, -4.0, 4.0)]) * d
+    cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                    1 if k == d - 1 else r))
+             for k in range(d)]
+    return cores, grid, torch.from_numpy(rng.uniform(size=(4096, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fourier", "chebyshev"])
+def test_spectral_samplers_on_card_match_cpu(kind):
+    """tt_irt_fourier / tt_irt_cheb on the card against device='cpu':
+    1e-10 on at least 99% of rows and 1e-6 on every row, in samples and
+    log-density (tests/test_torch_spectral.py's bars)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    fn = tp.tt_irt_fourier if kind == "fourier" else tp.tt_irt_cheb
+    cores, grid, q = _spectral_case(kind)
+    x, lf = fn(grid, tp.tt_from_numpy(cores, "cuda"), q, device="cuda")
+    xc, lc = fn(grid, tp.tt_from_numpy(cores, "cpu"), q, device="cpu")
+    dx = (x.cpu() - xc).abs().amax(1)
+    dl = (lf.cpu() - lc).abs()
+    assert int(((dx >= 1e-10) | (dl >= 1e-10)).sum()) <= 0.01 * q.shape[0]
+    assert float(dx.max()) < 1e-6 and float(dl.max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_fused_program_matches_loop_at_f64_on_card():
+    """tt_dirt_sample(use_fused=True) against the level loop at 'f64' on
+    the card: within 1e-12 in samples and 1e-10 in log-density
+    (tests/test_dirt.py's bars), on lz10_ck."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import os
+
+    import tt_irt_tpu_torch as tp
+
+    dirt = tp.load_dirt(os.path.join(os.path.dirname(__file__), "..",
+                                     "examples", "data", "lz10_ck"))
+    q = tp.randref(dirt.reference, torch.Generator(
+        device="cuda").manual_seed(3), (4096, dirt.d))
+    z1, l1 = tp.tt_dirt_sample(dirt, q, precision="f64")
+    z2, l2 = tp.tt_dirt_sample(dirt, q, precision="f64", use_fused=True)
+    assert float((z1 - z2).abs().max()) < 1e-12
+    assert float((l1 - l2).abs().max()) < 1e-10
+
+
+@pytest.mark.cuda
+def test_diffusion_likelihood_on_card_matches_cpu():
+    """DiffusionProblem.likelihood_fn on the card against the CPU at
+    meshlevel 0 (300 rows, blocks of 128): within 1e-12 relative per
+    column."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.models.diffusion import DiffusionProblem
+
+    pg = DiffusionProblem(meshlevel=0, tol_kle=3e-2, device="cuda")
+    pc = DiffusionProblem(meshlevel=0, tol_kle=3e-2, device="cpu")
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy(rng.uniform(-1.7, 1.7, (300, pc.kle_dim)))
+    q_obs = rng.normal(0.5, 0.1, pc.m0 ** 2)
+    og = pg.likelihood_fn(q_obs)(y).cpu()
+    oc = pc.likelihood_fn(q_obs)(y)
+    for c in range(3):
+        ref = oc[:, c]
+        err = float((og[:, c] - ref).abs().max())
+        assert err <= 1e-12 * max(float(ref.abs().max()), 1e-300), (c, err)
+
+
+@pytest.mark.cuda
+def test_rank_128_at_f32_raises_at_the_kernel_caps():
+    """A TT of rank 128 (phase 23's posterior rank) served at 'f32' on
+    the card raises ValueError at the step kernels' caps (n, r <= 64)
+    instead of giving a wrong result; at 'f64' (no kernel) it serves."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(4)
+    d, n, r = 4, 9, 128
+    cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                    1 if k == d - 1 else r))
+             for k in range(d)]
+    tt = tp.tt_from_numpy(cores, "cuda")
+    grids = [torch.linspace(-1.0, 1.0, n, dtype=torch.float64,
+                            device="cuda")] * d
+    q = torch.rand((256, d), dtype=torch.float64, device="cuda")
+    for fn in (tp.tt_irt_lin, tp.tt_irt_sqr):
+        with pytest.raises(ValueError, match="caps"):
+            fn(grids, tt, q, precision="f32")
+        x, lf = fn(grids, tt, q, precision="f64")
+        assert bool(torch.isfinite(x).all() and torch.isfinite(lf).all())

@@ -139,18 +139,18 @@ def test_dirt_permute_matches_jax(lz10):
 
 
 def test_what_still_raises(lz10):
-    """The fused whole-stack program and spectral stacks are not ported
-    and raise naming ROADMAP.md; a CUDA device without a card raises."""
+    """What the JAX package refuses too: tt_dirt_inverse of a spectral
+    stack (NotImplementedError), and the fused whole-stack program where
+    can_fuse says no (ValueError); a CUDA device without a card raises."""
     _, td, q = lz10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.tt_dirt_sample(td, torch.from_numpy(q), use_fused=True,
-                          device="cpu")
+    z, _ = tp.tt_dirt_sample(td, torch.from_numpy(q), use_fused=True,
+                             device="cpu")
+    assert z.shape == q.shape
     cheb = tp.DIRT(td.f0, td.fs, td.x0, td.x, td.beta, td.lfshift,
                    td.reference, "chebyshev")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.tt_dirt_sample(cheb, torch.from_numpy(q), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.DirtSampler(cheb, device="cpu")
+    with pytest.raises(ValueError, match="can_fuse"):
+        tp.tt_dirt_sample(cheb, torch.from_numpy(q), use_fused=True,
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         tp.tt_dirt_inverse(cheb, torch.from_numpy(q), device="cpu")
     if not torch.cuda.is_available():

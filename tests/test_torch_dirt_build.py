@@ -274,10 +274,9 @@ def test_greedy_irtdenom_and_gate():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    for bad in (dict(interpolation="chebyshev"), dict(interpolation="f"),
-                dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tp.tt_dirt_approx(GRIDS, logratio_t, BETA, device="cpu", **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tp.tt_dirt_approx(GRIDS, logratio_t, BETA, device="cpu",
+                          mesh=object())
     with pytest.raises(TypeError, match="unknown DIRT option"):
         tp.tt_dirt_approx(GRIDS, logratio_t, BETA, device="cpu", bogus=1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

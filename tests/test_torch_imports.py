@@ -41,7 +41,9 @@ def test_port_and_chip_smoke_import_no_jax():
         " 'models.lorenz', 'utils.checkpoint', 'ops.maxvol', 'ops.interp',"
         " 'constructors.amen_cross', 'constructors.greedy_cross',"
         " 'constructors.dirt_build', 'samplers.qmc',"
-        " 'models.shock_absorber', 'models.predator_prey'):\n"
+        " 'models.shock_absorber', 'models.predator_prey',"
+        " 'samplers.fourier', 'samplers.chebyshev', 'samplers.dirt_scan',"
+        " 'constructors.als_cross', 'models.diffusion'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"

@@ -4,15 +4,17 @@ transport, served on an NVIDIA GPU through hand-written kernels.
 The JAX package ``tt_irt_tpu`` stays the reference; this package imports
 neither it nor ``jax``.  Entry points take ``device=`` (default "cuda";
 pass "cpu" to run the plain PyTorch versions of the kernels).  The
-constructors (``amen_cross_s``, ``greedy_cross``, ``tt_dirt_approx``)
-sweep on the host in numpy and evaluate each probe batch on the
-device.  Each kernel's wrapper and plain version (``*_cuda``, ``*_ref``)
+constructors (``amen_cross_s``, ``greedy_cross``, ``tt_dirt_approx``,
+``als_cross_parametric``) sweep on the host in numpy and evaluate each
+probe batch (or solve each reduced system) on the device.  Each kernel's wrapper and plain version (``*_cuda``, ``*_ref``)
 live in ``ops.dim_step``, ``ops.odim_step``, ``ops.step`` and ``ops.fused_irt``.
 """
 
+from .constructors.als_cross import AlsCrossResult, als_cross_parametric
 from .constructors.amen_cross import CrossResult, amen_cross_s
 from .constructors.dirt_build import DirtOptions, tt_dirt_approx
 from .constructors.greedy_cross import greedy_cross
+from .models.diffusion import DiffusionProblem
 from .models.lorenz import LorenzProblem, lorenz_ll, lorenz_rhs
 from .models.ode import (dopri5_step, integrate_adaptive, integrate_observed,
                          integrate_observed_adaptive, integrate_to, rk4)
@@ -27,10 +29,12 @@ from .ops.tt import (TT, tkron, tt_add, tt_dot, tt_eval_indices,
                      tt_meshgrid, tt_norm, tt_ones, tt_orthogonalize,
                      tt_partial_eval, tt_permute, tt_rand, tt_reverse,
                      tt_round, tt_scale, tt_sum_many, tt_sum_modes)
+from .samplers.chebyshev import tt_irt_cheb
 from .samplers.debias import IWResult, iw_prune, mcmc_prune, tt_irt_debias
 from .samplers.diagnostics import essinv, hellinger, iact, tt_marginals
 from .samplers.dirt import (DIRT, dirt_permute, dirt_round, serve_precision,
                             tt_dirt_inverse, tt_dirt_sample)
+from .samplers.fourier import tt_irt_fourier
 from .samplers.irt import tt_irt_lin, tt_irt_sqr, tt_rt_sqr
 from .samplers.irt_scan import HI_STEPS, irt_scan, resolved_serve_modes
 from .samplers.qmc import cbc_lattice, qmcnodes
@@ -42,9 +46,10 @@ from .utils.checkpoint import (dirt_from_numpy, load_dirt, save_dirt,
                                tt_from_numpy)
 
 __all__ = [
-    "TT", "DIRT", "CrossResult", "DirtOptions", "DirtSampler", "HI_STEPS",
-    "IWResult", "IrtSampler", "LorenzProblem", "PredatorPreyProblem",
-    "ShockConfig", "amen_cross_s", "build_fused_data", "cbc_lattice",
+    "TT", "DIRT", "AlsCrossResult", "CrossResult", "DiffusionProblem",
+    "DirtOptions", "DirtSampler", "HI_STEPS", "IWResult", "IrtSampler",
+    "LorenzProblem", "PredatorPreyProblem", "ShockConfig",
+    "als_cross_parametric", "amen_cross_s", "build_fused_data", "cbc_lattice",
     "condition_update", "dim_step", "dirt_from_numpy", "dirt_permute",
     "dirt_round", "dopri5_step", "essinv", "fused_irt_sqr",
     "gram_conditional", "greedy_cross", "hellinger", "iact",
@@ -57,7 +62,7 @@ __all__ = [
     "tnormal_to_uniform", "trunc_svd", "tt_add", "tt_dirt_approx",
     "tt_dirt_inverse", "tt_dirt_sample", "tt_dot", "tt_eval_indices",
     "tt_from_dense", "tt_from_numpy", "tt_full", "tt_hadamard",
-    "tt_irt_debias", "tt_irt_lin", "tt_irt_sqr", "tt_marginals",
+    "tt_irt_cheb", "tt_irt_debias", "tt_irt_fourier", "tt_irt_lin", "tt_irt_sqr", "tt_marginals",
     "tt_mean_field", "tt_meshgrid", "tt_norm", "tt_ones",
     "tt_orthogonalize", "tt_partial_eval", "tt_permute", "tt_rand",
     "tt_reverse", "tt_round", "tt_rt_sqr", "tt_sample_lagrange",

@@ -33,7 +33,8 @@ import torch
 from ..ops.tt import TT, tt_round
 from ..samplers.debias import mcmc_prune
 from ..samplers.diagnostics import essinv, hellinger
-from ..samplers.dirt import DIRT, _spline_only, tt_dirt_sample
+from ..samplers.chebyshev import lobatto_nodes
+from ..samplers.dirt import DIRT, tt_dirt_sample
 from ..samplers.reference import randref, reference_sigma
 from ..samplers.serve import DirtSampler
 from ..utils.checkpoint import save_dirt
@@ -61,8 +62,9 @@ class DirtOptions:
     recompute: float = 50.0
     irtdenom: bool | Sequence[bool] = False
     reference: str = "uniform"
-    # only 'spline' is ported; Chebyshev and Fourier levels raise
-    # NotImplementedError (ROADMAP.md Queue 1 item 8)
+    # 'spline', 'chebyshev' (levels >= 1 on Lobatto nodes) or 'fourier'
+    # (levels >= 1 on the uniform grid without its left border); level 0
+    # is spline in all three, and the spectral two force boundary=True
     interpolation: str = "spline"
     # 'amen' (default) or 'greedy': the level-TT cross backend
     # (tt_dirt_approx.m:177-188 'crossmethod' amen_cross_s /
@@ -154,7 +156,6 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
             "tt_dirt_approx(mesh=...): the multi-device build is not "
             "ported; see ROADMAP.md Queue 1 item 13")
     interpolation = opt.interpolation.lower()
-    _spline_only(interpolation, "tt_dirt_approx")
     dev = resolve_device(device)
 
     beta = np.asarray(beta, dtype=np.float64).reshape(-1)
@@ -173,6 +174,9 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
         else opt.reference
     sigma = reference_sigma(reference)
     boundary = opt.boundary
+    if not interpolation.startswith("s"):
+        # spectral levels need the boundary values (dirt_approx.m:124-127)
+        boundary = True
 
     nq = opt.nq
     if nq is None:
@@ -411,8 +415,14 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
                 f"grid sizes {[g.shape[0] for g in xg]}")
     elif sigma is None:
         xg = [_chebyshev_extrema(nk) for nk in nq]
-    else:
+    elif interpolation.startswith("s"):
         xg = [np.linspace(0.0, 1.0, nk) * 2 * sigma - sigma for nk in nq]
+    elif interpolation.startswith("c"):
+        xg = [lobatto_nodes(nk, -sigma, sigma) for nk in nq]
+    else:
+        # the Fourier grid: an even number of points on (-sigma, sigma]
+        xg = [(np.arange(1, 2 * ((nk + 1) // 2) + 1)
+               * (2 * sigma / (2 * ((nk + 1) // 2))) - sigma) for nk in nq]
 
     # ------------------------------------------------------------------
     # Levels 1..nlvl with the ESS-gated recompute loop

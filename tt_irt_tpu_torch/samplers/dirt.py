@@ -1,13 +1,18 @@
 """Deep Inverse Rosenblatt Transport stack (counterpart of
 ``tt_irt_tpu/samplers/dirt.py``): ``DIRT``, ``serve_precision``, the
-rank-bucketed level preparation, ``dirt_round``, ``dirt_permute`` and the
+per-level preparation, ``dirt_round``, ``dirt_permute`` and the
 functional API ``tt_dirt_sample`` / ``tt_dirt_inverse``.
 
-``tt_dirt_sample`` prepares every level on each call; ``DirtSampler``
-(samplers/serve.py) prepares once and gives the same outputs bit for bit
-on the same seeds (same preparations, same rank buckets).  Spline stacks
-only: the Chebyshev and Fourier levels and the fused whole-stack program
-(the JAX package's ``dirt_scan.py``) are ROADMAP.md Queue 1 item 8."""
+Spline stacks prepare their upper levels per rank bucket (the scan path
+of samplers/irt_scan.py); Chebyshev and Fourier stacks (levels >= 1 on
+Lobatto nodes or the uniform Fourier grid, level 0 spline as in
+tt_dirt_sample.m:69-71) one spectral precompute a level
+(samplers/chebyshev.py, samplers/fourier.py).  ``tt_dirt_sample``
+prepares every level on each call; ``DirtSampler`` (samplers/serve.py)
+prepares once and gives the same outputs bit for bit on the same seeds.
+``tt_dirt_sample(use_fused=True)`` serves a spline stack with every
+level padded to the stack's largest rank, the shapes of the JAX
+package's whole-stack program (samplers/dirt_scan.py)."""
 
 from __future__ import annotations
 
@@ -18,6 +23,9 @@ import torch
 
 from ..ops.tt import TT, tt_permute, tt_round
 from ..utils.device import resolve_device
+from .chebyshev import cheb_precompute, tt_irt_cheb
+from .dirt_scan import can_fuse
+from .fourier import _MAX_BLOCK, fourier_precompute, tt_irt_fourier
 from .irt import _canon_grid, auto_block, tt_irt_sqr, tt_rt_sqr
 from .irt_scan import _prep, can_use_scan, fwd_blocked, prep_level, \
     stack_padded
@@ -177,34 +185,45 @@ def dirt_permute(dirt: DIRT, perm, eps: float = 1e-12) -> DIRT:
                 evalcnt=dirt.evalcnt, fprev=None, history=dirt.history)
 
 
-def _spline_only(interpolation: str, what: str) -> None:
-    if not str(interpolation).lower().startswith("s"):
-        raise NotImplementedError(
-            f"{what}: only spline DIRT stacks are ported; Chebyshev and "
-            "Fourier levels are ROADMAP.md Queue 1 item 8")
+def _is_spline(dirt: DIRT) -> bool:
+    return str(dirt.interpolation).lower().startswith("s")
 
 
-def _check_spline(dirt: DIRT, what: str) -> None:
-    if dirt.nlevels:
-        _spline_only(dirt.interpolation, what)
+def _prepare_upper(dirt: DIRT, precision: str, hi_step: str = "dim",
+                   ragged_step: int = RAGGED_STEP):
+    """Per-level preparations of levels 1..L: the rank-bucketed scan
+    preps of a spline stack (None where it is not scan-eligible), or one
+    ``ChebPrep`` / ``FourierPrep`` a level of a spectral stack (the
+    reference's precompute-struct reuse, tt_irt_fourier.m:106-137)."""
+    if not dirt.nlevels:
+        return None
+    if _is_spline(dirt):
+        return _prepare_level_preps(dirt, precision, hi_step, ragged_step)
+    pre = (cheb_precompute if str(dirt.interpolation).lower().startswith("c")
+           else fourier_precompute)
+    return [pre(dirt.x, f) for f in dirt.fs]
 
 
 def _serve_upper_levels(dirt: DIRT, preps, z, lfapp, precision: str,
                         hi_step: str = "dim", block: int | None = None):
-    """Levels L..1: each through its prepared blocked forward pass
-    (``preps``, from _prepare_level_preps) or, where ``preps`` is None
-    (a stack that is not scan-eligible), through ``_level_irt``.
-    ``precision`` is resolved.  Returns (z, lfapp)."""
+    """Levels L..1, each through its preparation (``preps``, from
+    _prepare_upper): a spline level's blocked forward pass in blocks of
+    ``block`` rows, a spectral level's sampler in its own blocks; a
+    spline stack that is not scan-eligible (``preps`` None) goes through
+    ``_level_irt``.  ``precision`` is resolved (the spectral levels are
+    f64 at every precision, as in the JAX package).  Returns
+    (z, lfapp)."""
     sigma = dirt.sigma
+    spline = _is_spline(dirt)
     block = auto_block(z.shape[0], block)
     for j in range(dirt.nlevels - 1, -1, -1):
         if sigma is not None:
             z = tnormal_to_uniform(z, sigma)
-        if preps is not None:
+        if preps is not None and spline:
             z, dlf = fwd_blocked("sqr", preps[j], z, block)
         else:
-            z, dlf = _level_irt(dirt, dirt.fs[j], z, precision, hi_step,
-                                block)
+            z, dlf = _level_irt(dirt, dirt.fs[j] if preps is None
+                                else preps[j], z, precision, hi_step, block)
         lfapp = lfapp + dlf
         if sigma is not None:
             lfapp = lfapp - tnormal_logdensity_shift(
@@ -212,14 +231,21 @@ def _serve_upper_levels(dirt: DIRT, preps, z, lfapp, precision: str,
     return z, lfapp
 
 
-def _level_irt(dirt: DIRT, f: TT, z, precision=None, hi_step="dim",
+def _level_irt(dirt: DIRT, f, z, precision=None, hi_step="dim",
                block: int | None = None):
     """One upper level's transform by the stack's interpolation: the
     spline IRT (any TT, through the general path where the scan path
-    does not apply) in blocks of ``block`` rows."""
-    _check_spline(dirt, "_level_irt")
-    return tt_irt_sqr(dirt.x, f, z, block=block, precision=precision,
-                      device=z.device, hi_step=hi_step)
+    does not apply) in blocks of ``block`` rows, or the Chebyshev or
+    Fourier sampler (``f`` a TT or its prep) in blocks of at most 2^15
+    rows (the spectral samplers' cap)."""
+    interp = str(dirt.interpolation).lower()
+    if interp.startswith("s"):
+        return tt_irt_sqr(dirt.x, f, z, block=block, precision=precision,
+                          device=z.device, hi_step=hi_step)
+    block = None if block is None else min(int(block), _MAX_BLOCK)
+    if interp.startswith("c"):
+        return tt_irt_cheb(dirt.x, f, z, block=block, device=z.device)
+    return tt_irt_fourier(dirt.x, f, z, block=block, device=z.device)
 
 
 def tt_dirt_sample(dirt: DIRT, q, logpostfun=None, precision=None,
@@ -228,36 +254,39 @@ def tt_dirt_sample(dirt: DIRT, q, logpostfun=None, precision=None,
     level-0 spline IRT.  Every level is prepared on this call.
 
     Args:
-      dirt: a spline DIRT stack (moved to ``device``).
+      dirt: a DIRT stack (moved to ``device``): spline, Chebyshev or
+        Fourier upper levels.
       q: (M, d) seeds: [0, 1]^d for a uniform reference, the truncated
         normal's box otherwise.
       logpostfun: optional exact log-density, evaluated at the output.
-      precision: any precision name (samplers/irt_scan.py); None = by
-        the cores' dtype.
+      precision: any precision name (samplers/irt_scan.py) of the spline
+        transforms; None = by the cores' dtype.  Spectral levels are f64.
       hi_step: the algorithm of the 'hi' step; only legal at 'hi'.
-      use_fused: True asks for the fused whole-stack program, which is
-        not ported (ROADMAP.md Queue 1 item 8); None or False run the
-        level loop.
+      use_fused: True serves every upper level padded to the stack's
+        largest rank (one prepared shape, as the JAX package's
+        whole-stack program has it; ValueError where
+        samplers/dirt_scan.py ``can_fuse`` says no); None or False pad
+        per rank bucket.  The JAX package's default turns its program
+        on only under tracing, which torch does not have.
       device: where the stack is served (default "cuda").
     Returns:
       (z, lfapp) or (z, lfapp, logpostfun(z)).
     """
-    if use_fused:
-        raise NotImplementedError(
-            "the fused whole-stack program (dirt_scan.py) is not ported; "
-            "see ROADMAP.md Queue 1 item 8")
-    _check_spline(dirt, "tt_dirt_sample")
     dev = resolve_device(device)
     dirt = dirt.to(dev)
     z = torch.as_tensor(q, dtype=torch.float64, device=dev)
     prec = _resolve_precision(dirt, precision)
+    if use_fused and not can_fuse(dirt, z.shape[1]):
+        raise ValueError(
+            "use_fused=True needs a spline stack with levels, seeds of "
+            "the full dimension, one grid size and boundary ranks 1 "
+            "(dirt_scan.can_fuse)")
     lfapp = torch.zeros((z.shape[0],), dtype=z.dtype, device=dev)
-    preps = (_prepare_level_preps(dirt, prec, hi_step) if dirt.nlevels
-             else None)
+    preps = _prepare_upper(dirt, prec, hi_step,
+                           0 if use_fused else RAGGED_STEP)
     z, lfapp = _serve_upper_levels(dirt, preps, z, lfapp, prec, hi_step)
-    sigma = dirt.sigma
-    if sigma is not None:
-        z = tnormal_to_uniform(z, sigma)
+    if dirt.sigma is not None:
+        z = tnormal_to_uniform(z, dirt.sigma)
     z, dlf = tt_irt_sqr(dirt.x0, dirt.f0, z, precision=precision,
                         device=dev, hi_step=hi_step)
     lfapp = lfapp + dlf

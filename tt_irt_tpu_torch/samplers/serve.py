@@ -4,11 +4,13 @@
     sampler = DirtSampler(load_dirt(path), precision="auto")
     z, lfapp = sampler(q)        # forward passes only
 
-Every precision name runs on spline stacks; ``hi_step`` names the
+Every precision name runs the spline transforms; ``hi_step`` names the
 algorithm of the 'hi' per-dimension step (samplers/irt_scan.py).  A TT
 that the rank-padded scan path does not take (ragged grid sizes,
 boundary ranks above 1) is served through the general path of
-samplers/irt.py on every call, as the JAX package does.
+samplers/irt.py on every call, as the JAX package does.  The Chebyshev
+and Fourier levels of a spectral stack are precomputed once a level and
+served in f64.
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from .dirt import DIRT, RAGGED_STEP, _check_spline, \
-    _prepare_level_preps, _resolve_precision, _serve_upper_levels, \
-    serve_precision
+from .dirt import DIRT, RAGGED_STEP, _prepare_upper, _resolve_precision, \
+    _serve_upper_levels, serve_precision
 from .irt import _canon_grid, auto_block, tt_irt_lin, tt_irt_sqr, tt_rt_sqr
 from .irt_scan import _prep, can_use_scan, check_precision, fwd_blocked, \
     stack_padded
@@ -98,7 +99,9 @@ class DirtSampler:
       precision: any of the seven precision names, 'auto'
         (serve_precision: 'hi' at d >= 40, 'f32' below) or None (by the
         cores' dtype).
-      block: forward block size (default auto_block).
+      block: forward block size (default auto_block; a Chebyshev or
+        Fourier level's blocks are capped at 2^15 rows, the spectral
+        samplers' cap).
       device: where the stack is served (default "cuda").
       hi_step: "dim", "odim", "bracket" or "pair"; only legal with
         precision 'hi'.  Level 0 and the rank-bucketed upper levels are
@@ -111,7 +114,9 @@ class DirtSampler:
 
     Upper levels that are not scan-eligible (or that disagree on (d, n))
     are served level by level through the general path, and so is a
-    level 0 that is not, on every call.
+    level 0 that is not, on every call.  A Chebyshev or Fourier stack's
+    levels are precomputed here once each (``precision`` applies to its
+    spline level 0).
     """
 
     def __init__(self, dirt: DIRT, precision: str | None = None,
@@ -123,14 +128,11 @@ class DirtSampler:
         self.precision = _resolve_precision(dirt, precision)
         check_precision(self.precision, hi_step)
         self.hi_step = hi_step
-        _check_spline(dirt, "DirtSampler")
         self.dirt = dirt.to(self.device)
         self.block = block
         self._sigma = self.dirt.sigma
-        self._upper = None
-        if self.dirt.nlevels:
-            self._upper = _prepare_level_preps(self.dirt, self.precision,
-                                               hi_step, ragged_step)
+        self._upper = _prepare_upper(self.dirt, self.precision, hi_step,
+                                     ragged_step)
         gs0, f0c = _canon_grid(self.dirt.x0, self.dirt.f0)
         self._prep0 = None
         if can_use_scan(f0c, gs0, f0c.d):
