@@ -153,7 +153,7 @@ Phases (any failure raises; nothing falls back to the CPU):
      tt_irt_lin at 'f64', the exact FEM likelihood on every row,
      mcmc_prune, IACT; rejection and flux QoI against the JAX package's
      witness (tests/data/diffusion_witness.json); the rank-128 posterior
-     at 'f32' must raise at the kernels' caps;
+     at 'f32' on 1024 rows through condition_update's wide tier;
  24. the Fourier DIRT on inverse diffusion (examples/run_diffusion_dirt.py
      at meshlevel 1: d=8, 1023 interior dofs, npi 17, rpi 8, 'n4', 3
      betas, the example's numpy exp in the coefficient cross) built on
@@ -172,6 +172,31 @@ Phases (any failure raises; nothing falls back to the CPU):
      lz20_ck at 'f64' (2^18 rows, within 1e-12 / 1e-10) and 'f32',
      lz40n33_ck at 'hi' (no further from 'f64' at p99 than 1.5x the
      loop), both times and the launch counts.
+ 26. the wide tier of gram_conditional and condition_update (n or r
+     above 64, up to 128): random positive d=4 TTs at (n, r) = (9, 128)
+     and (96, 32), each kernel against its plain version per dimension
+     and through the level, tt_irt_sqr and tt_irt_lin at 'f32' on 2^16
+     rows against 'f64' beside the plain steps (2x + 1e-6 at p99), launch
+     counts; both kernels timed at 2^18 rows at (9, 128), (96, 32) and
+     (96, 128) beside their plain versions, the einsum and the bounds;
+ 27. conditional sampling: tt_dirt_cond_sample on lz40n33_ck at 'hi'
+     (2^log2n rows, the first 10 coordinates of the stack's own samples
+     fixed a seed; 2240 dim_step launches), on lz20_ck at 'f32' with dims
+     (0, 1, 3) fixed at one point (dirt_permute; the Gram kernels),
+     tt_irt_cond on the bench TT (one point at 'f32' and 'hi', one row a
+     seed at 'hi') and on phase 16's mixture in mode 'lin' at 'f32'; the
+     conditioned columns equal xfix bit for bit, each against the same
+     conditional at 'f64' beside the plain steps;
+ 28. sample_posterior on tests/test_api.py's banded Gaussian (d=6, n=17,
+     tol 1e-6) at 2^16 samples: 'mcmc', qmc=True and the two-level DIRT
+     on 'n3', at its 'f64' default (no kernel), with that test's bars;
+ 29. gradients at 'f64': tests/test_autodiff.py's problem on the card
+     against finite differences and against the CPU; dirt_finetune on
+     examples/finetune_dirt.py's shock absorber (rank 3), both
+     objectives, gated on tests/test_finetune.py's bars;
+ 30. examples/run_baselines.py's DRAM on the shock absorber (8 chains)
+     against phase 18's TT-MH moments, and SVN on predator-prey (64
+     particles), with fewer steps than the example (the constants).
 The timing lines of phases 8 and 12 print beside condition_update's,
 gram_conditional's and fused_irt_sqr's times those of their previous
 designs (BEFORE_MS).
@@ -2639,6 +2664,9 @@ def _ttmh_path(run):
             "q_rel_vs_iw": abs(float(q_mh) - float(q_iw)) / float(q_iw),
             "q_newton_rel_vs_iw": abs(float(q_mh_n) - float(q_iw_n))
             / float(q_iw_n)}
+    y64 = out["f64"][3].y
+    rec.update(ttmh_f64_mean=y64.mean(0).tolist(),
+               ttmh_f64_std=y64.std(0).tolist())
     rec.update(ttmh_build_s=build_s, ttmh_ranks=list(res.tt.ranks),
                ttmh_evals=int(res.evalcnt[0]), ttmh=stats,
                ttmh_iw_n_over_ess=float(tp.essinv(lq, lfq)),
@@ -3144,7 +3172,7 @@ def _diffusion_ttmh_path(run, prob):
     points (tests/test_als_cross.py's bars), the posterior cross of the
     re-interpolated observables, 2^14 seeds through tt_irt_lin at 'f64',
     the exact likelihood on every row, mcmc_prune, IACT; the same TT at
-    'f32' must raise at the kernels' rank cap."""
+    'f32' on 1024 rows through condition_update's wide tier."""
     import numpy as np
     import torch
 
@@ -3200,11 +3228,24 @@ def _diffusion_ttmh_path(run, prob):
         device=dev).manual_seed(seed + 23), dtype=torch.float64, device=dev)
     t_irt, (y, lfapp) = _counted(lambda: tp.tt_irt_lin(
         ys_t, pi, z, precision="f64", device=dev), {})
-    try:
-        tp.tt_irt_lin(ys_t, pi, z[:1024], precision="f32", device=dev)
-        cap = None
-    except ValueError as e:
-        cap = str(e)
+    # the rank-128 posterior at 'f32': the wide tier of condition_update
+    _zero_counts()
+    y32, l32 = tp.tt_irt_lin(ys_t, pi, z[:1024], precision="f32", device=dev)
+    f32_err = {"x": float((y32.double() - y[:1024]).abs().max()),
+               "lf": float((l32.double() - lfapp[:1024]).abs().max()),
+               "condition_update_launches":
+                   _wrappers()["condition_update"].launches,
+               "finite": bool(torch.isfinite(y32).all()
+                              and torch.isfinite(l32).all())}
+    # the same rows through the plain f32 steps: the kernels' distance to
+    # 'f64' is held to theirs (2x + 1e-6 at p99), as in phase 26
+    with _plain_steps():
+        y32p, l32p = tp.tt_irt_lin(ys_t, pi, z[:1024], precision="f32",
+                                   device=dev)
+    f32_checks = {}
+    _serve_gate(rec, f32_checks, "ttmh_diff_f32", (y32, l32), (y32p, l32p),
+                (y[:1024], lfapp[:1024]), names=("x", "lf"))
+    f32_err["gates"] = f32_checks
     out, t_lik, peak = _likelihood(prob, q_obs, y)
     stats = _chain(tp, y, out, lfapp, torch.Generator(
         device=dev).manual_seed(seed + 123))
@@ -3218,7 +3259,7 @@ def _diffusion_ttmh_path(run, prob):
         "posterior_cross_s": t_pi, "posterior_ranks": list(pi.ranks),
         "irt_lin_f64_s": t_irt, "rows": m, "likelihood_s": t_lik,
         "likelihood_rows_per_s": m / t_lik, "likelihood_peak_gib": peak,
-        "f32_at_rank_cap": cap, **stats})
+        "f32_at_rank_128": f32_err, **stats})
     e = rec["ttmh_diff"]
     print(f"TT-MH inverse diffusion (meshlevel {DIFF_MESHLEVEL}, n="
           f"{prob.n}, KLE d={ell}): coefficient cross {t_coeff:.2f} s "
@@ -3235,10 +3276,13 @@ def _diffusion_ttmh_path(run, prob):
           f"{e['qoi_p_flux_gt_1p5']:.4f}]; the witness "
           + json.dumps(rec["ttmh_diff_witness"]) + f", gates "
           + json.dumps(rec["ttmh_diff_gates"])
-          + f"; 'f32' at rank {max(pi.ranks)}: {cap} ({card})", flush=True)
+          + f"; 'f32' at rank {max(pi.ranks)} on 1024 rows against 'f64': "
+          + json.dumps(f32_err) + f" ({card})", flush=True)
     assert surr_ok, surr_rel
-    # the step kernels' rank cap (csrc/row_common.cuh kMaxR)
-    assert (cap is not None and "caps" in cap) == (max(pi.ranks) > 64), cap
+    # every rank the posterior cross gives (128 at most) serves at 'f32'
+    assert f32_err["finite"], f32_err
+    assert f32_err["condition_update_launches"] == ell, f32_err
+    assert all(f32_checks.values()), f32_err
     assert not failed, failed
 
 
@@ -3548,6 +3592,555 @@ def _fused_path(run, dirt_a):
     return counts
 
 
+# ---- phases 26-30: the wide step tier, conditionals, sample_posterior,
+#      gradients and fine-tuning, the DRAM / SVN baselines ----
+
+# Phase 26: the (n, r) of the d=4 TTs served through the wide tier (the
+# rank-128 TT of tests/test_torch_cuda.py, and one at n = 96), and the
+# shapes its kernels are timed at.
+WIDE_SERVE = ((9, 128), (96, 32))
+WIDE_TIMED = ((9, 128), (96, 32), (96, 128))
+WIDE_ROWS = 1 << 16
+# Phase 27: coordinates fixed per seed on lz40n33_ck, and the subset of
+# lz20_ck's single-point form (dims 0, 1, 3: dirt_permute keeps every
+# rank at 19 there, where swapping dims 1 and 2 grows them to 271).
+COND_K = 10
+COND_DIMS_A = (0, 1, 3)
+# Phase 29: examples/finetune_dirt.py --problem shock (n 13, rank 3, 512
+# seeds a step, lr 3e-3, N/ESS on 2^14 rows), at tests/test_finetune.py's
+# 200 steps (the example takes 400).
+FT_STEPS = 200
+# Phase 30: examples/run_baselines.py's shock DRAM (8 chains; 8000 steps
+# there) and predator-prey SVN (64 particles; 20 steps there), cut for
+# time: on an H100 a DRAM step took 2.9 ms and an SVN step 27.6 s (the
+# torch.func Hessians through 384 ODE steps, host-bound; PERF.md).
+DRAM_STEPS = 2000
+SVN_STEPS = 1
+
+
+def _wide_tier_timings(run):
+    """Phase 26's timings: gram_conditional and condition_update in the
+    wide tier at 2^18 rows on random operands of each WIDE_TIMED shape,
+    their plain versions, gram_conditional's einsum, and the bounds
+    (phase 8's: the Gram contraction as 3xTF32 on the tensor cores, the
+    rest on the FP32 cores, bytes against HBM; the all-FP32 bound
+    beside)."""
+    import numpy as np
+    import torch
+
+    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                           condition_update_ref,
+                                           gram_conditional_cuda,
+                                           gram_conditional_ref)
+
+    mb, dev = run.mb, run.dev
+    out = {}
+    for n, r in WIDE_TIMED:
+        assert max(n, r) > 64            # past the narrow tiers' caps
+        rng = np.random.default_rng(n * r)
+        phi = rng.uniform(0.05, 1.0, (mb, r)).astype(np.float32)
+        phi /= phi.max(axis=1, keepdims=True)
+        pmat = rng.standard_normal((r * r, n)).astype(np.float32)
+        cmat = rng.uniform(0.05, 1.0, (n, r * r)).astype(np.float32)
+        i0 = rng.integers(0, n - 1, mb).astype(np.int32)
+        la = rng.uniform(size=mb).astype(np.float32)
+        phi, pmat, cmat, i0, la = (torch.from_numpy(a).to(dev) for a in
+                                   (phi, pmat, cmat, i0, la))
+        lb = 1.0 - la
+        p3 = pmat.reshape(r, r, n)
+        g_ms = _time_ms(lambda: gram_conditional_cuda(phi, pmat), 5)
+        g_plain = _time_ms(lambda: gram_conditional_ref(phi, pmat), 2)
+        g_lib = _time_ms(lambda: torch.einsum("mi,ijx,mj->mx", phi, p3,
+                                              phi), 2)
+        g_bytes = 4 * (mb * (r + n) + r * r * n)
+        g_bound = _bound_tc(mb * 2 * r * r * n, mb * r * r, g_bytes)
+        u_ms = _time_ms(lambda: condition_update_cuda(phi, i0, la, lb,
+                                                      cmat), 5)
+        u_plain = _time_ms(lambda: condition_update_ref(phi, i0, la, lb,
+                                                        cmat), 2)
+        u_bound = _bound(mb * (5 * r * r + 2 * r),
+                         4 * (mb * (2 * r + 3) + n * r * r))
+        out[f"n{n}_r{r}"] = {
+            "gram_ms": g_ms, "gram_plain_ms": g_plain,
+            "gram_library_ms": g_lib, "gram_bound_ms": g_bound[0],
+            "gram_bound_by": g_bound[1],
+            "gram_bound_fp32_ms": _bound(mb * (2 * r * r * n + r * r),
+                                         g_bytes)[0],
+            "update_ms": u_ms, "update_plain_ms": u_plain,
+            "update_bound_ms": u_bound[0], "update_bound_by": u_bound[1]}
+        del phi, pmat, cmat, i0, la, lb, p3
+        torch.cuda.empty_cache()
+    return out
+
+
+def _caps_path(run):
+    """Phase 26: the Gram-family step kernels past the caps of their
+    one-row-a-thread tiers.  For each WIDE_SERVE TT (d=4, random positive
+    cores): gram_conditional and condition_update against their plain
+    versions per dimension and through the level (_compare_gram_level);
+    tt_irt_sqr and tt_irt_lin at 'f32' on WIDE_ROWS seeds, launch counts
+    (both kernels once a dimension; lin runs its conditional in PyTorch),
+    against the 'f64' serve beside the same call through the plain steps
+    (_serve_gate); then the wide tier's timings.  Returns {kernel name:
+    {path: launches}} and the timings."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.irt import _canon_grid
+    from tt_irt_tpu_torch.samplers.irt_scan import _prep, stack_padded
+
+    rec, dev, card = run.rec, run.dev, run.card
+    f64 = torch.float64
+    launches = {"gram_conditional": {}, "condition_update": {}}
+    checks = {}
+    for n, r in WIDE_SERVE:
+        tag = f"wide_n{n}_r{r}"
+        rng = np.random.default_rng(4)
+        cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                        1 if k == 3 else r))
+                 for k in range(4)]
+        tt = tp.tt_from_numpy(cores, dev)
+        grids = [torch.linspace(-1.0, 1.0, n, dtype=f64, device=dev)] * 4
+        q = torch.rand((WIDE_ROWS, 4), generator=torch.Generator(
+            device=dev).manual_seed(run.seed + 26), dtype=f64, device=dev)
+        gs, tc = _canon_grid(grids, tt)
+        cs, xs = stack_padded(tc, gs)
+        _compare_gram_level(_prep(cs, xs, "f32"), _prep(cs, xs, "f64"), q,
+                            rec, tag)
+        del cs, xs
+        for fn, expect in (
+                (tp.tt_irt_sqr, {"gram_conditional": 4,
+                                 "condition_update": 4}),
+                (tp.tt_irt_lin, {"condition_update": 4})):
+            name = fn.__name__
+            secs, out = _counted(lambda: fn(grids, tt, q, precision="f32",
+                                            device=dev), expect)
+            ref = fn(grids, tt, q, precision="f64", device=dev)
+            with _plain_steps():
+                plain = fn(grids, tt, q, precision="f32", device=dev)
+            _serve_gate(rec, checks, f"{tag}_{name}", out, plain, ref,
+                        names=("x", "lf"))
+            rec[f"{tag}_{name}_s"] = secs
+            assert bool(torch.isfinite(out[0]).all()
+                        and torch.isfinite(out[1]).all()), (tag, name)
+            for k, v in expect.items():
+                launches[k][f"26 {name} n{n} r{r}"] = v
+        print(f"phase 26, rank {r} at n={n} (d=4, {WIDE_ROWS} rows) at "
+              f"'f32' through the wide tier, against 'f64' beside the "
+              f"plain steps: " + json.dumps(
+                  {k: v for k, v in rec.items()
+                   if k.startswith(tag + "_tt_")}) + f" ({card})",
+              flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"the wide tier at 'f32' vs 'f64': {failed}"
+    timings = _wide_tier_timings(run)
+    rec["wide_tier_timings"] = timings
+    print(f"the wide tier at {run.mb} rows: " + json.dumps(timings)
+          + f" ({card})", flush=True)
+    return launches, timings
+
+
+def _cond_lz40n33(run, checks):
+    """Phase 27 on lz40n33_ck at 'hi': tt_dirt_cond_sample with one
+    conditioning row a seed (the first COND_K coordinates of the stack's
+    own samples), launch counts, the conditioned columns equal to xfix
+    bit for bit, and the first 2^18 rows against lf_full - lf_marg at
+    'f64' beside the same conditional through the plain steps."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev, m = run.rec, run.dev, run.m
+    dirt = tp.load_dirt(CKPT, device=dev)
+    d = dirt.d
+    gen = torch.Generator(device=dev).manual_seed(run.seed + 27)
+    zs, _ = tp.tt_dirt_sample(dirt, tp.randref(dirt.reference, gen, (m, d)),
+                              precision="hi", device=dev)
+    xfix = zs[:, :COND_K].contiguous()
+    q_rest = tp.randref(dirt.reference, gen, (m, d - COND_K))
+    expect = {"dim_step": (dirt.nlevels + 1) * d * run.nblocks}
+    secs, (z, lfc) = _counted(lambda: tp.tt_dirt_cond_sample(
+        dirt, xfix, q_rest, precision="hi", device=dev), expect)
+    assert torch.equal(z[:, :COND_K], xfix)
+    assert bool(torch.isfinite(z).all())
+    rows = min(m, 1 << 18)
+    q_fix, lf_marg = tp.tt_dirt_inverse(dirt, xfix[:rows], device=dev)
+    qq = torch.cat([q_fix, q_rest[:rows]], dim=1)
+    z64, l64 = tp.tt_dirt_sample(dirt, qq, precision="f64", device=dev)
+    with _plain_steps():
+        zp, lp_ = tp.tt_dirt_sample(dirt, qq, precision="hi", device=dev)
+    _serve_gate(rec, checks, "cond_lz40n33", (z[:rows], lfc[:rows]),
+                (zp, lp_ - lf_marg), (z64, l64 - lf_marg),
+                names=("x", "lf"))
+    rec.update(cond_lz40n33_s=secs, cond_lz40n33_launches=expect)
+    print(f"tt_dirt_cond_sample on lz40n33_ck at 'hi' ({m} rows, the "
+          f"first {COND_K} coordinates fixed a seed): {secs:.4f} s, "
+          f"launches {expect}; conditioned columns equal xfix; first "
+          f"{rows} rows against lf_full - lf_marg at 'f64': " + json.dumps(
+              {k: v for k, v in rec.items()
+               if k.startswith("cond_lz40n33_")}) + f" ({run.card})",
+          flush=True)
+    return expect["dim_step"]
+
+
+def _cond_lz20_subset(run, checks, dirt_a):
+    """Phase 27 on lz20_ck at 'f32': the single-point form on the subset
+    COND_DIMS_A (the stack relabelled by dirt_permute) on 2^18 rows,
+    through gram_conditional and condition_update; against the same
+    conditional at 'f64' beside the plain steps."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev, mb = run.rec, run.dev, run.mb
+    d = dirt_a.d
+    gen = torch.Generator(device=dev).manual_seed(run.seed + 270)
+    z0, _ = tp.tt_dirt_sample(dirt_a, tp.randref(dirt_a.reference, gen,
+                                                 (1, d)),
+                              precision="f64", device=dev)
+    cond = list(COND_DIMS_A)
+    xfix = z0[0, cond]
+    q_rest = tp.randref(dirt_a.reference, gen, (mb, d - len(cond)))
+    nb = -(-mb // (1 << 18))
+    expect = {"gram_conditional": (dirt_a.nlevels + 1) * d * nb,
+              "condition_update": (dirt_a.nlevels + 1) * d * nb}
+
+    def call(precision):
+        return tp.tt_dirt_cond_sample(dirt_a, xfix, q_rest,
+                                      precision=precision, cond_dims=cond,
+                                      perm_eps=1e-6, device=dev)
+
+    secs, (z, lfc) = _counted(lambda: call("f32"), expect)
+    assert torch.equal(z[:, cond], xfix.to(z.dtype).expand(mb, len(cond)))
+    ref = call("f64")
+    with _plain_steps():
+        plain = call("f32")
+    _serve_gate(rec, checks, "cond_lz20_subset", (z, lfc), plain, ref,
+                names=("x", "lf"))
+    rec.update(cond_lz20_subset_s=secs, cond_lz20_subset_launches=expect)
+    print(f"tt_dirt_cond_sample on lz20_ck at 'f32', dims {cond} fixed at "
+          f"one point ({mb} rows): {secs:.4f} s, launches {expect}; "
+          + json.dumps({k: v for k, v in rec.items()
+                        if k.startswith("cond_lz20_subset_")})
+          + f" ({run.card})", flush=True)
+    return expect["gram_conditional"]
+
+
+def _cond_single_tt(run, checks):
+    """Phase 27 on single TTs (2^18 rows): tt_irt_cond on the bench TT
+    (d=40, n=17, r=13) with the first COND_K coordinates of one sample
+    fixed, at 'f32' (gram_conditional, condition_update) and 'hi'
+    (dim_step), and with one conditioning row a seed at 'hi' (the prefix
+    goes through tt_rt_sqr's general path, which takes no precision, as
+    in the JAX package; the full transform through dim_step); mode 'lin'
+    on phase 16's mixture at 'f32' (condition_update).  Each against the
+    same call at 'f64' beside the plain steps.  Returns {kernel: {path:
+    launches}}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev, mb = run.rec, run.dev, run.mb
+    db, nb_, rb = BENCH_SHAPE
+    tt_b = tp.tt_from_numpy(build_tt(db, nb_, rb), device=dev)
+    grids_b = [torch.linspace(-2.0, 2.0, nb_, dtype=torch.float64,
+                              device=dev)] * db
+    gen = torch.Generator(device=dev).manual_seed(run.seed + 271)
+    zs, _ = tp.tt_irt_sqr(grids_b, tt_b, torch.rand(
+        (mb, db), generator=gen, dtype=torch.float64, device=dev),
+        precision="f64", device=dev)
+    q_rest = torch.rand((mb, db - COND_K), generator=gen,
+                        dtype=torch.float64, device=dev)
+    rest = db - COND_K
+    mix, grids_m, _ = _mixture(db, nb_, 12, run.seed, dev)
+    cases = (
+        ("bench_point_f32", tt_b, grids_b, zs[0, :COND_K], "sqr", "f32",
+         {"gram_conditional": rest, "condition_update": rest}),
+        ("bench_point_hi", tt_b, grids_b, zs[0, :COND_K], "sqr", "hi",
+         {"dim_step": rest}),
+        ("bench_rows_hi", tt_b, grids_b, zs[:, :COND_K], "sqr", "hi",
+         {"dim_step": db}),
+        ("mixture_point_lin_f32", mix, grids_m,
+         torch.zeros(COND_K, dtype=torch.float64, device=dev), "lin", "f32",
+         {"condition_update": rest}))
+    launches = {}
+    for tag, tt, grids, xfix, mode, prec, expect in cases:
+        def call(precision):
+            return tp.tt_irt_cond(grids, tt, xfix, q_rest, mode=mode,
+                                  precision=precision, device=dev)
+
+        secs, (z, lfc) = _counted(lambda: call(prec), expect)
+        assert torch.equal(z[:, :COND_K], torch.atleast_2d(xfix).to(
+            z.dtype).expand(mb, COND_K)), tag
+        ref = call("f64")
+        with _plain_steps():
+            plain = call(prec)
+        _serve_gate(rec, checks, f"cond_{tag}", (z, lfc), plain, ref,
+                    names=("x", "lf"))
+        rec[f"cond_{tag}_s"] = secs
+        for k, v in expect.items():
+            launches.setdefault(k, {})[f"27 tt_irt_cond {tag}"] = v
+    print(f"tt_irt_cond ({mb} rows, {COND_K} coordinates fixed): "
+          + json.dumps({k: v for k, v in rec.items()
+                        if k.startswith(("cond_bench", "cond_mixture"))})
+          + f" ({run.card})", flush=True)
+    return launches
+
+
+def _cond_path(run, dirt_a):
+    """Phase 27: conditional sampling on the card.  Returns {kernel:
+    {path: launches}}."""
+    checks = {}
+    launches = _cond_single_tt(run, checks)
+    launches.setdefault("dim_step", {})["27 tt_dirt_cond_sample lz40n33"] = \
+        _cond_lz40n33(run, checks)
+    n_a = _cond_lz20_subset(run, checks, dirt_a)
+    for k in ("gram_conditional", "condition_update"):
+        launches.setdefault(k, {})["27 tt_dirt_cond_sample lz20 subset"] = n_a
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"conditionals vs 'f64': {failed}"
+    return launches
+
+
+def _banded_lp(x):
+    """tests/test_api.py's banded Gaussian (d=6, off-diagonal 0.4)."""
+    import torch
+
+    return -0.5 * (torch.sum(x * x, dim=1)
+                   + 0.8 * torch.sum(x[:, :-1] * x[:, 1:], dim=1))
+
+
+def _posterior_path(run):
+    """Phase 28: sample_posterior on tests/test_api.py's banded Gaussian
+    (d=6, n=17, tol 1e-6) at 2^16 samples: 'mcmc', qmc=True and the
+    two-level DIRT on 'n3', each at its 'f64' default (no kernel, as in
+    the JAX package), held to tests/test_api.py's bars."""
+    import numpy as np
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev = run.rec, run.dev
+    grids = [np.linspace(-4, 4, 17)] * 6
+    m = 1 << 16
+    cov = np.linalg.inv(np.eye(6) + 0.4 * (np.eye(6, k=1)
+                                           + np.eye(6, k=-1)))
+    out = {}
+    for tag, kw in (("mcmc", {}), ("qmc", {"qmc": True}),
+                    ("dirt", {"beta": [0.3, 1.0], "reference": "n3",
+                              "dirt_kwargs": dict(stoptol=0.2, nswp=2,
+                                                  kickrank=1,
+                                                  testsamples=0)})):
+        t0 = time.perf_counter()
+        res = _no_launch(lambda: tp.sample_posterior(
+            _banded_lp, grids, m, tol=1e-6, seed=run.seed, device=dev,
+            **kw))
+        float(res.samples.sum())
+        secs = time.perf_counter() - t0
+        s = res.samples.cpu().numpy()
+        w = res.weights
+        mean = (w @ s if w is not None else s.mean(axis=0))
+        emp = (np.cov(s.T, aweights=w) if w is not None else np.cov(s.T))
+        out[tag] = {"s": secs, "n_over_ess": res.ess_inv,
+                    "hellinger": res.hellinger,
+                    "num_rejects": res.num_rejects,
+                    "cov_err": float(np.abs(emp - cov).max()),
+                    "mean_err": float(np.abs(mean).max()),
+                    "evals": int(np.sum(res.evalcnt))}
+        assert res.samples.shape == (m, 6) and np.isfinite(s).all(), tag
+        if w is not None:
+            assert abs(float(w.sum()) - 1.0) < 1e-12, tag
+    rec["posterior"] = out
+    print(f"sample_posterior, banded Gaussian (d=6, n=17, {m} samples): "
+          + json.dumps(out) + f" ({run.card})", flush=True)
+    assert out["mcmc"]["n_over_ess"] < 1.05, out
+    assert out["mcmc"]["hellinger"] < 0.1, out
+    assert out["mcmc"]["cov_err"] < 0.1, out
+    assert out["dirt"]["n_over_ess"] < 1.1, out
+
+
+def _autodiff_problem(dev):
+    """tests/test_autodiff.py's problem (d=4, n=9, ranks 1-3-2-3-1) and
+    its loss as a function of the cores, on ``dev``."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(0)
+    ranks = [1, 3, 2, 3, 1]
+    cores = [rng.standard_normal((ranks[k], 9, ranks[k + 1]))
+             for k in range(4)]
+    q = torch.from_numpy(rng.uniform(0.05, 0.95, size=(32, 4))).to(dev)
+    grids = [torch.linspace(-1.0, 1.0, 9, dtype=torch.float64,
+                            device=dev)] * 4
+
+    def loss(cl):
+        z, lf = tp.tt_irt_sqr(grids, tp.TT(cl), q, device=dev)
+        return torch.sum(z ** 2) + 1e-3 * torch.sum(lf)
+
+    return cores, loss
+
+
+def _grad_path(run):
+    """Phase 29: gradients at 'f64' on the card (tests/test_autodiff.py's
+    problem: against finite differences on the card and against the
+    gradient on the CPU), then examples/finetune_dirt.py --problem shock
+    on the card with both objectives (FT_STEPS steps): N/ESS on 2^14
+    rows before and after, the loss over the first and last 10 steps and
+    seconds a step; gated on tests/test_finetune.py's bars (forward:
+    N/ESS at least 5x better; reverse: the loss descends)."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.models import shock_absorber as sa
+
+    rec, dev = run.rec, run.dev
+    grads = []                                 # on the card, on the CPU
+    for where in (dev, torch.device("cpu")):
+        cores, loss = _autodiff_problem(where)
+        leaves = [torch.tensor(c, device=where, requires_grad=True)
+                  for c in cores]
+        grads.append([g.cpu().numpy() for g in
+                      torch.autograd.grad(loss(leaves), leaves)])
+    cores, loss = _autodiff_problem(dev)
+    fd_err = 0.0
+    for ci, idx in [(0, (0, 2, 1)), (2, (1, 4, 1))]:
+        cp = [torch.from_numpy(c.copy()).to(dev) for c in cores]
+        cm = [torch.from_numpy(c.copy()).to(dev) for c in cores]
+        cp[ci][idx] += 1e-6
+        cm[ci][idx] -= 1e-6
+        fd = float(loss(cp) - loss(cm)) / 2e-6
+        fd_err = max(fd_err, abs(fd - grads[0][ci][idx])
+                     / max(abs(fd), 1.0))
+    card_vs_cpu = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                      for a, b in zip(*grads))
+    rec.update(grad_fd_rel=fd_err, grad_card_vs_cpu_rel=card_vs_cpu)
+    print(f"gradients at 'f64' on the card (tests/test_autodiff.py's "
+          f"problem): against finite differences {fd_err:.3e} relative "
+          f"(bar 1e-4), against the CPU {card_vs_cpu:.3e} (bar 1e-8)",
+          flush=True)
+    assert all(np.isfinite(g).all() for g in grads[0])
+    assert fd_err <= 1e-4 and card_vs_cpu < 1e-8, (fd_err, card_vs_cpu)
+
+    cfg = sa.ShockConfig(d=6, n=13, x=sa.paper_covariates())
+    lp = cfg.log_posterior_fn()
+    t0 = time.perf_counter()
+    dirt = _no_launch(lambda: tp.tt_dirt_approx(
+        cfg.grids(), lambda x, b0, b1: (b1 - b0) * lp(x), [1.0],
+        stoptol=0.5, nswp=1, kickrank=0, y0=3, rmax=3, testsamples=0,
+        verb=0, seed=5, device=dev))
+    build_s = time.perf_counter() - t0
+    q = torch.from_numpy(np.random.default_rng(7).uniform(
+        1e-4, 1 - 1e-4, size=(1 << 14, cfg.d + 2))).to(dev)
+
+    def ess(stack):
+        z, lf = tp.tt_dirt_sample(stack, q, device=dev)
+        return float(tp.essinv(lp(z), lf))
+
+    e0 = ess(dirt)
+    out = {"build_s": build_s, "ranks": list(dirt.f0.ranks),
+           "n_over_ess_before": e0}
+    for objective in ("forward", "reverse"):
+        t0 = time.perf_counter()
+        tuned, losses = _no_launch(lambda: tp.dirt_finetune(
+            dirt, lp, steps=FT_STEPS, nsamples=512, lr=3e-3, seed=1,
+            objective=objective, device=dev))
+        secs = time.perf_counter() - t0
+        out[objective] = {
+            "n_over_ess_after": ess(tuned), "s_per_step": secs / FT_STEPS,
+            "loss_first10": float(np.mean(losses[:10])),
+            "loss_last10": float(np.mean(losses[-10:])),
+            "finite": bool(np.all(np.isfinite(losses)))}
+    rec["finetune_shock"] = out
+    print(f"dirt_finetune on the shock absorber (d=6, n=13, rank 3, "
+          f"{FT_STEPS} steps of 512 seeds, N/ESS on 2^14 rows): "
+          + json.dumps(out) + f" ({run.card})", flush=True)
+    assert out["forward"]["finite"] and out["reverse"]["finite"], out
+    assert out["forward"]["n_over_ess_after"] < 0.2 * e0, out
+    assert out["reverse"]["loss_last10"] < out["reverse"]["loss_first10"], \
+        out
+
+
+def _baselines_path(run):
+    """Phase 30: examples/run_baselines.py's baselines on the card: DRAM
+    on the shock absorber (8 chains, DRAM_STEPS steps, a quarter burn-in)
+    with its acceptance rate, IACT and the chain's mean and standard
+    deviation against phase 18's TT-MH chain on the same model; SVN on
+    predator-prey (64 particles, SVN_STEPS steps; Hessians by
+    torch.func) with the particle mean and seconds a step, its particles
+    held within 1e-10 of the same steps run on the host."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.models import predator_prey as pp
+    from tt_irt_tpu_torch.models import shock_absorber as sa
+    from tt_irt_tpu_torch.samplers.dram import dram
+    from tt_irt_tpu_torch.samplers.svn import svn
+
+    rec, dev = run.rec, run.dev
+    cfg = sa.ShockConfig(d=6, n=17, x=sa.paper_covariates())
+    lp = cfg.log_posterior_fn()
+    x0 = np.tile(np.concatenate([cfg.beta_mean, [3.0]]), (8, 1))
+    t0 = time.perf_counter()
+    res = _no_launch(lambda: dram(
+        lp, x0, DRAM_STEPS, bounds=(cfg.a, cfg.b), burnin=DRAM_STEPS // 4,
+        generator=torch.Generator(device=dev).manual_seed(run.seed),
+        device=dev))
+    chain = res.chain.reshape(-1, cfg.d + 2)
+    mean, std = chain.mean(0).cpu().numpy(), chain.std(0).cpu().numpy()
+    dram_s = time.perf_counter() - t0
+    tt_mean = np.asarray(rec["ttmh_f64_mean"])
+    tt_std = np.asarray(rec["ttmh_f64_std"])
+    q_dram, _ = sa.quantile_qoi(chain)
+    out = {"dram_s": dram_s, "dram_s_per_step": dram_s / DRAM_STEPS,
+           "dram_accept": float(res.accept_rate),
+           "dram_iact": float(np.mean(tp.iact(chain[:, :3]))),
+           "dram_mean": mean.tolist(), "dram_std": std.tolist(),
+           "ttmh_mean": tt_mean.tolist(), "ttmh_std": tt_std.tolist(),
+           "mean_diff_in_ttmh_std": float(np.max(np.abs(mean - tt_mean)
+                                                 / tt_std)),
+           "dram_q": float(q_dram)}
+    prob = pp.PredatorPreyProblem(seed=2, steps_per_interval=32)
+    lpp = prob.log_posterior_fn()
+
+    def nlp(x):
+        return -lpp(x[None, :])[0]
+
+    rng = np.random.default_rng(0)
+    parts = np.clip(1.0 + 0.1 * rng.standard_normal((64, 8)), 0.6, 1.6)
+    svn_kw = dict(steps=SVN_STEPS, step_size=0.5, max_step=0.05,
+                  bounds=(np.full(8, 0.6), np.full(8, 1.6)))
+    t0 = time.perf_counter()
+    sv = _no_launch(lambda: svn(nlp, parts, device=dev, **svn_kw))
+    p = sv.particles.cpu().numpy()
+    svn_s = time.perf_counter() - t0
+    # the same steps on the host from the same particles: SVN draws
+    # nothing, so the card's arithmetic is held to the CPU's, within 1e-10
+    # (a wrong Newton metric moves the result by the order of the step,
+    # recorded as svn_moved)
+    sv_cpu = svn(nlp, parts, device="cpu", **svn_kw)
+    svn_err = float(np.abs(p - sv_cpu.particles.numpy()).max())
+    out.update(svn_s=svn_s, svn_s_per_step=svn_s / SVN_STEPS,
+               svn_mean=p.mean(axis=0).tolist(),
+               svn_grad_norm=float(sv.grad_norm),
+               svn_grad_norm_cpu=float(sv_cpu.grad_norm),
+               svn_moved=float(np.abs(p - parts).max()),
+               svn_max_abs_err_vs_cpu=svn_err)
+    rec["baselines"] = out
+    print(f"DRAM shock absorber (8 chains, {DRAM_STEPS} steps) and SVN "
+          f"predator-prey (64 particles, {SVN_STEPS} steps): "
+          + json.dumps(out) + f" ({run.card})", flush=True)
+    assert np.isfinite(chain.cpu().numpy()).all() and np.isfinite(p).all()
+    assert 0.05 < out["dram_accept"] < 0.95, out
+    assert out["mean_diff_in_ttmh_std"] < 1.0, out
+    assert svn_err <= 1e-10, out
+    assert abs(out["svn_grad_norm"] - out["svn_grad_norm_cpu"]) \
+        <= 1e-10 * abs(out["svn_grad_norm_cpu"]), out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -3785,6 +4378,24 @@ def main(argv=None):
     fused = _fused_path(run, dirt_a)
     torch.cuda.empty_cache()
     _lap(run, "25 Chebyshev DIRT, fused program")
+
+    # ---- 26-30. the wide step tier, conditionals, sample_posterior,
+    #             gradients and fine-tuning, the DRAM / SVN baselines ----
+    wide_launches, wide_ms = _caps_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "26 wide step tier")
+    cond_launches = _cond_path(run, dirt_a)
+    torch.cuda.empty_cache()
+    _lap(run, "27 conditionals")
+    _posterior_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "28 sample_posterior")
+    _grad_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "29 gradients, dirt_finetune")
+    _baselines_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "30 DRAM, SVN")
     built["diffusion DIRT auto f32"] = {"gram_conditional": launches_dd,
                                         "condition_update": launches_dd}
     built.update(fused)
@@ -3810,6 +4421,27 @@ def main(argv=None):
             by["lz10 build hi"] = launches_bh
             entry["shapes_by_path"]["lz10 build hi"] = [
                 list(s_) for s_ in shapes_bh]
+        for counts in (wide_launches, cond_launches):
+            by.update(counts.get(entry["name"], {}))
+        key = {"gram_conditional": "gram",
+               "condition_update": "update"}.get(entry["name"])
+        if key is not None:
+            entry["wide_tier"] = {
+                shape: {k[len(key) + 1:]: v for k, v in t.items()
+                        if k.startswith(key + "_")}
+                for shape, t in wide_ms.items()}
+            # the error against the plain version at the served wide
+            # shapes (phase 26): fk's relative to its largest value, whose
+            # scale at rank 128 makes an absolute error of 428 one of 1e-5
+            for n, r in WIDE_SERVE:
+                per_dim = f"gram_wide_n{n}_r{r}_per_dim_"
+                err = entry["wide_tier"][f"n{n}_r{r}"]
+                if key == "gram":
+                    err["max_abs_err"] = rec[per_dim + "fk_kp_abs"]
+                    err["max_err_rel_to_fk_scale"] = rec[per_dim
+                                                         + "fk_kp_rel"]
+                else:
+                    err["max_abs_err"] = rec[per_dim + "phin_kp"]
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start
     print("seconds per phase: " + ", ".join(

@@ -274,7 +274,7 @@ def test_condition_update_kernel_matches_plain_on_card(n, r):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 127, 128, 129, 4096 + 7])
 @pytest.mark.parametrize("n,r", [(17, 13), (17, 19), (33, 23), (9, 16),
-                                 (64, 32)])
+                                 (64, 32), (9, 128), (96, 128)])
 def test_step_kernels_mask_the_last_tile_on_card(m, n, r):
     """A ragged last tile (128 rows of condition_update, the 128 rows of
     a gram_conditional warp, or its 128-row tile at r > 24) leaves every
@@ -282,8 +282,9 @@ def test_step_kernels_mask_the_last_tile_on_card(m, n, r):
     row: the outputs equal
     those of the same rows inside a larger run bit for bit, and the
     guard words after them stay as they were.  (64, 32) is
-    condition_update's unstaged core; gram_conditional refuses it (P
-    alone takes 262 KB)."""
+    condition_update's unstaged core and gram_conditional's wide tier (P
+    alone takes 262 KB); (9, 128) and (96, 128) are both kernels' wide
+    tier (a warp a row; a tile of 128 or 32 rows a block)."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     lib = _step_lib()
@@ -294,12 +295,11 @@ def test_step_kernels_mask_the_last_tile_on_card(m, n, r):
              lambda out: lib.condition_update_launch(
                  phi.data_ptr(), i0.data_ptr(), la.data_ptr(), lb.data_ptr(),
                  cmat.data_ptr(), out.data_ptr(), m, n, r, phi.device.index,
-                 stream))]
-    if (n, r) != (64, 32):
-        runs.append((gram_conditional_cuda(phi, pmat), n,
-                     lambda out: lib.gram_conditional_launch(
-                         phi.data_ptr(), pmat.data_ptr(), out.data_ptr(), m,
-                         n, r, phi.device.index, stream)))
+                 stream)),
+            (gram_conditional_cuda(phi, pmat), n,
+             lambda out: lib.gram_conditional_launch(
+                 phi.data_ptr(), pmat.data_ptr(), out.data_ptr(), m, n, r,
+                 phi.device.index, stream))]
     for full, width, launch in runs:
         out = guard.clone()
         assert launch(out) == 0
@@ -1034,26 +1034,206 @@ def test_diffusion_likelihood_on_card_matches_cpu():
         assert err <= 1e-12 * max(float(ref.abs().max()), 1e-300), (c, err)
 
 
+def _random_tt_card(d, n, r, seed):
+    """A random positive TT (numpy cores, uniform in [0.1, 1]) of rank r
+    on the card, with d copies of linspace(-1, 1, n)."""
+    import tt_irt_tpu_torch as tp
+
+    rng = np.random.default_rng(seed)
+    cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                    1 if k == d - 1 else r))
+             for k in range(d)]
+    grids = [torch.linspace(-1.0, 1.0, n, dtype=torch.float64,
+                            device="cuda")] * d
+    return tp.tt_from_numpy(cores, "cuda"), grids
+
+
 @pytest.mark.cuda
-def test_rank_128_at_f32_raises_at_the_kernel_caps():
-    """A TT of rank 128 (phase 23's posterior rank) served at 'f32' on
-    the card raises ValueError at the step kernels' caps (n, r <= 64)
-    instead of giving a wrong result; at 'f64' (no kernel) it serves."""
+@pytest.mark.parametrize("n,r", [(9, 128), (96, 32)])
+def test_rank_128_at_f32_serves_through_the_wide_tier(n, r):
+    """A TT of rank 128 (phase 23's posterior rank), and one at n = 96,
+    served at 'f32' on the card through the wide tier of
+    gram_conditional and condition_update (launch counts non-zero), as
+    close to the 'f64' serve as the same transform through the plain f32
+    steps: the 99th percentile and the maximum of |x - x64| and
+    |lf - lf64| at most twice the plain path's plus 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers import irt_scan
+
+    assert max(n, r) > 64            # past the narrow tiers' caps
+    tt, grids = _random_tt_card(4, n, r, 4)
+    q = torch.rand((4096, 4), dtype=torch.float64, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    plain = (gram_conditional_ref, condition_update_ref)
+    for fn, kern in ((tp.tt_irt_lin, ("condition_update",)),
+                     (tp.tt_irt_sqr, ("gram_conditional",
+                                      "condition_update"))):
+        counts = {"gram_conditional": gram_conditional_cuda,
+                  "condition_update": condition_update_cuda}
+        before = {k: f.launches for k, f in counts.items()}
+        x, lf = fn(grids, tt, q, precision="f32")
+        torch.cuda.synchronize()
+        for k in counts:
+            launched = counts[k].launches - before[k]
+            assert (launched > 0) == (k in kern), (fn.__name__, k, launched)
+        x64, lf64 = fn(grids, tt, q, precision="f64")
+        orig = irt_scan.kernel_plan.gram_step
+        irt_scan.kernel_plan.gram_step = lambda dt: plain
+        try:
+            xp, lfp = fn(grids, tt, q, precision="f32")
+        finally:
+            irt_scan.kernel_plan.gram_step = orig
+        for a, b, ref in ((x, xp, x64), (lf, lfp, lf64)):
+            ek = (a.double() - ref).abs().reshape(a.shape[0], -1).amax(1)
+            ep = (b.double() - ref).abs().reshape(a.shape[0], -1).amax(1)
+            assert bool(torch.isfinite(ek).all())
+            for stat in (lambda e: float(torch.quantile(e, 0.99)),
+                         lambda e: float(e.max())):
+                assert stat(ek) <= 2.0 * stat(ep) + 1e-6, (
+                    fn.__name__, stat(ek), stat(ep))
+
+
+# The wide tier's shapes: rank 128 at a short grid, n = 96 at rank 32
+# and both at 128; (64, 64) is within the narrow caps but its P needs
+# 1 MB of shared memory, so gram_conditional takes the wide tier there;
+# (9, 127) ends on a step of 3 of gram_conditional's 4 rank slices, and
+# (100, 70) on a node tile of one group of 4.
+WIDE_SHAPES = [(9, 128), (96, 32), (96, 128), (64, 64), (9, 127), (100, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", WIDE_SHAPES)
+def test_step_kernels_wide_tier_match_plain_on_card(n, r):
+    """gram_conditional and condition_update in the wide tier against
+    their plain versions run in f64 on the same operands: no further
+    from them than twice the plain f32 versions plus 1e-6 (of the
+    largest |fk| for fk), on a ragged last warp's rows too."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    # the narrow tiers take n, r <= 64, gram_conditional only while its
+    # P (n r^2 floats, r padded to 4) fits the 227 KB opt-in
+    assert max(n, r) > 64 or n * r * ((r + 3) // 4 * 4) * 4 > 227 * 1024
+    phi, pmat, cmat, i0, la, lb = _step_operands(1024 + 7, n, r, n + r)
+    before = (gram_conditional_cuda.launches, condition_update_cuda.launches)
+    fk = gram_conditional_cuda(phi, pmat)
+    pk = condition_update_cuda(phi, i0, la, lb, cmat)
+    torch.cuda.synchronize()
+    assert (gram_conditional_cuda.launches,
+            condition_update_cuda.launches) == (before[0] + 1, before[1] + 1)
+    f64 = gram_conditional_ref(phi.double(), pmat.double())
+    scale = float(f64.abs().max())
+    err_k = float((fk.double() - f64).abs().max()) / scale
+    err_p = float((gram_conditional_ref(phi, pmat).double()
+                   - f64).abs().max()) / scale
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    p64 = condition_update_ref(phi.double(), i0, la.double(), lb.double(),
+                               cmat.double())
+    pr = condition_update_ref(phi, i0, la, lb, cmat)
+    err_k = float((pk.double() - p64).abs().max())
+    err_p = float((pr.double() - p64).abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+
+
+@pytest.mark.cuda
+def test_step_kernels_refuse_past_the_wide_caps():
+    """n or r above 128 raises ValueError naming the caps and what serves
+    such a shape; nothing is launched.  The factor-family kernels'
+    refusal names the precisions that serve it on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    phi, pmat, cmat, i0, la, lb = _step_operands(64, 129, 4, 1)
+    before = (gram_conditional_cuda.launches, condition_update_cuda.launches)
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
+        gram_conditional_cuda(phi, pmat)
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
+        condition_update_cuda(phi, i0, la, lb, cmat)
+    assert (gram_conditional_cuda.launches,
+            condition_update_cuda.launches) == before
+    ops = _operands(64, 9, 128, 1)
+    t = {k: torch.from_numpy(v).cuda() for k, v in ops.items()}
+    with pytest.raises(ValueError, match=r"caps n<=64, r<=64.*'f32'"):
+        dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"], t["cmat"],
+                      t["hrow"], t["xg"])
+
+
+@pytest.mark.cuda
+def test_conditional_at_hi_against_f64_on_card():
+    """tt_irt_cond on a random positive TT (d=6, n=17, rank 5) with the
+    first two coordinates fixed a seed, at 'hi' on the card: dim_step
+    launched once a dimension, the conditioned columns equal xfix, and
+    the samples and log conditional densities as close to the 'f64'
+    conditional as the same call through dim_step's plain version (p99
+    at most twice plus 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops import kernel_plan
+
+    tt, grids = _random_tt_card(6, 17, 5, 6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    z0, _ = tp.tt_irt_sqr(grids, tt, torch.rand(
+        (2048, 6), generator=gen, dtype=torch.float64, device="cuda"),
+        precision="f64")
+    xfix = z0[:, :2]
+    q_rest = torch.rand((2048, 4), generator=gen, dtype=torch.float64,
+                        device="cuda")
+    before = dim_step_cuda.launches
+    z, lf = tp.tt_irt_cond(grids, tt, xfix, q_rest, precision="hi")
+    torch.cuda.synchronize()
+    assert dim_step_cuda.launches - before == 6
+    assert torch.equal(z[:, :2], xfix)
+    z64, lf64 = tp.tt_irt_cond(grids, tt, xfix, q_rest, precision="f64")
+    saved = kernel_plan.dim_step
+    kernel_plan.dim_step = dim_step_ref
+    try:
+        zp, lfp = tp.tt_irt_cond(grids, tt, xfix, q_rest, precision="hi")
+    finally:
+        kernel_plan.dim_step = saved
+    for a, b, ref in ((z, zp, z64), (lf, lfp, lf64)):
+        ek = (a - ref).abs().reshape(a.shape[0], -1).amax(1)
+        ep = (b - ref).abs().reshape(a.shape[0], -1).amax(1)
+        assert float(torch.quantile(ek, 0.99)) <= 2.0 * float(
+            torch.quantile(ep, 0.99)) + 1e-6
+
+
+@pytest.mark.cuda
+def test_core_gradient_on_card_matches_finite_differences():
+    """tests/test_autodiff.py's problem (d=4, n=9, ranks 1-3-2-3-1, so
+    the scan path pads ranks) at 'f64' on the card: the core gradient is
+    finite, within 1e-4 of central differences and within 1e-8 relative
+    of the CPU's."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     import tt_irt_tpu_torch as tp
 
-    rng = np.random.default_rng(4)
-    d, n, r = 4, 9, 128
-    cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
-                                    1 if k == d - 1 else r))
-             for k in range(d)]
-    tt = tp.tt_from_numpy(cores, "cuda")
-    grids = [torch.linspace(-1.0, 1.0, n, dtype=torch.float64,
-                            device="cuda")] * d
-    q = torch.rand((256, d), dtype=torch.float64, device="cuda")
-    for fn in (tp.tt_irt_lin, tp.tt_irt_sqr):
-        with pytest.raises(ValueError, match="caps"):
-            fn(grids, tt, q, precision="f32")
-        x, lf = fn(grids, tt, q, precision="f64")
-        assert bool(torch.isfinite(x).all() and torch.isfinite(lf).all())
+    rng = np.random.default_rng(0)
+    ranks = [1, 3, 2, 3, 1]
+    cores = [rng.standard_normal((ranks[k], 9, ranks[k + 1]))
+             for k in range(4)]
+    q = rng.uniform(0.05, 0.95, size=(32, 4))
+
+    def loss(cl, dev):
+        grids = [torch.linspace(-1.0, 1.0, 9, dtype=torch.float64,
+                                device=dev)] * 4
+        z, lf = tp.tt_irt_sqr(grids, tp.TT(cl), torch.from_numpy(q).to(dev),
+                              device=dev)
+        return torch.sum(z ** 2) + 1e-3 * torch.sum(lf)
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [torch.tensor(c, device=dev, requires_grad=True)
+                  for c in cores]
+        grads[dev] = [g.cpu().numpy() for g in
+                      torch.autograd.grad(loss(leaves, dev), leaves)]
+    assert all(np.isfinite(g).all() for g in grads["cuda"])
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert np.max(np.abs(a - b)) <= 1e-8 * np.max(np.abs(b))
+    for ci, idx in [(0, (0, 2, 1)), (2, (1, 4, 1))]:
+        cp = [torch.from_numpy(c.copy()).cuda() for c in cores]
+        cm = [torch.from_numpy(c.copy()).cuda() for c in cores]
+        cp[ci][idx] += 1e-6
+        cm[ci][idx] -= 1e-6
+        fd = float(loss(cp, "cuda") - loss(cm, "cuda")) / 2e-6
+        assert abs(fd - grads["cuda"][ci][idx]) <= 1e-4 * max(abs(fd), 1.0)

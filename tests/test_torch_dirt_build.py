@@ -22,6 +22,16 @@ GRIDS = [np.linspace(-5, 5, 17) for _ in range(D)]
 BETA = [0.1, 0.3, 1.0]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process, so that parallel test workers do
+    not oversubscribe the cores; the caller's setting comes back."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def logratio_np(x, b0, b1, corr=0.5):
     x = np.asarray(x)
     quad = np.sum(x * x, 1) + 2.0 * corr * np.sum(x[:, :-1] * x[:, 1:], 1)

@@ -31,6 +31,16 @@ SETS = (1, 2, 3, 4, 5, 6)
 ROWS = 4                     # heaviest rows per set served here
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process, so that parallel test workers do
+    not oversubscribe the cores; the caller's setting comes back."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def serve_top_rows(rows=ROWS):
     """{set: {"card", "port", "jax_hi", "jax_f64": log-weights (rows,),
     "median": the set's median log-weight, "n_over_ess": the set's

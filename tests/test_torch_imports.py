@@ -43,7 +43,9 @@ def test_port_and_chip_smoke_import_no_jax():
         " 'constructors.dirt_build', 'samplers.qmc',"
         " 'models.shock_absorber', 'models.predator_prey',"
         " 'samplers.fourier', 'samplers.chebyshev', 'samplers.dirt_scan',"
-        " 'constructors.als_cross', 'models.diffusion'):\n"
+        " 'constructors.als_cross', 'models.diffusion',"
+        " 'samplers.conditional', 'api', 'constructors.finetune',"
+        " 'samplers.dram', 'samplers.svn'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
@@ -211,3 +213,55 @@ def test_slice_five_entry_points_default_to_the_card(entry, monkeypatch):
         call()
     tt = call(device="cpu")
     assert tt.device.type == "cpu" and tt.d == 3
+
+
+@pytest.mark.parametrize("entry", ["tt_irt_cond", "tt_dirt_cond_sample",
+                                   "sample_posterior", "dirt_finetune",
+                                   "dram", "svn"])
+def test_slice_seven_entry_points_default_to_the_card(entry, monkeypatch):
+    """Conditional sampling, the one-call front end, fine-tuning and the
+    two baselines run on the card by default: without one they raise (no
+    CPU fallback), and device='cpu' runs."""
+    from tt_irt_tpu_torch.samplers.dram import dram
+    from tt_irt_tpu_torch.samplers.svn import svn
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tt, grids, q = _small_tt()
+    dirt, _ = _small_dirt()
+
+    def lp(x):
+        return -0.5 * torch.sum(x * x, dim=-1)
+
+    call = {
+        "tt_irt_cond": lambda **kw: tp.tt_irt_cond(
+            grids, tt, [0.1], q[:, 1:], **kw),
+        "tt_dirt_cond_sample": lambda **kw: tp.tt_dirt_cond_sample(
+            dirt, [0.1], q[:, 1:], **kw),
+        "sample_posterior": lambda **kw: tp.sample_posterior(
+            lp, [g.numpy() for g in grids], 8, **kw),
+        "dirt_finetune": lambda **kw: tp.dirt_finetune(
+            dirt, lp, steps=1, nsamples=8, **kw),
+        "dram": lambda **kw: dram(lp, q, 3, **kw),
+        "svn": lambda **kw: svn(lambda x: -lp(x), q, steps=1, **kw),
+    }[entry]
+    with pytest.raises(RuntimeError, match="not available"):
+        call()
+    assert call(device="cpu") is not None
+
+
+def test_cap_refusals_name_what_serves_the_shape():
+    """A kernel's refusal past its caps names what serves the shape on
+    the card: the factor-family and whole-transform kernels (n, r <= 64)
+    point at 'f32' (the Gram family's wide tier, up to 128) and 'f64';
+    the Gram family's kernels past 128 at 'f64'."""
+    from tt_irt_tpu_torch.ops.rowmath import (SERVED_ANY, SERVED_WIDER,
+                                              check_factor_caps)
+
+    with pytest.raises(ValueError, match=r"caps n<=64, r<=64.*'f32' serves "
+                                         r"n<=128, r<=128.*'f64'"):
+        check_factor_caps("dim_step_cuda", 9, 128, 64, 64, 0)
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
+        check_factor_caps("gram_conditional_cuda", 129, 4, 128, 128, 0,
+                          SERVED_ANY)
+    assert "f32" not in SERVED_ANY and "f32" in SERVED_WIDER
+    check_factor_caps("gram_conditional_cuda", 96, 128, 128, 128, 8192)

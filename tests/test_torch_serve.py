@@ -16,6 +16,16 @@ from tt_irt_tpu.utils.checkpoint import load_dirt as jax_load
 DATA = os.path.join(os.path.dirname(__file__), "..", "examples", "data")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process, so that parallel test workers do
+    not oversubscribe the cores; the caller's setting comes back."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _mk_cores(d=6, n=17, r=5, seed=11):
     """Gaussian-bump TT cores on [-2, 2], as the JAX kernel tests build
     them (tests/test_fused_step.py::_mk_tt), made with numpy."""

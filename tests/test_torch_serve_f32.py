@@ -18,6 +18,16 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "examples", "data")
 ROWS = 1024
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process, so that parallel test workers do
+    not oversubscribe the cores; the caller's setting comes back."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module", params=["lz10_ck", "lz20_ck"])
 def served(request):
     """One checkpoint served by both packages at 'auto' and by JAX at

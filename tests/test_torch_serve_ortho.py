@@ -20,6 +20,16 @@ from test_torch_hi_steps import jax_ortho
 DATA = os.path.join(os.path.dirname(__file__), "..", "examples", "data")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread a process, so that parallel test workers do
+    not oversubscribe the cores; the caller's setting comes back."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def served():
     """256 truncated-normal seeds through lz40n33_ck (d=40, n=33, r=23,

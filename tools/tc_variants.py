@@ -73,6 +73,24 @@ modes, and both timed in turns (shipped, baseline, baseline, shipped) at
 stride r^2 put a warp's nodes in shared banks) and odd ones beside
 them.  Output in chiprun_out/tc_variants_stride.json.
 
+    python3 tools/tc_variants.py --wide --baseline CSRC
+
+times gram_conditional's wide tier (csrc/step.cu, n or r past 64, up
+to 128) through its C entry point at 2^18 rows on random operands at
+WIDE_SHAPES, beside the other checkout's step.cu (e.g. the first wide
+design's), six single-edit variants of the shipped plan ("wide_tm4",
+"wide_tm8": 4 or 8 rows a thread at every shape; "wide_tn4": nodes in
+groups of 4 at every n; "wide_s1", "wide_s2", "wide_s8": 1, 2 or 8 rank
+slices a step at 4 rows a thread, where the plan takes 4), the plain
+version (gram_conditional_ref) and the one PyTorch call (an einsum),
+all in turns (shipped first and last).  Every build's fk is held to the
+shipped kernel's bit for bit (all keep the same f32 chain a row and
+node).  As a static profile, the SASS instruction mix of every build's
+gram_wide_kernel instances (FFMA, shared loads LDS by width, barriers
+BAR) and, from ptxas's registers and the launch's shared memory and
+threads, the blocks and warps resident on an SM.  Output in
+chiprun_out/tc_variants_wide.json.
+
     python3 tools/tc_variants.py --fused [--baseline CSRC]
 
 times the whole-transform kernel of csrc/fused_irt.cu (design CU,
@@ -461,6 +479,9 @@ def main(argv=None):
     ap.add_argument("--stride", action="store_true",
                     help="dim_step and odim_step against --baseline's "
                          "(the staged node stride) only")
+    ap.add_argument("--wide", action="store_true",
+                    help="gram_conditional's wide tier against "
+                         "--baseline's and its variants only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tc_variants: torch.cuda is not available", file=sys.stderr)
@@ -473,6 +494,8 @@ def main(argv=None):
     os.makedirs(OUT, exist_ok=True)
     if args.step:
         return step_main(args, card)
+    if args.wide:
+        return wide_main(args, card)
     if args.fused:
         return fused_main(args, card)
     if args.stride:
@@ -924,6 +947,188 @@ def step_main(args, card):
               + json.dumps(rec["factor_family_equal_to_baseline"]))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tc_variants_step.json"),
+              "w") as fh:
+        json.dump(rec, fh, indent=1)
+    return 0
+
+
+# ---- gram_conditional's wide tier (--wide) ----
+
+WIDE_SHAPES = ((9, 128), (96, 32), (96, 128), (64, 64))
+WIDE_TM = ("  p.tm = (words - kRing * r * p.bn) / r - 4 < 8 * rg_threads ? 4 "
+           ": 8;")
+WIDE_S = "constexpr int kSmallS = 4;"
+WIDE_TN = "  p.tn = 3 * g3 < 4 * g4 ? 3 : 4;"
+
+
+def _wide_launch(plan_tm, plan_tn, n, r, small_s=4, smem_opt_in=227 * 1024):
+    """(threads, TM, TN, S) of a wide gram_conditional launch at (n, r):
+    the shipped wide_plan's rule (csrc/step.cu), with its choices of TM,
+    TN and S at TM = 4 as given, for the occupancy report."""
+    g3, g4 = (n + 2) // 3, (n + 3) // 4
+    tn = plan_tn if plan_tn else (3 if 3 * g3 < 4 * g4 else 4)
+    groups = g3 if tn == 3 else g4
+    ngb = min(groups, 8)
+    cap = (smem_opt_in // 4 - 2 * r * 4 * ngb) // r - 4
+    tm = plan_tm if plan_tm else (4 if cap // 8 < 256 // ngb else 8)
+    s = small_s if tm == 4 else 1
+    cap = (smem_opt_in // 4 - 2 * s * r * 4 * ngb) // r - 4
+    rg = min(256 // ngb, cap // tm)
+    return (rg * ngb + 31) // 32 * 32, tm, tn, s
+
+
+def _resident_warps(regs, threads, smem):
+    """Warps an SM holds of a kernel at ``regs`` registers a thread,
+    ``threads`` a block and ``smem`` bytes of shared memory a block
+    (sm_90: 64K registers allocated by 256 a warp, 228 KB of shared
+    memory with 1 KB reserved a block, 64 warps, 32 blocks)."""
+    warps = threads // 32
+    per_warp = (regs * 32 + 255) // 256 * 256
+    by_regs = 65536 // (per_warp * warps)
+    by_smem = (228 * 1024) // (smem + 1024)
+    return min(by_regs, by_smem, 64 // warps, 32) * warps
+
+
+def _sass_mix(lib_path, kernel="gram_wide_kernel"):
+    """{instance: {FFMA, LDS.32, LDS.64, LDS.128, BAR}} in the SASS of
+    ``kernel``'s instances in one library."""
+    import re
+
+    from tt_irt_tpu_torch.ops._build import _tool
+    out = subprocess.run([_tool("cuobjdump"), "-sass", lib_path],
+                         capture_output=True, text=True, check=True).stdout
+    mix = {}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        lds = re.findall(r"\bLDS(\.U)?(\.(64|128))?\b", part)
+        mix[name] = {
+            "FFMA": len(re.findall(r"\bFFMA\b", part)),
+            "LDS.32": sum(1 for _, _, w in lds if not w),
+            "LDS.64": sum(1 for _, _, w in lds if w == "64"),
+            "LDS.128": sum(1 for _, _, w in lds if w == "128"),
+            "BAR": len(re.findall(r"\bBAR\.SYNC", part))}
+    return mix
+
+
+def _registers(report, kernel="gram_wide_kernel"):
+    """{mangled instance: registers} from ptxas's lines."""
+    regs, name = {}, None
+    for ln in report:
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            name = ln.split("'")[1] if "'" in ln else None
+        elif "registers" in ln and name and kernel in name:
+            regs[name] = int(ln.split("Used ")[1].split(" registers")[0])
+    return regs
+
+
+def wide_main(args, card):
+    if not args.baseline:
+        raise SystemExit("--wide needs --baseline (the other step.cu)")
+    tm4 = _edited_copy("wide_tm4", [("step.cu", WIDE_TM,
+                                     "  p.tm = 4;")])
+    tm8 = _edited_copy("wide_tm8", [("step.cu", WIDE_TM,
+                                     "  p.tm = 8;")])
+    s1 = _edited_copy("wide_s1", [("step.cu", WIDE_S,
+                                   WIDE_S.replace("4", "1"))])
+    s2 = _edited_copy("wide_s2", [("step.cu", WIDE_S,
+                                   WIDE_S.replace("4", "2"))])
+    s8 = _edited_copy("wide_s8", [("step.cu", WIDE_S,
+                                   WIDE_S.replace("4", "8"))])
+    tn4 = _edited_copy("wide_tn4", [("step.cu", WIDE_TN,
+                                     "  p.tn = 4;")])
+    base = _edited_copy("baseline", [], src=args.baseline)
+    jobs = {"wide_base": os.path.join(base, "step.cu"),
+            "wide_tm4": os.path.join(tm4, "step.cu"),
+            "wide_tm8": os.path.join(tm8, "step.cu"),
+            "wide_s1": os.path.join(s1, "step.cu"),
+            "wide_s2": os.path.join(s2, "step.cu"),
+            "wide_s8": os.path.join(s8, "step.cu"),
+            "wide_tn4": os.path.join(tn4, "step.cu")}
+    ptxas = {}
+    libs = _build_variants(jobs, ("step",), ptxas)
+    from tt_irt_tpu_torch.ops._build import library_path
+    paths = dict(libs, shipped=library_path("step"))
+    ship = step_lib()
+    fns = {"shipped": ship.gram_conditional_launch}
+    for name in jobs:
+        f = ctypes.CDLL(libs[name]).gram_conditional_launch
+        f.argtypes = [P, P, P, I, I, I, I, P]
+        fns[name] = f
+    order = ["shipped", "wide_base", "wide_tm4", "wide_tm8", "wide_tn4",
+             "wide_s1", "wide_s2", "wide_s8"]
+    stream = torch.cuda.current_stream().cuda_stream
+    m = 1 << 18
+    rng = np.random.default_rng(11)
+    rec = {"card": card, "baseline": args.baseline, "rows": m,
+           "ptxas": ptxas, "sass": {k: _sass_mix(v) for k, v in
+                                    paths.items()}, "shapes": []}
+    for name, lines in ptxas.items():
+        for ln in lines:
+            if "gram_wide" in ln or "registers" in ln:
+                print(f"ptxas {name}: {ln}")
+    for name, mix in rec["sass"].items():
+        print(f"SASS {name}: " + json.dumps(mix))
+    dev = torch.cuda.current_device()
+    for n, r in WIDE_SHAPES:
+        phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
+        phi /= phi.max(axis=1, keepdims=True)
+        phi = torch.from_numpy(phi).cuda()
+        pmat = torch.from_numpy(rng.standard_normal((r * r, n)).astype(
+            np.float32)).cuda()
+        p3 = pmat.reshape(r, r, n)
+        outs = {k: torch.empty((m, n), dtype=torch.float32, device="cuda")
+                for k in fns}
+
+        def call(k):
+            err = fns[k](phi.data_ptr(), pmat.data_ptr(), outs[k].data_ptr(),
+                         m, n, r, dev, stream)
+            if err:
+                raise RuntimeError(f"{k} launch failed at {(n, r)}: {err}")
+
+        ms = {k: [] for k in order}
+        for k in order + order[::-1]:
+            ms[k].append(_time_ms(lambda: call(k), 5))
+        plain = _time_ms(lambda: gram_conditional_ref(phi, pmat), 2)
+        einsum = _time_ms(lambda: torch.einsum("mi,ijx,mj->mx", phi, p3,
+                                               phi), 2)
+        equal = {k: bool(torch.equal(outs[k], outs["shipped"]))
+                 for k in order[1:]}
+        smem = int(ship.gram_conditional_smem_bytes(n, r))
+        flops = 2.0 * m * n * r * r
+        occupancy = {}
+        for k, (tm_, tn_, s_) in (("shipped", (None, None, 4)),
+                                  ("wide_tm4", (4, None, 4)),
+                                  ("wide_tm8", (8, None, 4)),
+                                  ("wide_tn4", (None, 4, 4)),
+                                  ("wide_s1", (None, None, 1)),
+                                  ("wide_s2", (None, None, 2)),
+                                  ("wide_s8", (None, None, 8))):
+            threads, tm, tn, s = _wide_launch(tm_, tn_, n, r, s_)
+            regs = [v for name, v in _registers(
+                ptxas["package step" if k == "shipped" else k]).items()
+                if f"ILi{tm}ELi{tn}ELi{s}E" in name]
+            occupancy[k] = {"tm": tm, "tn": tn, "s": s, "threads": threads,
+                            "registers": regs[0] if regs else None,
+                            "resident_warps": _resident_warps(
+                                regs[0], threads, smem) if regs else None}
+        row = {"n": n, "r": r, "ms": ms, "plain_ms": plain,
+               "einsum_ms": einsum, "equal_to_shipped": equal,
+               "smem_bytes": smem, "launch": occupancy,
+               "tflops": {k: flops / (min(v) * 1e9) for k, v in ms.items()}}
+        rec["shapes"].append(row)
+        best = ", ".join(f"{k} {min(v):.4f}" for k, v in ms.items())
+        print(f"gram_conditional wide tier n={n} r={r} {m} rows, ms (best "
+              f"of 2): {best}; plain {plain:.4f}; einsum {einsum:.4f}; "
+              f"fk equal to shipped {json.dumps(equal)}; shared memory "
+              f"{smem} B, launch {json.dumps(occupancy)}; TFLOP/s "
+              + json.dumps({k: round(v, 2) for k, v in row["tflops"].items()})
+              + f" ({card})", flush=True)
+        del phi, pmat, p3, outs
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tc_variants_wide.json"),
               "w") as fh:
         json.dump(rec, fh, indent=1)
     return 0

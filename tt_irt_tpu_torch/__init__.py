@@ -10,9 +10,11 @@ probe batch (or solve each reduced system) on the device.  Each kernel's wrapper
 live in ``ops.dim_step``, ``ops.odim_step``, ``ops.step`` and ``ops.fused_irt``.
 """
 
+from .api import PosteriorResult, sample_posterior
 from .constructors.als_cross import AlsCrossResult, als_cross_parametric
 from .constructors.amen_cross import CrossResult, amen_cross_s
 from .constructors.dirt_build import DirtOptions, tt_dirt_approx
+from .constructors.finetune import dirt_finetune
 from .constructors.greedy_cross import greedy_cross
 from .models.diffusion import DiffusionProblem
 from .models.lorenz import LorenzProblem, lorenz_ll, lorenz_rhs
@@ -30,7 +32,9 @@ from .ops.tt import (TT, tkron, tt_add, tt_dot, tt_eval_indices,
                      tt_partial_eval, tt_permute, tt_rand, tt_reverse,
                      tt_round, tt_scale, tt_sum_many, tt_sum_modes)
 from .samplers.chebyshev import tt_irt_cheb
-from .samplers.debias import IWResult, iw_prune, mcmc_prune, tt_irt_debias
+from .samplers.conditional import tt_dirt_cond_sample, tt_irt_cond
+from .samplers.debias import (IWResult, iw_prune, mcmc_prune,
+                              rejection_histogram, tt_irt_debias)
 from .samplers.diagnostics import essinv, hellinger, iact, tt_marginals
 from .samplers.dirt import (DIRT, dirt_permute, dirt_round, serve_precision,
                             tt_dirt_inverse, tt_dirt_sample)
@@ -48,21 +52,23 @@ from .utils.checkpoint import (dirt_from_numpy, load_dirt, save_dirt,
 __all__ = [
     "TT", "DIRT", "AlsCrossResult", "CrossResult", "DiffusionProblem",
     "DirtOptions", "DirtSampler", "HI_STEPS", "IWResult", "IrtSampler",
-    "LorenzProblem", "PredatorPreyProblem", "ShockConfig",
-    "als_cross_parametric", "amen_cross_s", "build_fused_data", "cbc_lattice",
-    "condition_update", "dim_step", "dirt_from_numpy", "dirt_permute",
-    "dirt_round", "dopri5_step", "essinv", "fused_irt_sqr",
-    "gram_conditional", "greedy_cross", "hellinger", "iact",
-    "integrate_adaptive", "integrate_observed",
-    "integrate_observed_adaptive", "integrate_to", "irt_scan", "iw_prune",
-    "lagrange_matrix", "load_dirt", "localcross", "lorenz_ll",
-    "lorenz_rhs", "maxvol", "maxvol_rect", "mcmc_prune", "qmcnodes",
-    "randref", "reference_sigma", "resolved_serve_modes", "rk4",
-    "save_dirt", "serve_precision", "tkron", "tnormal_logdensity_shift",
+    "LorenzProblem", "PosteriorResult", "PredatorPreyProblem",
+    "ShockConfig", "als_cross_parametric", "amen_cross_s",
+    "build_fused_data", "cbc_lattice", "condition_update", "dim_step",
+    "dirt_finetune", "dirt_from_numpy", "dirt_permute", "dirt_round",
+    "dopri5_step", "essinv", "fused_irt_sqr", "gram_conditional",
+    "greedy_cross", "hellinger", "iact", "integrate_adaptive",
+    "integrate_observed", "integrate_observed_adaptive", "integrate_to",
+    "irt_scan", "iw_prune", "lagrange_matrix", "load_dirt", "localcross",
+    "lorenz_ll", "lorenz_rhs", "maxvol", "maxvol_rect", "mcmc_prune",
+    "qmcnodes", "randref", "reference_sigma", "rejection_histogram",
+    "resolved_serve_modes", "rk4", "sample_posterior", "save_dirt",
+    "serve_precision", "tkron", "tnormal_logdensity_shift",
     "tnormal_to_uniform", "trunc_svd", "tt_add", "tt_dirt_approx",
-    "tt_dirt_inverse", "tt_dirt_sample", "tt_dot", "tt_eval_indices",
-    "tt_from_dense", "tt_from_numpy", "tt_full", "tt_hadamard",
-    "tt_irt_cheb", "tt_irt_debias", "tt_irt_fourier", "tt_irt_lin", "tt_irt_sqr", "tt_marginals",
+    "tt_dirt_cond_sample", "tt_dirt_inverse", "tt_dirt_sample", "tt_dot",
+    "tt_eval_indices", "tt_from_dense", "tt_from_numpy", "tt_full",
+    "tt_hadamard", "tt_irt_cheb", "tt_irt_cond", "tt_irt_debias",
+    "tt_irt_fourier", "tt_irt_lin", "tt_irt_sqr", "tt_marginals",
     "tt_mean_field", "tt_meshgrid", "tt_norm", "tt_ones",
     "tt_orthogonalize", "tt_partial_eval", "tt_permute", "tt_rand",
     "tt_reverse", "tt_round", "tt_rt_sqr", "tt_sample_lagrange",

@@ -63,8 +63,9 @@ def pp_loglikelihood(x, data, obs_times, sigma_n, xtrue, ind,
     m = x.shape[0]
     xtrue = torch.as_tensor(xtrue, dtype=x.dtype, device=dev)
     ind = torch.as_tensor(np.asarray(ind), dtype=torch.int64, device=dev)
-    full = xtrue[None, :].repeat(m, 1)
-    full[:, ind] = x * xtrue[ind][None, :]
+    # out of place, so that torch.func can map and differentiate it (svn)
+    full = xtrue[None, :].repeat(m, 1).index_copy(
+        1, ind, x * xtrue[ind][None, :])
     y0 = full[:, :2]
     obs_times = torch.as_tensor(obs_times, dtype=torch.float64)
     if adaptive:

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .rowmath import SMEM_LIMIT, check_cuda_operands, cumsum_rows
+from .rowmath import (SERVED_WIDER, SMEM_LIMIT, check_cuda_operands,
+                      cumsum_rows)
 from .step import condition_update_ref, gram_conditional_ref
 
 __all__ = ["build_fused_data", "fused_irt_sqr", "fused_irt_sqr_cuda",
@@ -192,7 +193,7 @@ def fused_irt_sqr_cuda(q, p2, coreu, x, h):
             and 1 <= r <= lib.fused_irt_max_r()):
         raise ValueError(f"{fn}: n={n}, r={r} outside the kernel's caps "
                          f"n<={lib.fused_irt_max_n()}, "
-                         f"r<={lib.fused_irt_max_r()}")
+                         f"r<={lib.fused_irt_max_r()}; {SERVED_WIDER}")
     rows, _, smem, _ = fused_irt_plan(n, r, m, q.device.index)
     if rows == 0:
         raise ValueError(f"{fn}: n={n}, r={r} needs {smem} bytes of shared "

@@ -12,10 +12,16 @@ import torch
 
 __all__ = ["invert_quadratic", "full_f32_matmul", "cumsum_rows", "cdf_sums32",
            "cdf_rows32", "check_cuda_operands", "check_factor_caps",
-           "SMEM_LIMIT"]
+           "SMEM_LIMIT", "SERVED_WIDER", "SERVED_ANY"]
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 232448
+# What serves a shape on the card past the caps of the factor-family and
+# whole-transform kernels (n, r <= 64), and past the Gram family's wide
+# tier (n, r <= 128).
+SERVED_WIDER = ("on the card precision 'f32' serves n<=128, r<=128 "
+                "(gram_conditional and condition_update) and 'f64' any shape")
+SERVED_ANY = "on the card precision 'f64' (no kernel) serves any shape"
 
 
 def invert_quadratic(f1, f2, c1, q, x1, x2):
@@ -50,12 +56,14 @@ def check_cuda_operands(fn, dev, operands) -> None:
                              f"{tuple(shape)}, got {tuple(t.shape)}")
 
 
-def check_factor_caps(fn, n, r, max_n, max_r, smem) -> None:
+def check_factor_caps(fn, n, r, max_n, max_r, smem,
+                      served=SERVED_WIDER) -> None:
     """Raise ValueError for a shape (n, r) outside a kernel's caps or
-    needing more than ``SMEM_LIMIT`` bytes of shared memory."""
+    needing more than ``SMEM_LIMIT`` bytes of shared memory; the message
+    ends with ``served``, what serves such a shape instead."""
     if not (2 <= n <= max_n and 1 <= r <= max_r):
         raise ValueError(f"{fn}: n={n}, r={r} outside the kernel's caps "
-                         f"n<={max_n}, r<={max_r}")
+                         f"n<={max_n}, r<={max_r}; {served}")
     if smem > SMEM_LIMIT:
         raise ValueError(f"{fn}: n={n}, r={r} needs {smem} bytes of "
                          f"shared memory (limit {SMEM_LIMIT})")

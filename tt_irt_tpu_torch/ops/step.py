@@ -43,8 +43,8 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .rowmath import (cdf_rows32, check_cuda_operands, check_factor_caps,
-                      full_f32_matmul)
+from .rowmath import (SERVED_ANY, cdf_rows32, check_cuda_operands,
+                      check_factor_caps, full_f32_matmul)
 
 __all__ = ["gram_conditional_cuda", "gram_conditional_ref",
            "condition_update_cuda", "condition_update_ref",
@@ -106,7 +106,7 @@ def gram_conditional_cuda(phi, pmat):
                                          "pmat": (pmat, f32, (r * r, n))})
     lib = _lib()
     check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
-                      lib.gram_conditional_smem_bytes(n, r))
+                      lib.gram_conditional_smem_bytes(n, r), SERVED_ANY)
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -140,7 +140,7 @@ def condition_update_cuda(phi, i0, la, lb, cmat):
         "cmat": (cmat, f32, (n, r * r))})
     lib = _lib()
     check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
-                      lib.condition_update_smem_bytes(n, r))
+                      lib.condition_update_smem_bytes(n, r), SERVED_ANY)
     phin = torch.empty((m, r), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream

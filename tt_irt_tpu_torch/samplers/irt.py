@@ -174,7 +174,7 @@ def _prepare_sqr(tt: TT, grids, stable: bool = True):
             if k > 0:
                 w = torch.sqrt(_trapz_w2(h))
                 mat = (b * w[None, :, None]).reshape(r1, -1).T
-                rfac = torch.linalg.qr(mat, mode="r").R.T
+                rfac = torch.linalg.qr(mat, mode="reduced").R.T
                 carry = rfac / torch.clamp(rfac.abs().max(), min=1e-300)
         else:
             t = torch.einsum("anc,cd->and", core, carry)

@@ -169,7 +169,9 @@ def _prepare_scan(cstack, xstack, stable: bool = False):
                 wb = b * torch.sqrt(w2[k])[:, None]
                 mat = wb.reshape(batch + (r, n * r)).transpose(-1, -2)
                 mat = torch.cat([mat, (1e-14 * amax(mat)) * eye], dim=-2)
-                rnew = torch.linalg.qr(mat, mode="r").R.transpose(-1, -2)
+                # mode "reduced": PyTorch has no backward for mode "r"
+                rnew = torch.linalg.qr(mat, mode="reduced").R.transpose(
+                    -1, -2)
                 carry = rnew / amax(rnew)
             else:
                 t = torch.einsum("...anc,...cd->...and", core, carry)
