@@ -197,6 +197,27 @@ Phases (any failure raises; nothing falls back to the CPU):
  30. examples/run_baselines.py's DRAM on the shock absorber (8 chains)
      against phase 18's TT-MH moments, and SVN on predator-prey (64
      particles), with fewer steps than the example (the constants).
+ 31. the wide tier of dim_step, cdf_bracket_factor, factor_conditional,
+     odim_step (csrc/factor_wide.cu) and fused_irt_sqr
+     (csrc/fused_wide.cu): a random positive TT at d=40, n=33, r=96
+     (every narrow tier refuses it) through tt_irt_sqr at 'hi' with each
+     hi_step and at 'hid', and through DirtSampler("auto") over a
+     one-level stack of it (-> 'hi'), on 2^16 rows with launch counts,
+     against 'f64' beside the plain steps (2x + 1e-6 at p99 and at the
+     maximum); the four kernels against their plain versions at (9, 128),
+     (96, 32), (33, 96) and (96, 128) on 2^14 rows with the ties of
+     phase 9, timed at 2^18 rows beside the plain versions (at 2^16),
+     torch.matmul(phi, B), factor_conditional's einsum and the bounds;
+     fused_irt_sqr on d=8 TTs at (9, 128) and (96, 32) against its plain
+     version (p99) and timed;
+ 32. the sample mesh on four shards of the one card against the one-card
+     mesh: __graft_entry__.py's dryrun_multichip in the port (a sharded
+     tt_irt_sqr step with a global essinv, the two-level DIRT build, a
+     standalone amen_cross_s, the sharded use_fused=True serve),
+     greedy_cross and dirt_finetune (4 steps), bit for bit (fine-tuning's
+     later losses within 1e-10); lz40n33_ck's 'hi' serve of 2^18 rows
+     sharded, bit for bit; tt_irt_native on the host against 'f64' on the
+     card; verify_env(device="cuda"); profiling.trace around one serve.
 The timing lines of phases 8 and 12 print beside condition_update's,
 gram_conditional's and fused_irt_sqr's times those of their previous
 designs (BEFORE_MS).
@@ -220,6 +241,7 @@ import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "examples", "data")
@@ -4141,6 +4163,523 @@ def _baselines_path(run):
         <= 1e-10 * abs(out["svn_grad_norm_cpu"]), out
 
 
+# ---- phase 31: the factor family's wide tier and kernel 6's ----
+
+WIDE_HI = (40, 33, 96)          # d, n, r of the TT served at 'hi'
+WIDE_HI_ROWS = 1 << 16
+WIDE_FACTOR_TIMED = ((9, 128), (96, 32), (33, 96), (96, 128))
+WIDE_CHECK_ROWS = 1 << 14       # the kernels against their plain versions
+WIDE_PLAIN_ROWS = 1 << 16       # the plain versions' timings (phi B at
+#                                 (96, 128) is 12.9 GB at 2^18 rows)
+WIDE_FUSED = ((9, 128), (96, 32))
+WIDE_FUSED_D = 8
+WIDE_FUSED_PLAIN_ROWS = 1 << 14  # the plain whole transform's (m, r^2)
+#                                  outer product is 17 GB at 2^18, r=128
+
+
+def _max_gate(rec, checks, key, names=("x", "lf")):
+    """_serve_gate's rule at the maximum: the kernel path's largest
+    distance to 'f64' at most twice the plain path's plus 1e-6."""
+    for what in names:
+        checks[f"{key}_{what}_max"] = (
+            rec[f"{key}_{what}_kernel_vs_f64_max"]
+            <= 2.0 * rec[f"{key}_{what}_plain_vs_f64_max"] + 1e-6)
+
+
+def _wide_hi_path(run):
+    """Phase 31's path: a random positive TT at WIDE_HI (every narrow
+    tier refuses (33, 96)) through tt_irt_sqr at 'hi' with each hi_step
+    and at 'hid', and through DirtSampler(precision="auto") over a
+    one-level stack of it (-> 'hi', dim_step once a dimension), each on
+    WIDE_HI_ROWS seeds with its launch counts, against the 'f64' serve
+    beside the same call through the plain steps (2x + 1e-6 at p99 and
+    at the maximum).  Returns {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+
+    rec, dev = run.rec, run.dev
+    d, n, r = WIDE_HI
+    rng = np.random.default_rng(31)
+    cores = [rng.uniform(0.1, 1.0, (1 if k == 0 else r, n,
+                                    1 if k == d - 1 else r))
+             for k in range(d)]
+    tt = tp.tt_from_numpy(cores, dev)
+    grids = [torch.linspace(-1.0, 1.0, n, dtype=torch.float64,
+                            device=dev)] * d
+    q = torch.rand((WIDE_HI_ROWS, d), generator=torch.Generator(
+        device=dev).manual_seed(run.seed + 31), dtype=torch.float64,
+        device=dev)
+    ref = tp.tt_irt_sqr(grids, tt, q, precision="f64", device=dev)
+    checks, launches, plain_dim = {}, {}, None
+    cases = (("hi", "dim", {"dim_step": d}), ("hi", "odim", {"odim_step": d}),
+             ("hi", "bracket", {"cdf_bracket_factor": d,
+                                "condition_update": d}),
+             ("hi", "pair", {"factor_conditional": d, "condition_update": d}),
+             ("hid", None, {"factor_conditional": d, "condition_update": d}))
+    for precision, hi_step, expect in cases:
+        kw = {} if hi_step is None else {"hi_step": hi_step}
+        tag = "wide_d40_" + precision + ("" if hi_step is None
+                                         else "_" + hi_step)
+
+        def call():
+            return tp.tt_irt_sqr(grids, tt, q, precision=precision,
+                                 device=dev, **kw)
+
+        secs, out = _counted(call, expect)
+        with _plain_steps():
+            plain = call()
+        assert bool(torch.isfinite(out[0]).all()
+                    and torch.isfinite(out[1]).all()), tag
+        _serve_gate(rec, checks, tag, out, plain, ref, names=("x", "lf"))
+        _max_gate(rec, checks, tag)
+        rec[f"{tag}_s"] = secs
+        for k, v in expect.items():
+            launches.setdefault(k, {})[f"31 d40 {tag[9:]}"] = v
+        if hi_step == "dim":
+            plain_dim = plain
+    stack = tp.dirt_from_numpy(cores, [], [g.cpu().numpy() for g in grids],
+                               [], [1.0], device=dev)
+    sampler = tp.DirtSampler(stack, precision="auto", device=dev)
+    assert sampler.precision == "hi", sampler.precision
+    secs, out = _counted(lambda: sampler(q), {"dim_step": d})
+    _serve_gate(rec, checks, "wide_d40_dirt_auto", out, plain_dim, ref,
+                names=("x", "lf"))
+    _max_gate(rec, checks, "wide_d40_dirt_auto")
+    rec["wide_d40_dirt_auto_s"] = secs
+    launches["dim_step"]["31 d40 DirtSampler auto"] = d
+    print(f"phase 31, a random TT at d={d}, n={n}, r={r} ({WIDE_HI_ROWS} "
+          f"rows) at 'hi' (every hi_step), 'hid' and DirtSampler('auto') "
+          f"through the factor family's wide tier, against 'f64' beside "
+          f"the plain steps: launches {json.dumps(launches)}; " + json.dumps(
+              {k: v for k, v in rec.items() if k.startswith("wide_d40_")})
+          + f" ({run.card})", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    assert not failed, f"the wide factor tier at d=40 vs 'f64': {failed}"
+    return launches
+
+
+def _wide_operands(m, n, r, seed, dev):
+    """f32 operands of one factor-family step at (n, r) on the card, made
+    with numpy: a sorted grid, a positive max-normalised prefix, a
+    normal factor, a positive core and uniform seeds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-2.0, 2.0, n))
+    x[0], x[-1] = -2.0, 2.0
+    phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
+    phi /= np.max(phi, axis=1, keepdims=True)
+    qv = rng.uniform(size=m)
+    x32 = x.astype(np.float32)
+    ops = dict(phi=phi, qp32=qv.astype(np.float32),
+               um32=(1.0 - qv).astype(np.float32),
+               bmat=rng.standard_normal((r, n * r)).astype(np.float32),
+               cmat=rng.uniform(0.05, 1.0, (n, r * r)).astype(np.float32),
+               hrow=np.diff(x).astype(np.float32),
+               xg=np.stack([x32, (x - x32.astype(np.float64)).astype(
+                   np.float32)]))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in ops.items()}
+
+
+def _wide_factor_checks(t, rows):
+    """The four factor-family kernels in their wide tier on the first
+    ``rows`` rows of the operands t against their plain versions (and
+    those run in f64): the bars of tests/test_torch_cuda.py's wide-tier
+    test, and the ties: cdf_bracket_factor's and odim_step's out9 equal
+    dim_step's bit for bit (the first where um32 == 1 - qp32),
+    factor_conditional's fk at dim_step's bracket nodes equal to its f1
+    and f2.  Returns {kernel: max |kernel - plain|} (on rows whose
+    brackets agree; fk relative to its largest value)."""
+    import torch
+
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                           cdf_bracket_factor_ref,
+                                           factor_conditional_cuda,
+                                           factor_conditional_ref)
+
+    a = {k: (v[:rows] if k in ("phi", "qp32", "um32") else v)
+         for k, v in t.items()}
+    err = {}
+    dargs = (a["phi"], a["qp32"], a["um32"], a["bmat"], a["cmat"], a["hrow"],
+             a["xg"])
+    oargs = (a["phi"], a["qp32"], a["um32"], a["bmat"], a["hrow"], a["xg"])
+    d9 = None
+    for name, kern, plain, args in (
+            ("dim_step", dim_step_cuda, dim_step_ref, dargs),
+            ("odim_step", odim_step_cuda, odim_step_ref, oargs)):
+        pk, ok_ = kern(*args)
+        pr, orf = plain(*args)
+        p64, o64 = plain(*(x.double() for x in args))
+        same = (ok_[:, 4] == orf[:, 4]) & (o64[:, 4].float() == orf[:, 4])
+        assert float(same.double().mean()) >= 0.999, name
+        err_k = float((pk.double() - p64)[same].abs().max())
+        err_p = float((pr.double() - p64)[same].abs().max())
+        assert err_k <= 2.0 * err_p + 1e-6, (name, err_k, err_p)
+        err[name] = float((pk - pr)[same].abs().max())
+        if d9 is None:
+            d9 = ok_
+        else:
+            assert torch.equal(ok_, d9), name
+    o9, i0 = cdf_bracket_factor_cuda(a["phi"], a["qp32"], a["bmat"],
+                                     a["hrow"], a["xg"])
+    orf, irf = cdf_bracket_factor_ref(a["phi"], a["qp32"], a["bmat"],
+                                      a["hrow"], a["xg"])
+    eq = a["um32"] == 1.0 - a["qp32"]
+    assert float(eq.double().mean()) > 0.3
+    assert torch.equal(o9[eq], d9[eq])
+    same = i0 == irf
+    assert float(same.double().mean()) >= 0.999
+    err["cdf_bracket_factor"] = float((o9 - orf)[same].abs().max())
+    fk = factor_conditional_cuda(a["phi"], a["bmat"])
+    fkp = factor_conditional_ref(a["phi"], a["bmat"])
+    f64 = factor_conditional_ref(a["phi"].double(), a["bmat"].double())
+    scale = float(f64.max())
+    err_k = float((fk.double() - f64).abs().max()) / scale
+    err_p = float((fkp.double() - f64).abs().max()) / scale
+    assert err_k <= 2.0 * err_p + 1e-6, ("factor_conditional", err_k, err_p)
+    err["factor_conditional"] = float((fk - fkp).abs().max()) / scale
+    i1 = torch.searchsorted(a["xg"][0].contiguous(), d9[:, 4].contiguous())
+    live = ~((d9[:, 2] == 1.0) & (d9[:, 3] == 1.0))
+    rr = torch.arange(rows, device=fk.device)
+    assert torch.equal(fk[rr, i1][live], d9[:, 2][live])
+    assert torch.equal(fk[rr, i1 + 1][live], d9[:, 3][live])
+    return err
+
+
+def _wide_factor_timings(run):
+    """Phase 31's timings: at each WIDE_FACTOR_TIMED shape the four
+    factor-family kernels on random operands (_wide_factor_checks on the
+    first WIDE_CHECK_ROWS rows first), each alone at 2^18 rows, the plain
+    versions and the kernels at WIDE_PLAIN_ROWS, torch.matmul(phi, B) at
+    2^18 rows (the library yardstick of all four; one product of the
+    conditional's two) and factor_conditional's einsum, with the bounds
+    of phase 12 (3xTF32 products; all-FP32 beside).  Returns {kernel:
+    {shape: numbers}}."""
+    import torch
+
+    from tt_irt_tpu_torch.ops._build import load_library
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_cuda, odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,
+                                           cdf_bracket_factor_ref,
+                                           factor_conditional_cuda,
+                                           factor_conditional_ref)
+
+    mb, dev, pr_ = run.mb, run.dev, WIDE_PLAIN_ROWS
+    out = {}
+    for n, r in WIDE_FACTOR_TIMED:
+        assert load_library("factor_wide").factor_wide_tier(n, r) == 1
+        shape = f"n{n}_r{r}"
+        t = _wide_operands(mb, n, r, 31 + n * r, dev)
+        errs = _wide_factor_checks(t, WIDE_CHECK_ROWS)
+        phi, qp, um, bm, cm, h, xg = (t[k] for k in (
+            "phi", "qp32", "um32", "bmat", "cmat", "hrow", "xg"))
+        cases = {
+            "dim_step": (dim_step_cuda, dim_step_ref,
+                         lambda k: (phi[:k], qp[:k], um[:k], bm, cm, h, xg)),
+            "cdf_bracket_factor": (cdf_bracket_factor_cuda,
+                                   cdf_bracket_factor_ref,
+                                   lambda k: (phi[:k], qp[:k], bm, h, xg)),
+            "factor_conditional": (factor_conditional_cuda,
+                                   factor_conditional_ref,
+                                   lambda k: (phi[:k], bm)),
+            "odim_step": (odim_step_cuda, odim_step_ref,
+                          lambda k: (phi[:k], qp[:k], um[:k], bm, h, xg))}
+        tc = mb * 2 * n * r * r
+        squares = 2 * n * r
+        common = 4 * (mb * r + r * n * r)
+        grid = 4 * (mb + (n - 1) + 2 * n + 9 * mb)
+        work = {"factor_conditional": (squares, common + 4 * mb * n),
+                "cdf_bracket_factor": (squares + 6 * n,
+                                       common + grid + 4 * mb),
+                "odim_step": (squares + 6 * n + 4 * r,
+                              common + grid + 4 * (mb + mb * r)),
+                "dim_step": (squares + 5 * r * r + 6 * n,
+                             common + grid + 4 * (mb + n * r * r + mb * r))}
+        mm_ms = _time_ms(lambda: torch.matmul(phi, bm), 3)
+        b3 = bm.reshape(r, n, r)
+        torch.cuda.empty_cache()
+        try:
+            ein_ms = _time_ms(lambda: torch.einsum(
+                "mi,ixj,mk,kxj->mx", phi, b3, phi, b3), 2)
+        except torch.cuda.OutOfMemoryError:
+            ein_ms = None
+        torch.cuda.empty_cache()
+        for name, (kern, plain, args) in cases.items():
+            ms = min(_time_ms(lambda: kern(*args(mb)), 5),
+                     _time_ms(lambda: kern(*args(mb)), 5))
+            ms_p = _time_ms(lambda: kern(*args(pr_)), 5)
+            plain_ms = _time_ms(lambda: plain(*args(pr_)), 2)
+            rest, nbytes = work[name]
+            bound, bound_by = _bound_tc(tc, mb * rest, nbytes)
+            out.setdefault(name, {})[shape] = {
+                "ms": ms, "rows": mb, "ms_at_plain_rows": ms_p,
+                "plain_ms": plain_ms, "plain_rows": pr_,
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_fp32_ms": _bound(tc + mb * rest, nbytes)[0],
+                "matmul_ms": mm_ms,
+                "library_ms": (ein_ms if name == "factor_conditional"
+                               else mm_ms),
+                "max_abs_err": errs[name], "check_rows": WIDE_CHECK_ROWS}
+            torch.cuda.empty_cache()
+        del t, phi, qp, um, bm, cm, h, xg, b3
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wide_fused(run):
+    """Phase 31, kernel 6: fused_irt_sqr_cuda past its narrow caps on the
+    bench-style TTs at d = WIDE_FUSED_D and each WIDE_FUSED shape: one
+    launch, finite, against its plain version run in f64 on the same f32
+    operands (the 99th percentile at most twice the plain f32 version's
+    plus 1e-6, samples and log-densities) on WIDE_FUSED_PLAIN_ROWS rows;
+    timed at 2^18 rows, the plain version and the kernel at
+    WIDE_FUSED_PLAIN_ROWS, with the bounds of phase 8.  Returns {shape:
+    numbers}."""
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
+                                                fused_irt_sqr_ref)
+
+    mb, dev, d = run.mb, run.dev, WIDE_FUSED_D
+    out = {}
+    for n, r in WIDE_FUSED:
+        shape = f"n{n}_r{r}"
+        tt = tp.tt_from_numpy(build_tt(d, n, r, seed=n + r), dev)
+        grids = [torch.linspace(-2.0, 2.0, n, dtype=torch.float64,
+                                device=dev)] * d
+        data = tp.build_fused_data(tt, grids)
+        q = torch.rand((mb, d), generator=torch.Generator(device=dev)
+                       .manual_seed(run.seed + n), device=dev)
+        ops = (data["p2"], data["coreu"], data["x"], data["h"])
+        rows = WIDE_FUSED_PLAIN_ROWS
+        _zero_counts()
+        xk, lk = fused_irt_sqr_cuda(q[:rows].contiguous(), *ops)
+        assert fused_irt_sqr_cuda.launches == 1
+        assert bool(torch.isfinite(xk).all() and torch.isfinite(lk).all())
+        xr, lr = fused_irt_sqr_ref(q[:rows], *ops)
+        x64, l64 = fused_irt_sqr_ref(q[:rows].double(),
+                                     *(o.double() for o in ops))
+        numbers = {}
+        for what, k, p_, ref in (("x", xk, xr, x64), ("lf", lk, lr, l64)):
+            k_max, k_p99 = _errs(k.double(), ref)
+            p_max, p_p99 = _errs(p_.double(), ref)
+            numbers.update({f"{what}_kernel_vs_f64_max": k_max,
+                            f"{what}_kernel_vs_f64_p99": k_p99,
+                            f"{what}_plain_vs_f64_max": p_max,
+                            f"{what}_plain_vs_f64_p99": p_p99})
+            assert k_p99 <= 2.0 * p_p99 + 1e-6, (shape, what, numbers)
+        numbers["max_abs_err"] = float((xk - xr).abs().max())
+        del xr, lr, x64, l64
+        ms = min(_time_ms(lambda: fused_irt_sqr_cuda(q, *ops), 3),
+                 _time_ms(lambda: fused_irt_sqr_cuda(q, *ops), 3))
+        qs = q[:rows].contiguous()
+        ms_p = _time_ms(lambda: fused_irt_sqr_cuda(qs, *ops), 5)
+        plain_ms = _time_ms(lambda: fused_irt_sqr_ref(qs, *ops), 2)
+        f_tc = 2 * r * r * n
+        f_rest = r * r + (5 * r * r + 2 * r) + 10 * n
+        f_bytes = mb * (8 * d + 4) + 4 * d * (2 * r * r * n + 2 * n - 1)
+        bound, bound_by = _bound_tc(mb * d * f_tc, mb * d * f_rest, f_bytes)
+        numbers.update({
+            "ms": ms, "rows": mb, "d": d, "ms_at_plain_rows": ms_p,
+            "plain_ms": plain_ms, "plain_rows": rows, "bound_ms": bound,
+            "bound_by": bound_by,
+            "bound_fp32_ms": _bound(mb * d * (f_tc + f_rest), f_bytes)[0],
+            "library_ms": None})
+        out[shape] = numbers
+        del data, q, ops, qs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wide_path(run):
+    """Phase 31: the path (_wide_hi_path), then each wide kernel against
+    its plain version and timed (_wide_factor_timings, _wide_fused).
+    Returns (launches by kernel and path, {kernel: {shape: numbers}})."""
+    launches = _wide_hi_path(run)
+    timings = _wide_factor_timings(run)
+    timings["fused_irt_sqr"] = _wide_fused(run)
+    run.rec["wide_factor_tier"] = timings
+    print(f"the factor family's and the whole transform's wide tiers: "
+          + json.dumps(timings) + f" ({run.card})", flush=True)
+    return launches, timings
+
+
+# ---- phase 32: the sample mesh, the native kernel, verify_env, the
+#      profiler ----
+
+MESH_SHARDS = 4
+
+
+def _mesh_path(run):
+    """Phase 32 on sample_mesh(devices=["cuda:0"] * 4) against
+    sample_mesh() (the one card): __graft_entry__.py's dryrun_multichip
+    in the port (a sharded tt_irt_sqr step with a global essinv and mean,
+    the two-level DIRT build with sharded probe batches, a standalone
+    sharded amen_cross_s, the sharded use_fused=True serve against the
+    level loop within 1e-9), greedy_cross and dirt_finetune (4 steps)
+    with a mesh, every build equal to the one-card mesh's bit for bit,
+    the two 'f64' serves within 1e-12 (cuBLAS's batched products round
+    by the shard's row count) (fine-tuning: the first loss; the later
+    ones within 1e-10 relative,
+    the shards' gradients summing in another order, and the tuned cores
+    within 1e-12: tests/test_parallel.py's bars); lz40n33_ck's 'hi'
+    serve of 2^18 rows sharded, equal to the unsharded serve bit for
+    bit; tt_irt_native on the host against 'f64' on the card (1e-10 in
+    samples, 1e-8 in log-density); verify_env(device="cuda"); and
+    profiling.trace around one serve, whose trace names dim_step's
+    kernel.  Returns dim_step's launches in the sharded serve."""
+    import numpy as np
+    import torch
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.native import NATIVE_LIB, tt_irt_native
+    from tt_irt_tpu_torch.parallel import sample_mesh, sharded_call
+    from tt_irt_tpu_torch.utils import profiling
+    from tt_irt_tpu_torch.utils.verify_env import verify_env
+
+    rec, dev, mb = run.rec, run.dev, run.mb
+    meshes = {"4": sample_mesh(devices=["cuda:0"] * MESH_SHARDS),
+              "1": sample_mesh()}
+    out, res = {}, {}
+    t0 = time.perf_counter()
+    tt = tp.tt_from_numpy(build_tt(6, 9, 4, seed=2), dev)
+    grids = [torch.linspace(-2.0, 2.0, 9, dtype=torch.float64,
+                            device=dev)] * 6
+    q = torch.rand((4096, 6), generator=torch.Generator(device=dev)
+                   .manual_seed(run.seed + 32), dtype=torch.float64,
+                   device=dev)
+
+    def logratio(x, b0, b1):
+        quad = torch.sum(x * x, dim=1) + \
+            0.5 * torch.sum(x[:, :-1] * x[:, 1:], dim=1)
+        return -0.5 * (b1 - b0) * quad
+
+    gvec = torch.linspace(-2.0, 2.0, 9, dtype=torch.float64, device=dev)
+
+    def cfun(ind):
+        s = torch.sum(gvec[ind], dim=1)
+        return torch.exp(-0.5 * s * s)
+
+    def lp(x):
+        return -0.5 * (torch.sum(x * x, dim=1)
+                       + 1.1 * torch.sum(x[:, :-1] * x[:, 1:], dim=1))
+
+    dgrids = [np.linspace(-4.0, 4.0, 9) for _ in range(4)]
+    qd = torch.rand((4096, 4), generator=torch.Generator(device=dev)
+                    .manual_seed(run.seed + 33), dtype=torch.float64,
+                    device=dev)
+    for key, mesh in meshes.items():
+        xq, lf = sharded_call(mesh, lambda qq, t_: tp.tt_irt_sqr(
+            grids, t_, qq, device=qq.device), q, tt)
+        tau = sharded_call(mesh, tp.essinv, -0.5 * torch.sum(xq * xq, dim=1),
+                           lf, sample_args=(0, 1), rowwise=False)
+        dirt = tp.tt_dirt_approx(dgrids, logratio, [0.1, 1.0], nswp=1,
+                                 kickrank=2, y0=4, stoptol=0.5,
+                                 testsamples=8 * MESH_SHARDS, seed=0,
+                                 mesh=mesh, device=dev)
+        cres = tp.amen_cross_s([9] * 4, cfun, 1e-8, nswp=4, kickrank=2,
+                               seed=0, mesh=mesh, device=dev)
+        gres = tp.greedy_cross([9] * 4, cfun, 1e-8, nswp=10, seed=1,
+                               mesh=mesh, device=dev)
+        zf, lff = sharded_call(mesh, lambda qq, dd: tp.tt_dirt_sample(
+            dd, qq, use_fused=True, device=qq.device), qd, dirt)
+        # tests/test_parallel.py's fine-tuning problem (d=3, one level,
+        # rank at most 2)
+        ft = tp.tt_dirt_approx([np.linspace(-6, 6, 9)] * 3,
+                               lambda x, b0, b1: (b1 - b0) * lp(x), [1.0],
+                               stoptol=0.5, nswp=1, kickrank=0, y0=2, rmax=2,
+                               testsamples=0, seed=5, mesh=mesh, device=dev)
+        tuned, losses = tp.dirt_finetune(ft, lp, steps=4, nsamples=64,
+                                         lr=1e-3, seed=3, mesh=mesh,
+                                         device=dev)
+        res[key] = dict(
+            step=[xq, lf, tau, torch.mean(xq, dim=0)],
+            build=list(dirt.f0.cores) + list(dirt.fs[0].cores),
+            cross=list(cres.tt.cores), greedy=list(gres.tt.cores),
+            fused=[zf, lff], losses=losses, tuned=list(tuned.f0.cores))
+    zl, _ = tp.tt_dirt_sample(dirt, qd, device=dev)
+    out["fused_vs_loop_max"] = float((res["4"]["fused"][0] - zl).abs().max())
+    assert out["fused_vs_loop_max"] < 1e-9, out
+    for part in ("step", "build", "cross", "greedy", "fused"):
+        pairs = list(zip(res["4"][part], res["1"][part]))
+        out[f"{part}_bit_for_bit"] = all(torch.equal(a, b) for a, b in pairs)
+        out[f"{part}_max_diff"] = max(float((a - b).abs().max())
+                                      for a, b in pairs)
+    # the builds bit for bit; the two 'f64' serves (the step, the fused
+    # serve) within 1e-12, tests/test_parallel.py's bar: their prefix
+    # update is one torch.bmm of M (1, r) x (r, r) products, and cuBLAS
+    # rounds those differently at another M (1e-15 at 1024 rows a shard)
+    for part in ("build", "cross", "greedy"):
+        assert out[f"{part}_bit_for_bit"], (part, out)
+    for part in ("step", "fused"):
+        assert out[f"{part}_max_diff"] <= 1e-12, (part, out)
+    la, lb = res["4"]["losses"], res["1"]["losses"]
+    out["finetune_first_loss_equal"] = bool(la[0] == lb[0])
+    out["finetune_loss_rel_diff"] = float(np.max(np.abs(la - lb)
+                                                 / np.abs(lb)))
+    out["finetune_core_max_diff"] = max(
+        float((a - b).abs().max()) for a, b in zip(res["4"]["tuned"],
+                                                    res["1"]["tuned"]))
+    assert out["finetune_first_loss_equal"], out
+    assert out["finetune_loss_rel_diff"] <= 1e-10, out
+    assert out["finetune_core_max_diff"] <= 1e-12, out
+    out["mesh_builds_s"] = time.perf_counter() - t0
+
+    # the lz40n33_ck serve at 'hi', sharded and not
+    lz = run.lz40
+    sampler = tp.DirtSampler(lz.dirt, precision="hi", device=dev)
+    seeds = lz.seeds[:mb]
+    per_block = (lz.dirt.nlevels + 1) * lz.dirt.d
+    _, one = _counted(lambda: sampler(seeds), {"dim_step": per_block})
+    secs, sh = _counted(lambda: sharded_call(meshes["4"],
+                                             lambda qq: sampler(qq), seeds),
+                        {"dim_step": MESH_SHARDS * per_block})
+    out["lz40n33_sharded_serve_s"] = secs
+    out["lz40n33_sharded_equal"] = bool(torch.equal(sh[0], one[0])
+                                        and torch.equal(sh[1], one[1]))
+    assert out["lz40n33_sharded_equal"], out
+
+    # the native kernel on the host against 'f64' on the card
+    t1 = time.perf_counter()
+    x64, l64 = tp.tt_irt_sqr(grids, tt, q, precision="f64", device=dev)
+    xn, ln = tt_irt_native([g.cpu() for g in grids], tt.to("cpu"),
+                           q.cpu().numpy())
+    out["native_x_max"] = float(np.abs(xn - x64.cpu().numpy()).max())
+    out["native_lf_max"] = float(np.abs(ln - l64.cpu().numpy()).max())
+    out["native_lib"] = os.path.relpath(NATIVE_LIB, ROOT)
+    out["native_s"] = time.perf_counter() - t1
+    assert out["native_x_max"] < 1e-10 and out["native_lf_max"] < 1e-8, out
+
+    t1 = time.perf_counter()
+    env = verify_env(verbose=False, device="cuda")
+    out["verify_env"] = env
+    out["verify_env_s"] = time.perf_counter() - t1
+    assert env["smoke_ness"] < 1.5 and env["native"], env
+
+    logdir = os.path.join(ROOT, "build", "trace_phase32")
+    with profiling.trace(logdir) as prof:
+        sampler(seeds)
+    names = [e.key for e in prof.key_averages()]
+    out["trace_kernels_named_dim_step"] = sorted(
+        {k for k in names if "dim_step" in k})[:4]
+    out["trace_bytes"] = os.path.getsize(os.path.join(logdir, "trace.json"))
+    assert out["trace_kernels_named_dim_step"], names[:40]
+    rec["mesh"] = out
+    print(f"phase 32, the sample mesh ({MESH_SHARDS} shards on one card "
+          f"against the one-card mesh), the native kernel, verify_env and "
+          f"the profiler: " + json.dumps(out, default=str)
+          + f" ({run.card})", flush=True)
+    return MESH_SHARDS * per_block
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=1)
@@ -4181,8 +4720,7 @@ def main(argv=None):
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    reports = _build.build_all(["dim_step", "odim_step", "factor_step",
-                                "factor_conditional", "step", "fused_irt"])
+    reports = _build.build_all(_build.sources())
     rec["build_s"] = time.perf_counter() - t0
     rec["build_s_by_source"] = {name: secs
                                 for name, (_, secs) in reports.items()}
@@ -4201,14 +4739,19 @@ def main(argv=None):
             print(f"  {name}: {ln}")
     # the tensor-core instructions of the four kernels whose conditional
     # runs on the tensor cores: HGMMA in each wgmma instance, HMMA in
-    # each mma.sync instance (cuobjdump -sass)
+    # each mma.sync instance and in each instance of their wide tier
+    # (cuobjdump -sass)
+    # (one cuobjdump a library, all at once)
+    with ThreadPoolExecutor() as pool:
+        sass = list(pool.map(_build.sass_tensor_ops, (
+            "dim_step", "odim_step", "factor_step", "factor_conditional",
+            "factor_wide")))
     rec["sass_tensor_ops"] = {
-        k: v for lib in ("dim_step", "odim_step", "factor_step",
-                         "factor_conditional")
-        for k, v in _build.sass_tensor_ops(lib).items()
+        k: v for ops in sass for k, v in ops.items()
         if k.startswith(("dim_step_kernel<", "odim_step_kernel<",
                          "cdf_bracket_factor_kernel<",
-                         "factor_conditional_kernel<"))}
+                         "factor_conditional_kernel<", "dim_wide_kernel<",
+                         "bracket_wide_kernel<", "conditional_wide_kernel<"))}
     for k, v in rec["sass_tensor_ops"].items():
         print(f"  SASS {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}")
     bad = [k for k, v in rec["sass_tensor_ops"].items()
@@ -4216,7 +4759,9 @@ def main(argv=None):
     assert not bad, bad
     assert {k.split("<")[0] for k in rec["sass_tensor_ops"]} == {
         "dim_step_kernel", "odim_step_kernel", "cdf_bracket_factor_kernel",
-        "factor_conditional_kernel"}, rec["sass_tensor_ops"]
+        "factor_conditional_kernel", "dim_wide_kernel",
+        "bracket_wide_kernel", "conditional_wide_kernel"}, \
+        rec["sass_tensor_ops"]
     _lap(run, "1 build")
 
     # ---- 2-4. dim_step and the lz40n33 serve at 'hi' ----
@@ -4396,6 +4941,17 @@ def main(argv=None):
     _baselines_path(run)
     torch.cuda.empty_cache()
     _lap(run, "30 DRAM, SVN")
+
+    # ---- 31-32. the factor family's and the whole transform's wide
+    #             tiers; the sample mesh, the native kernel, verify_env
+    #             and the profiler ----
+    wide_f_launches, wide_f = _wide_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "31 wide factor tier, kernel 6")
+    mesh_launches = _mesh_path(run)
+    torch.cuda.empty_cache()
+    _lap(run, "32 mesh, native, verify_env, profiling")
+    wide_f_launches["dim_step"]["32 lz40n33 sharded"] = mesh_launches
     built["diffusion DIRT auto f32"] = {"gram_conditional": launches_dd,
                                         "condition_update": launches_dd}
     built.update(fused)
@@ -4421,8 +4977,10 @@ def main(argv=None):
             by["lz10 build hi"] = launches_bh
             entry["shapes_by_path"]["lz10 build hi"] = [
                 list(s_) for s_ in shapes_bh]
-        for counts in (wide_launches, cond_launches):
+        for counts in (wide_launches, cond_launches, wide_f_launches):
             by.update(counts.get(entry["name"], {}))
+        if entry["name"] in wide_f:
+            entry["wide_tier"] = wide_f[entry["name"]]
         key = {"gram_conditional": "gram",
                "condition_update": "update"}.get(entry["name"])
         if key is not None:

@@ -272,12 +272,28 @@ def test_torch_funs_meet_the_jax_tests_bars():
 
 def test_cross_device_and_mesh_rules(monkeypatch):
     """The constructors default to the card (no card: they raise, no CPU
-    fallback); mesh= is not ported and says so."""
+    fallback).  mesh= takes a parallel.sample_mesh: an object that is not
+    one raises, and so does a non-vectorized fun with a mesh, as in the
+    JAX package; a mesh build runs, and equals the single-device build
+    with torch batches bit for bit (tests/test_torch_parallel.py holds
+    the sharded builds to the JAX package's)."""
+    from tt_irt_tpu_torch.parallel import sample_mesh
+
     fun = _grid_fun([np.linspace(0, 1, 5)] * 3, lambda x: x.sum(1) + 1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(TypeError, match="not a sample mesh"):
         tp.amen_cross_s([5] * 3, fun, 1e-8, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(TypeError, match="not a sample mesh"):
         tp.greedy_cross([5] * 3, fun, 1e-8, mesh=object(), device="cpu")
+    mesh = sample_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="vectorized"):
+        tp.amen_cross_s([5] * 3, fun, 1e-8, vec=False, mesh=mesh,
+                        device="cpu")
+    for cross in (tp.amen_cross_s, tp.greedy_cross):
+        one = cross([5] * 3, fun, 1e-8, torch_fun=True, device="cpu")
+        sh = cross([5] * 3, fun, 1e-8, mesh=mesh, device="cpu")
+        assert sh.evalcnt == one.evalcnt
+        for a, b in zip(sh.tt.cores, one.tt.cores):
+            assert torch.equal(a, b)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tp.amen_cross_s([5] * 3, fun, 1e-8),
                  lambda: tp.greedy_cross([5] * 3, fun, 1e-8)):

@@ -185,9 +185,9 @@ def test_dim_step_kernel_rejects_bad_operands():
     with pytest.raises(ValueError):
         dim_step_cuda(ops["phi"], ops["qp32"], ops["um32"], ops["bmat"].cpu(),
                  ops["cmat"], ops["hrow"], ops["xg"])
-    # n=64, r=64: the factor alone is 1 MiB of shared memory
-    big = _card_operands(128, 64, 64, "irt", 2)
-    with pytest.raises(ValueError, match="shared memory"):
+    # n=129: past the wide tier's caps
+    big = _card_operands(128, 129, 4, "irt", 2)
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
         dim_step_cuda(big["phi"], big["qp32"], big["um32"], big["bmat"],
                       big["cmat"], big["hrow"], big["xg"])
     assert dim_step_cuda.launches == before
@@ -728,8 +728,8 @@ def test_odim_step_kernel_matches_plain_on_card(mode, n, r):
 def test_factor_kernels_reject_bad_operands():
     """An f64 or CPU tensor reaching a wrapper raises, also through
     kernel_plan (an f64 tensor on the card is not sent to the plain
-    version), and so does a shape whose staged factor exceeds the
-    card's shared memory; nothing is launched."""
+    version), and so does a shape past the wide tier's caps; nothing is
+    launched."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     from tt_irt_tpu_torch.ops import kernel_plan
@@ -757,15 +757,15 @@ def test_factor_kernels_reject_bad_operands():
                                        bm.double(), h.double(), xg.double())
     with pytest.raises(ValueError):
         odim_step_cuda(phi, qp[:-1], um, bm, h, xg)
-    # n=64, r=64: 64*64*64*4 bytes of staged factor alone is 1 MiB
-    big = _card_operands(128, 64, 64, "irt", 2)
-    with pytest.raises(ValueError, match="shared memory"):
+    # n=129: past the wide tier's caps
+    big = _card_operands(128, 129, 4, "irt", 2)
+    with pytest.raises(ValueError, match="caps n<=128"):
         odim_step_cuda(big["phi"], big["qp32"], big["um32"], big["bmat"],
                        big["hrow"], big["xg"])
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="caps n<=128"):
         cdf_bracket_factor_cuda(big["phi"], big["qp32"], big["bmat"],
                                 big["hrow"], big["xg"])
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="caps n<=128"):
         factor_conditional_cuda(big["phi"], big["bmat"])
     assert tuple(f.launches for f in fns) == before
 
@@ -1139,8 +1139,8 @@ def test_step_kernels_wide_tier_match_plain_on_card(n, r):
 @pytest.mark.cuda
 def test_step_kernels_refuse_past_the_wide_caps():
     """n or r above 128 raises ValueError naming the caps and what serves
-    such a shape; nothing is launched.  The factor-family kernels'
-    refusal names the precisions that serve it on the card."""
+    such a shape ('f64'); nothing is launched.  dim_step refuses (9, 129)
+    the same way."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     phi, pmat, cmat, i0, la, lb = _step_operands(64, 129, 4, 1)
@@ -1151,9 +1151,9 @@ def test_step_kernels_refuse_past_the_wide_caps():
         condition_update_cuda(phi, i0, la, lb, cmat)
     assert (gram_conditional_cuda.launches,
             condition_update_cuda.launches) == before
-    ops = _operands(64, 9, 128, 1)
+    ops = _operands(64, 9, 129, 1)
     t = {k: torch.from_numpy(v).cuda() for k, v in ops.items()}
-    with pytest.raises(ValueError, match=r"caps n<=64, r<=64.*'f32'"):
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
         dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"], t["cmat"],
                       t["hrow"], t["xg"])
 
@@ -1237,3 +1237,289 @@ def test_core_gradient_on_card_matches_finite_differences():
         cm[ci][idx] -= 1e-6
         fd = float(loss(cp, "cuda") - loss(cm, "cuda")) / 2e-6
         assert abs(fd - grads["cuda"][ci][idx]) <= 1e-4 * max(abs(fd), 1.0)
+
+
+# The factor family's wide tier (csrc/factor_wide.cu): n or r above 64,
+# and narrow shapes whose staged factor passes shared memory ((33, 33),
+# (65, 65) past the caps, (33, 96) the shape of the d = 40 serve below).
+WIDE_FACTOR_SHAPES = [(9, 128), (96, 32), (33, 33), (33, 96), (100, 70),
+                      (9, 127), (65, 65)]
+
+
+def _wide_tier(n, r):
+    from tt_irt_tpu_torch.ops._build import load_library
+
+    return load_library("factor_wide").factor_wide_tier(n, r) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", WIDE_FACTOR_SHAPES)
+def test_factor_kernels_wide_tier_match_plain_on_card(n, r):
+    """The four factor-family kernels in their wide tier against their
+    plain versions, in both modes (_check_dim_step's bars and the narrow
+    tests' for odim_step, cdf_bracket_factor and factor_conditional), and
+    the ties of the tier: cdf_bracket_factor's out9 equals dim_step's bit
+    for bit wherever um32 == 1 - qp32 (every row in 'rt' mode), odim_step's
+    out9 dim_step's on the same (psi, Q), and factor_conditional's fk at
+    dim_step's bracket nodes its f1 and f2."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    assert _wide_tier(n, r)
+    for mode in ("irt", "rt"):
+        t = _card_operands(4096 + 7, n, r, mode, n + r)
+        _check_dim_step(t, mode)
+        _, d9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                              t["cmat"], t["hrow"], t["xg"], mode=mode)
+        o9, i0 = cdf_bracket_factor_cuda(t["phi"], t["qp32"], t["bmat"],
+                                         t["hrow"], t["xg"], mode=mode)
+        orf, irf = cdf_bracket_factor_ref(t["phi"], t["qp32"], t["bmat"],
+                                          t["hrow"], t["xg"], mode=mode)
+        assert float((i0 == irf).double().mean()) >= 0.999
+        eq = (t["um32"] == 1.0 - t["qp32"]) if mode == "irt" \
+            else torch.ones_like(i0, dtype=torch.bool)
+        assert float(eq.double().mean()) > 0.3
+        assert torch.equal(o9[eq], d9[eq])
+        args = (t["phi"], t["qp32"], t["um32"], t["bmat"], t["hrow"],
+                t["xg"])
+        pk, ok_ = odim_step_cuda(*args, mode=mode)
+        pr, orf = odim_step_ref(*args, mode=mode)
+        p64, o64 = odim_step_ref(*(a.double() for a in args), mode=mode)
+        assert torch.equal(ok_, d9)
+        same = (ok_[:, 4] == orf[:, 4]) & (o64[:, 4].float() == orf[:, 4])
+        assert float(same.double().mean()) >= 0.999
+        err_k = float((pk.double() - p64)[same].abs().max())
+        err_p = float((pr.double() - p64)[same].abs().max())
+        assert err_k <= 2.0 * err_p + 1e-6, (mode, err_k, err_p)
+    t = _card_operands(4096 + 7, n, r, "irt", n + r)
+    fk = factor_conditional_cuda(t["phi"], t["bmat"])
+    f64 = factor_conditional_ref(t["phi"].double(), t["bmat"].double())
+    fkp = factor_conditional_ref(t["phi"], t["bmat"])
+    scale = float(f64.max())
+    err_k = float((fk.double() - f64).abs().max()) / scale
+    err_p = float((fkp.double() - f64).abs().max()) / scale
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    row_k, row_p = _row_rel(fk, f64), _row_rel(fkp, f64)
+    assert row_k <= 2.0 * row_p + 1e-6, (row_k, row_p)
+    _, o9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"])
+    rows, i1, live = _bracket_nodes(o9, t["xg"])
+    assert float(live.double().mean()) > 0.99
+    assert torch.equal(fk[rows, i1][live], o9[:, 2][live])
+    assert torch.equal(fk[rows, i1 + 1][live], o9[:, 3][live])
+
+
+@pytest.mark.cuda
+def test_factor_kernels_refuse_past_the_wide_caps():
+    """n or r above 128 raises ValueError in each factor-family wrapper
+    and in fused_irt_sqr_cuda, naming the wide tier's caps and 'f64';
+    nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    fns = (dim_step_cuda, odim_step_cuda, cdf_bracket_factor_cuda,
+           factor_conditional_cuda, fused_irt_sqr_cuda)
+    before = tuple(f.launches for f in fns)
+    cap = r"caps n<=128, r<=128.*'f64'"
+    for n, r in ((129, 4), (9, 129)):
+        t = _card_operands(64, n, r, "irt", 3)
+        with pytest.raises(ValueError, match=cap):
+            dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"])
+        with pytest.raises(ValueError, match=cap):
+            odim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                           t["hrow"], t["xg"])
+        with pytest.raises(ValueError, match=cap):
+            cdf_bracket_factor_cuda(t["phi"], t["qp32"], t["bmat"],
+                                    t["hrow"], t["xg"])
+        with pytest.raises(ValueError, match=cap):
+            factor_conditional_cuda(t["phi"], t["bmat"])
+        q = torch.rand((64, 2), device="cuda")
+        with pytest.raises(ValueError, match=cap):
+            fused_irt_sqr_cuda(
+                q, torch.zeros((2, r * r, n), device="cuda"),
+                torch.zeros((2, n, r * r), device="cuda"),
+                torch.zeros((2, n), device="cuda"),
+                torch.zeros((2, n - 1), device="cuda"))
+    assert tuple(f.launches for f in fns) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(9, 128), (96, 32), (65, 65)])
+def test_fused_irt_wide_tier_on_card(n, r):
+    """The whole-transform kernel past its narrow caps (d=4) against its
+    plain version in f64 on the same f32 operands: the 99th percentile
+    of the error in samples and log-densities at most twice the plain
+    f32 version's plus 1e-6 (the one-sided cancelling root is gated at
+    the 99th percentile, as the narrow tier is)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, data = _fused_operands(4096 + 7, 4, n, r, n + r)
+    ops = (q, data["p2"], data["coreu"], data["x"], data["h"])
+    before = fused_irt_sqr_cuda.launches
+    xk, lk = fused_irt_sqr_cuda(*ops)
+    torch.cuda.synchronize()
+    assert fused_irt_sqr_cuda.launches == before + 1
+    assert bool(torch.isfinite(xk).all()) and bool(torch.isfinite(lk).all())
+    xr, lr = fused_irt_sqr_ref(*ops)
+    x64, l64 = fused_irt_sqr_ref(*(t.double() for t in ops))
+    for k, p_, ref in ((xk, xr, x64), (lk, lr, l64)):
+        ek = torch.quantile((k.double() - ref).abs().reshape(
+            k.shape[0], -1).amax(1), 0.99)
+        ep = torch.quantile((p_.double() - ref).abs().reshape(
+            k.shape[0], -1).amax(1), 0.99)
+        assert float(ek) <= 2.0 * float(ep) + 1e-6, (float(ek), float(ep))
+
+
+@pytest.mark.cuda
+def test_hi_serves_d40_rank_96_on_card():
+    """A random positive TT at d = 40, n = 33, r = 96, where every narrow
+    tier refuses, served on the card at 'hi' with each hi_step and at
+    'hid' (each variant's kernels once a dimension), and through
+    DirtSampler(precision="auto") over a one-level stack of it, which
+    picks 'hi' (dim_step once a dimension): samples and log-densities
+    as close to the 'f64' serve as the same call through the plain
+    steps (99th percentile at most twice plus 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops import kernel_plan
+    from tt_irt_tpu_torch.utils.checkpoint import dirt_from_numpy
+
+    d, n, r = 40, 33, 96
+    assert _wide_tier(n, r)
+    tt, grids = _random_tt_card(d, n, r, 40)
+    q = torch.rand((2048, d), dtype=torch.float64, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(40))
+    x64, l64 = tp.tt_irt_sqr(grids, tt, q, precision="f64")
+    plain = {"dim_step": dim_step_ref, "odim_step": odim_step_ref,
+             "cdf_bracket_factor": cdf_bracket_factor_ref,
+             "factor_conditional": factor_conditional_ref,
+             "condition_update": condition_update_ref}
+    fns = {"dim_step": dim_step_cuda, "odim_step": odim_step_cuda,
+           "cdf_bracket_factor": cdf_bracket_factor_cuda,
+           "factor_conditional": factor_conditional_cuda,
+           "condition_update": condition_update_cuda}
+    cases = (("hi", "dim", ("dim_step",)), ("hi", "odim", ("odim_step",)),
+             ("hi", "bracket", ("cdf_bracket_factor", "condition_update")),
+             ("hi", "pair", ("factor_conditional", "condition_update")),
+             ("hid", None, ("factor_conditional", "condition_update")))
+    for precision, hi_step, used in cases:
+        kw = {} if hi_step is None else {"hi_step": hi_step}
+        before = {k: f.launches for k, f in fns.items()}
+        xk, lk = tp.tt_irt_sqr(grids, tt, q, precision=precision, **kw)
+        torch.cuda.synchronize()
+        got = {k: f.launches - before[k] for k, f in fns.items()}
+        assert got == {k: (d if k in used else 0) for k in fns}, got
+        saved = {k: getattr(kernel_plan, k) for k in plain}
+        for k, f in plain.items():
+            setattr(kernel_plan, k, f)
+        try:
+            xp, lp_ = tp.tt_irt_sqr(grids, tt, q, precision=precision, **kw)
+        finally:
+            for k, f in saved.items():
+                setattr(kernel_plan, k, f)
+        for k, p_, ref in ((xk, xp, x64), (lk, lp_, l64)):
+            ek = torch.quantile((k - ref).abs().reshape(
+                k.shape[0], -1).amax(1), 0.99)
+            ep = torch.quantile((p_ - ref).abs().reshape(
+                k.shape[0], -1).amax(1), 0.99)
+            assert float(ek) <= 2.0 * float(ep) + 1e-6, (
+                precision, hi_step, float(ek), float(ep))
+    stack = dirt_from_numpy([c.cpu().numpy() for c in tt.cores], [],
+                            [g.cpu().numpy() for g in grids], [], [1.0],
+                            device="cuda")
+    sampler = tp.DirtSampler(stack, precision="auto")
+    assert sampler.precision == "hi"
+    before = dim_step_cuda.launches
+    z, lz = sampler(tp.randref(stack.reference, torch.Generator(
+        device="cuda").manual_seed(41), (2048, d)))
+    torch.cuda.synchronize()
+    assert dim_step_cuda.launches - before == d
+    assert bool(torch.isfinite(z).all()) and bool(torch.isfinite(lz).all())
+
+
+@pytest.mark.cuda
+def test_mesh_builds_equal_single_device_on_card():
+    """Four shards on one card (sample_mesh(devices=["cuda:0"] * 4))
+    against the single-device runs: amen_cross_s and greedy_cross (torch
+    funs) and a two-level tt_dirt_approx equal bit for bit, a sharded
+    'hi' serve equals the unsharded one bit for bit, and dirt_finetune's
+    first loss is equal, its later losses within 1e-10 relative and its
+    cores within 1e-12 (tests/test_parallel.py's bars: the shards'
+    gradients are summed in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.parallel import sample_mesh, sharded_call
+
+    mesh = sample_mesh(devices=["cuda:0"] * 4)
+    gv = torch.linspace(-2.0, 2.0, 11, dtype=torch.float64, device="cuda")
+
+    def fun(ind):
+        s = torch.sum(gv[ind.to(gv.device)], dim=1)
+        return torch.exp(-0.5 * s * s) + 0.2 * torch.cos(s)
+
+    for cross, kw in ((tp.amen_cross_s, dict(nswp=6, kickrank=3, seed=3)),
+                      (tp.greedy_cross, dict(nswp=20, seed=1))):
+        one = cross([11] * 4, fun, 1e-9, torch_fun=True, **kw)
+        sh = cross([11] * 4, fun, 1e-9, mesh=mesh, **kw)
+        assert sh.evalcnt == one.evalcnt
+        for a, b in zip(sh.tt.cores, one.tt.cores):
+            assert torch.equal(a, b)
+
+    def logratio(x, b0, b1):
+        quad = torch.sum(x * x, dim=1) + \
+            0.8 * torch.sum(x[:, :-1] * x[:, 1:], dim=1)
+        return -0.5 * (b1 - b0) * quad
+
+    grids = [np.linspace(-4, 4, 13) for _ in range(4)]
+    kw = dict(stoptol=0.1, nswp=2, kickrank=2, testsamples=128, seed=9,
+              reference="n3")
+    d1 = tp.tt_dirt_approx(grids, logratio, [0.1, 1.0], **kw)
+    d4 = tp.tt_dirt_approx(grids, logratio, [0.1, 1.0], mesh=mesh, **kw)
+    for a, b in zip(list(d4.f0.cores) + list(d4.fs[0].cores),
+                    list(d1.f0.cores) + list(d1.fs[0].cores)):
+        assert torch.equal(a, b)
+    tt, tg = _random_tt_card(6, 17, 5, 7)
+    q = torch.rand((4096 + 3, 6), dtype=torch.float64, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(8))
+    one = tp.tt_irt_sqr(tg, tt, q, precision="hi")
+    sh = sharded_call(mesh, lambda qq, t_: tp.tt_irt_sqr(
+        tg, t_, qq, precision="hi", device=qq.device), q, tt)
+    assert torch.equal(sh[0], one[0]) and torch.equal(sh[1], one[1])
+
+    def lp(x):
+        return -0.5 * (torch.sum(x * x, dim=1)
+                       + 1.1 * torch.sum(x[:, :-1] * x[:, 1:], dim=1))
+
+    # tests/test_parallel.py's fine-tuning problem and bars
+    ft = tp.tt_dirt_approx([np.linspace(-6, 6, 9)] * 3,
+                           lambda x, b0, b1: (b1 - b0) * lp(x), [1.0],
+                           stoptol=0.5, nswp=1, kickrank=0, y0=2, rmax=2,
+                           testsamples=0, seed=5)
+    t1, l1 = tp.dirt_finetune(ft, lp, steps=4, nsamples=64, lr=1e-3, seed=3)
+    t4, l4 = tp.dirt_finetune(ft, lp, steps=4, nsamples=64, lr=1e-3, seed=3,
+                              mesh=mesh)
+    assert l4[0] == l1[0]
+    np.testing.assert_allclose(l4, l1, rtol=1e-10)
+    for a, b in zip(t4.f0.cores, t1.f0.cores):
+        assert float((a - b).abs().max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_native_matches_f64_on_card():
+    """The native C++ kernel on the host (its library built under
+    build/native/) against tt_irt_sqr at 'f64' on the card on the same
+    TT and seeds: 1e-10 in samples, 1e-8 in log-density
+    (tests/test_native.py's tolerances)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.native import tt_irt_native
+
+    tt, grids = _random_tt_card(5, 15, 4, 9)
+    q = np.random.default_rng(9).random((2048, 5))
+    xc, lc = tp.tt_irt_sqr(grids, tt, torch.from_numpy(q).cuda(),
+                           precision="f64")
+    xn, ln = tt_irt_native([g.cpu() for g in grids], tt.to("cpu"), q)
+    assert np.max(np.abs(xn - xc.cpu().numpy())) < 1e-10
+    assert np.max(np.abs(ln - lc.cpu().numpy())) < 1e-8

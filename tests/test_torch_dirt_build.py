@@ -284,9 +284,26 @@ def test_greedy_irtdenom_and_gate():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The option checks: mesh= takes a parallel.sample_mesh (an object
+    that is not one raises, and so does a host density with a mesh, as
+    in the JAX package) and a mesh build runs, equal to the
+    single-device build bit for bit; an unknown option raises; without
+    a card the default device raises."""
+    from tt_irt_tpu_torch.parallel import sample_mesh
+
+    with pytest.raises(TypeError, match="not a sample mesh"):
         tp.tt_dirt_approx(GRIDS, logratio_t, BETA, device="cpu",
                           mesh=object())
+    mesh = sample_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="torch density"):
+        tp.tt_dirt_approx(GRIDS, logratio_np, BETA, device="cpu", mesh=mesh,
+                          vec="host")
+    kw = dict(nswp=1, kickrank=0, testsamples=16, device="cpu")
+    one = tp.tt_dirt_approx(GRIDS, logratio_t, BETA[:2], **kw)
+    sh = tp.tt_dirt_approx(GRIDS, logratio_t, BETA[:2], mesh=mesh, **kw)
+    for a, b in zip(sh.f0.cores + sh.fs[0].cores,
+                    one.f0.cores + one.fs[0].cores):
+        assert torch.equal(a, b)
     with pytest.raises(TypeError, match="unknown DIRT option"):
         tp.tt_dirt_approx(GRIDS, logratio_t, BETA, device="cpu", bogus=1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -171,8 +171,15 @@ def test_guards(coarse_dirt):
     with pytest.raises(ValueError):
         tp.dirt_finetune(dt, lp_torch, steps=1, objective="sideways",
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(TypeError, match="not a sample mesh"):
         tp.dirt_finetune(dt, lp_torch, steps=1, mesh=object(), device="cpu")
+    from tt_irt_tpu_torch.parallel import sample_mesh
+    _, one = tp.dirt_finetune(dt, lp_torch, steps=1, nsamples=64,
+                              device="cpu")
+    _, sh = tp.dirt_finetune(dt, lp_torch, steps=1, nsamples=64,
+                             mesh=sample_mesh(devices=["cpu"] * 3),
+                             device="cpu")
+    assert sh[0] == one[0]
     tuned, losses = tp.dirt_finetune(dt, lp_torch, steps=3, nsamples=64,
                                      lr=1e-3, seed=0, trainable="f0",
                                      device="cpu")

@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
         " 'samplers.fourier', 'samplers.chebyshev', 'samplers.dirt_scan',"
         " 'constructors.als_cross', 'models.diffusion',"
         " 'samplers.conditional', 'api', 'constructors.finetune',"
-        " 'samplers.dram', 'samplers.svn'):\n"
+        " 'samplers.dram', 'samplers.svn', 'parallel.mesh', 'native',"
+        " 'ops.tracemult', 'utils.profiling', 'utils.verify_env',"
+        " 'utils.reference_numpy'):\n"
         "    assert 'tt_irt_tpu_torch.' + need in sys.modules, need\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tt_irt_tpu' or m.startswith('tt_irt_tpu.')"
@@ -251,17 +253,16 @@ def test_slice_seven_entry_points_default_to_the_card(entry, monkeypatch):
 
 def test_cap_refusals_name_what_serves_the_shape():
     """A kernel's refusal past its caps names what serves the shape on
-    the card: the factor-family and whole-transform kernels (n, r <= 64)
-    point at 'f32' (the Gram family's wide tier, up to 128) and 'f64';
-    the Gram family's kernels past 128 at 'f64'."""
-    from tt_irt_tpu_torch.ops.rowmath import (SERVED_ANY, SERVED_WIDER,
-                                              check_factor_caps)
+    the card: past the wide tiers (n, r <= 128) of every kernel, the
+    factor family and the whole-transform kernel included, 'f64'."""
+    from tt_irt_tpu_torch.ops import rowmath
+    from tt_irt_tpu_torch.ops.rowmath import SERVED_ANY, check_factor_caps
 
-    with pytest.raises(ValueError, match=r"caps n<=64, r<=64.*'f32' serves "
-                                         r"n<=128, r<=128.*'f64'"):
-        check_factor_caps("dim_step_cuda", 9, 128, 64, 64, 0)
+    with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
+        check_factor_caps("dim_step_cuda", 9, 129, 128, 128, 0)
     with pytest.raises(ValueError, match=r"caps n<=128, r<=128.*'f64'"):
         check_factor_caps("gram_conditional_cuda", 129, 4, 128, 128, 0,
                           SERVED_ANY)
-    assert "f32" not in SERVED_ANY and "f32" in SERVED_WIDER
-    check_factor_caps("gram_conditional_cuda", 96, 128, 128, 128, 8192)
+    assert "f32" not in SERVED_ANY
+    assert not hasattr(rowmath, "SERVED_WIDER")
+    check_factor_caps("dim_step_cuda", 96, 128, 128, 128, 202752)

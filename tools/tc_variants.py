@@ -91,6 +91,17 @@ BAR) and, from ptxas's registers and the launch's shared memory and
 threads, the blocks and warps resident on an SM.  Output in
 chiprun_out/tc_variants_wide.json.
 
+    python3 tools/tc_variants.py --factor-wide --baseline CSRC
+
+times the factor family's wide tier (csrc/factor_wide.cu: dim_step,
+odim_step, cdf_bracket_factor, factor_conditional past n or r of 64, up
+to 128) through its C entry points at 2^18 rows on random operands at
+FACTOR_WIDE_SHAPES beside the other checkout's factor_wide.cu (e.g. the
+tier's first design), in turns (shipped, baseline, baseline, shipped),
+and holds every output of the two builds to each other bit for bit.
+ptxas's registers and spills of both builds.  Output in
+chiprun_out/tc_variants_factor_wide.json.
+
     python3 tools/tc_variants.py --fused [--baseline CSRC]
 
 times the whole-transform kernel of csrc/fused_irt.cu (design CU,
@@ -479,6 +490,9 @@ def main(argv=None):
     ap.add_argument("--stride", action="store_true",
                     help="dim_step and odim_step against --baseline's "
                          "(the staged node stride) only")
+    ap.add_argument("--factor-wide", action="store_true",
+                    help="the factor family's wide tier against "
+                         "--baseline's factor_wide.cu only")
     ap.add_argument("--wide", action="store_true",
                     help="gram_conditional's wide tier against "
                          "--baseline's and its variants only")
@@ -496,6 +510,8 @@ def main(argv=None):
         return step_main(args, card)
     if args.wide:
         return wide_main(args, card)
+    if args.factor_wide:
+        return factor_wide_main(args, card)
     if args.fused:
         return fused_main(args, card)
     if args.stride:
@@ -1021,6 +1037,122 @@ def _registers(report, kernel="gram_wide_kernel"):
         elif "registers" in ln and name and kernel in name:
             regs[name] = int(ln.split("Used ")[1].split(" registers")[0])
     return regs
+
+
+FACTOR_WIDE_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
+
+
+def _factor_wide_calls(lib, t, m, n, r, stream):
+    """{kernel: call} of one factor_wide build's four entry points on the
+    operands t; each call returns its outputs."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    types = {"dim_step_wide_launch": [p] * 9 + [i] * 5 + [p],
+             "odim_step_wide_launch": [p] * 8 + [i] * 5 + [p],
+             "cdf_bracket_factor_wide_launch": [p] * 7 + [i] * 5 + [p],
+             "factor_conditional_wide_launch": [p] * 3 + [i] * 4 + [p]}
+    for name, argtypes in types.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
+    dev = t["phi"].device.index
+    f32 = dict(dtype=torch.float32, device=t["phi"].device)
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"factor_wide launch failed: cudaError {err}")
+
+    def dim():
+        phin, out9 = torch.empty((m, r), **f32), torch.empty((m, 9), **f32)
+        check(lib.dim_step_wide_launch(
+            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["um32"].data_ptr(),
+            t["bmat"].data_ptr(), t["cmat"].data_ptr(), t["hrow"].data_ptr(),
+            t["xg"].data_ptr(), phin.data_ptr(), out9.data_ptr(), m, n, r, 0,
+            dev, stream))
+        return phin, out9
+
+    def odim():
+        psin, out9 = torch.empty((m, r), **f32), torch.empty((m, 9), **f32)
+        check(lib.odim_step_wide_launch(
+            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["um32"].data_ptr(),
+            t["bmat"].data_ptr(), t["hrow"].data_ptr(), t["xg"].data_ptr(),
+            psin.data_ptr(), out9.data_ptr(), m, n, r, 0, dev, stream))
+        return psin, out9
+
+    def bracket():
+        out9 = torch.empty((m, 9), **f32)
+        i0 = torch.empty((m,), dtype=torch.int32, device=t["phi"].device)
+        check(lib.cdf_bracket_factor_wide_launch(
+            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["bmat"].data_ptr(),
+            t["hrow"].data_ptr(), t["xg"].data_ptr(), out9.data_ptr(),
+            i0.data_ptr(), m, n, r, 0, dev, stream))
+        return out9, i0
+
+    def cond():
+        fk = torch.empty((m, n), **f32)
+        check(lib.factor_conditional_wide_launch(
+            t["phi"].data_ptr(), t["bmat"].data_ptr(), fk.data_ptr(), m, n,
+            r, dev, stream))
+        return (fk,)
+
+    return {"dim_step": dim, "odim_step": odim, "cdf_bracket_factor": bracket,
+            "factor_conditional": cond}
+
+
+def factor_wide_main(args, card):
+    if not args.baseline:
+        raise SystemExit("--factor-wide needs --baseline (another csrc)")
+    base = _edited_copy("baseline", [], src=args.baseline)
+    reports = {}
+    libs = _build_variants({"factor_wide_base": os.path.join(
+        base, "factor_wide.cu")}, ("factor_wide",), reports)
+    from tt_irt_tpu_torch.ops._build import load_library
+    builds = {"shipped": load_library("factor_wide"),
+              "baseline": ctypes.CDLL(libs["factor_wide_base"])}
+    stream = torch.cuda.current_stream().cuda_stream
+    m = 1 << 18
+    rows = []
+    for n, r in FACTOR_WIDE_SHAPES:
+        rng = np.random.default_rng(n * r)
+        x = np.sort(rng.uniform(-2.0, 2.0, n))
+        x[0], x[-1] = -2.0, 2.0
+        phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
+        phi /= phi.max(axis=1, keepdims=True)
+        qv = rng.uniform(size=m)
+        x32 = x.astype(np.float32)
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in {
+            "phi": phi, "qp32": qv.astype(np.float32),
+            "um32": (1.0 - qv).astype(np.float32),
+            "bmat": rng.standard_normal((r, n * r)).astype(np.float32),
+            "cmat": rng.uniform(0.05, 1.0, (n, r * r)).astype(np.float32),
+            "hrow": np.diff(x).astype(np.float32),
+            "xg": np.stack([x32, (x - x32).astype(np.float32)])}.items()}
+        calls = {b: _factor_wide_calls(lib, t, m, n, r, stream)
+                 for b, lib in builds.items()}
+        equal = {k: all(torch.equal(a, b) for a, b in zip(
+            calls["shipped"][k](), calls["baseline"][k]()))
+            for k in calls["shipped"]}
+        ms = {b: {k: [] for k in calls[b]} for b in builds}
+        for order in (("shipped", "baseline"), ("baseline", "shipped")):
+            for b in order:
+                for k, fn in calls[b].items():
+                    ms[b][k].append(_time_ms(fn, 3))
+        rows.append({"n": n, "r": r, "rows": m, "ms": ms,
+                     "equal_to_baseline": equal})
+        print(f"factor_wide at (n={n}, r={r}), {m} rows: "
+              + json.dumps({b: {k: min(v) for k, v in d.items()}
+                            for b, d in ms.items()})
+              + f"; outputs equal to the baseline's {json.dumps(equal)} "
+              f"({card})", flush=True)
+        del t, calls
+        torch.cuda.empty_cache()
+    rec = {"card": card, "baseline": args.baseline, "ptxas": reports,
+           "shapes": rows}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tc_variants_factor_wide.json"),
+              "w") as fh:
+        json.dump(rec, fh, indent=1)
+    assert all(all(r_["equal_to_baseline"].values()) for r_ in rows), rows
+    return 0
 
 
 def wide_main(args, card):

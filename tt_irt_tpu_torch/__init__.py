@@ -10,6 +10,8 @@ probe batch (or solve each reduced system) on the device.  Each kernel's wrapper
 live in ``ops.dim_step``, ``ops.odim_step``, ``ops.step`` and ``ops.fused_irt``.
 """
 
+__version__ = "0.1.0"
+
 from .api import PosteriorResult, sample_posterior
 from .constructors.als_cross import AlsCrossResult, als_cross_parametric
 from .constructors.amen_cross import CrossResult, amen_cross_s
@@ -50,7 +52,7 @@ from .utils.checkpoint import (dirt_from_numpy, load_dirt, save_dirt,
                                tt_from_numpy)
 
 __all__ = [
-    "TT", "DIRT", "AlsCrossResult", "CrossResult", "DiffusionProblem",
+    "__version__", "TT", "DIRT", "AlsCrossResult", "CrossResult", "DiffusionProblem",
     "DirtOptions", "DirtSampler", "HI_STEPS", "IWResult", "IrtSampler",
     "LorenzProblem", "PosteriorResult", "PredatorPreyProblem",
     "ShockConfig", "als_cross_parametric", "amen_cross_s",

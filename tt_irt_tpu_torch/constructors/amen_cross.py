@@ -33,6 +33,7 @@ the port calls the function on each batch as it is.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import time as _time
 from typing import NamedTuple
@@ -42,6 +43,7 @@ import torch
 
 from ..ops.maxvol import localcross, maxvol, trunc_svd
 from ..ops.tt import TT
+from ..parallel.mesh import sharded_batch_fn
 from ..utils.device import resolve_device
 
 __all__ = ["amen_cross_s", "CrossResult"]
@@ -291,8 +293,13 @@ def amen_cross_s(inp, fun, tol, *, y0=4, nswp=20, stop_sweep=0, kickrank=4,
       stats: iterable from {'sr','lr','sm','lm','si','li'} — min/max value
         tracking of the *sampled exact* function (amen_cross_s.m:51-56).
       rmax: optional hard rank cap.
-      mesh: not ported (a multi-device cross is ROADMAP.md Queue 1 item
-        13); anything but None raises NotImplementedError.
+      mesh: optional ``parallel.sample_mesh`` — every probe batch is
+        evaluated with its sample axis sharded over the mesh
+        (``sharded_batch_fn``): each shard is handed to ``fun`` as a
+        torch tensor on its device (as ``torch_fun=True`` does), so
+        ``fun`` must be vectorized (``vec=False`` raises).  A rowwise
+        ``fun`` gives the single-device build (``torch_fun=True``) bit
+        for bit.
       torch_fun: how each probe batch is handed to ``fun``: True, a
         torch tensor on ``device`` (int32 indices, or the stacked f64
         values); False (default), a numpy array.  Outputs on any device
@@ -309,10 +316,6 @@ def amen_cross_s(inp, fun, tol, *, y0=4, nswp=20, stop_sweep=0, kickrank=4,
 
     Returns CrossResult(tt, statvals, statind, indices, evalcnt).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "amen_cross_s(mesh=...): the multi-device cross is not ported; "
-            "see ROADMAP.md Queue 1 item 13")
     dev = resolve_device(device)
     prof = _Prof(profile) if profile is not None else _NullProf()
     rng = np.random.default_rng(seed)
@@ -360,6 +363,9 @@ def amen_cross_s(inp, fun, tol, *, y0=4, nswp=20, stop_sweep=0, kickrank=4,
     _trunc = localcross if (trunc == "cross" or soughts) else trunc_svd
 
     if not callable(vec) and not vec:
+        if mesh is not None:
+            raise ValueError("mesh sharding requires a vectorized fun; "
+                             "vec=False given")
         base_ifun, base_ffun = ifun, ffun
         if base_ifun is not None:
             ifun = lambda J: np.stack([_as_values(  # noqa: E731
@@ -369,10 +375,12 @@ def amen_cross_s(inp, fun, tol, *, y0=4, nswp=20, stop_sweep=0, kickrank=4,
             ffun = lambda V: np.stack([_as_values(  # noqa: E731
                 base_ffun(V[k:k + 1])).reshape(-1)[0]
                 for k in range(V.shape[0])])
+    wrap = (functools.partial(_FunCall, torch_fun=torch_fun, device=dev)
+            if mesh is None else functools.partial(sharded_batch_fn, mesh))
     if ifun is not None:
-        ifun = _FunCall(ifun, torch_fun, dev)
+        ifun = wrap(ifun)
     if ffun is not None:
-        ffun = _FunCall(ffun, torch_fun, dev)
+        ffun = wrap(ffun)
 
     evalcnt = [0, 0]
 

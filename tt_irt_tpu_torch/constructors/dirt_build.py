@@ -22,6 +22,7 @@ Random draws (test samples, the MH test) come from one
 
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.tt import TT, tt_round
+from ..parallel.mesh import canonical, check_mesh, sharded_rows
 from ..samplers.debias import mcmc_prune
 from ..samplers.diagnostics import essinv, hellinger
 from ..samplers.chebyshev import lobatto_nodes
@@ -83,8 +85,10 @@ class DirtOptions:
     # save the stack after every accepted level (resume with
     # load_dirt(...) + irtstruct=...)
     checkpoint_path: Optional[str] = None
-    # not ported: anything but None raises NotImplementedError (the
-    # multi-device build is ROADMAP.md Queue 1 item 13)
+    # optional parallel.sample_mesh: the construction-time probe batches
+    # (the DIRT pushes and the density evaluations) run with their
+    # sample axis sharded over it; it needs a torch density (vec True or
+    # 'auto')
     mesh: Optional[object] = None
     # How the user density is evaluated (the reference drives arbitrary
     # user functions, including non-vectorized ones, tt_dirt_approx.m:
@@ -151,10 +155,7 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
         if not hasattr(opt, k):
             raise TypeError(f"unknown DIRT option {k!r}")
         setattr(opt, k, v)
-    if opt.mesh is not None:
-        raise NotImplementedError(
-            "tt_dirt_approx(mesh=...): the multi-device build is not "
-            "ported; see ROADMAP.md Queue 1 item 13")
+    mesh = None if opt.mesh is None else check_mesh(opt.mesh)
     interpolation = opt.interpolation.lower()
     dev = resolve_device(device)
 
@@ -236,11 +237,14 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
     # Density-evaluation mode (tt_dirt_approx.m:483-499)
     # ------------------------------------------------------------------
     vec = opt.vec
+    if mesh is not None and (vec is False or str(vec) == "host"):
+        raise ValueError("mesh sharding requires a torch density "
+                         f"(vec=True or 'auto'); vec={vec!r} given")
     # sticky host-fallback state: once the density fails on tensors,
     # every later evaluation (and the retry of the current one) takes
     # the host path
     _hoststate = {"on": vec is False or str(vec) == "host"}
-    _auto = str(vec) == "auto"
+    _auto = str(vec) == "auto" and mesh is None
 
     def _logpost_host(x, blo, bhi):
         """User density on the host, numpy in and out.  vec=False
@@ -275,6 +279,8 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
         for good once fn raised TypeError under vec='auto'."""
         if _hoststate["on"]:
             return host_fn
+        if mesh is not None:
+            return functools.partial(sharded_rows, mesh, fn)
 
         def call(x):
             if _hoststate["on"]:
@@ -439,8 +445,12 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
                         reference=reference, interpolation=interpolation,
                         evalcnt=evalcnt)
         # every probe batch of this attempt pushes through the same
-        # stack: prepare it once (bit for bit tt_dirt_sample's outputs)
-        push = DirtSampler(cur_dirt, precision=opt.precision, device=dev)
+        # stack: prepare it once a device (bit for bit tt_dirt_sample's
+        # outputs), on the build's device and on each mesh device
+        pushes = {d: DirtSampler(cur_dirt, precision=opt.precision,
+                                 device=d)
+                  for d in dict.fromkeys([canonical(dev), *(mesh or ())])}
+        push = pushes[canonical(dev)]
 
         use_denom = bool(irtdenom[ilvl])
         if use_denom:
@@ -455,8 +465,8 @@ def tt_dirt_approx(x0, logpostfun: Callable, beta, *,
             evalcnt[ilvl] += 256
 
         def _push_ratio(x, _blo=b_lo, _bhi=b_hi, _shift=lfshift,
-                        _denom=use_denom, _push=push):
-            z, lfapp = _timed("dirt_push", _push, x)
+                        _denom=use_denom, _pushes=pushes):
+            z, lfapp = _timed("dirt_push", _pushes[x.device], x)
             blo = 0.0 if _denom else _blo
             lr = _timed("density", _logpost_dev, z, blo, _bhi) - _shift
             if _denom:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.tt import TT
+from ..parallel.mesh import check_mesh, sharded_rows
 from ..samplers.dirt import DIRT, tt_dirt_inverse, tt_dirt_sample
 from ..utils.device import resolve_device
 
@@ -39,17 +40,27 @@ def _rebuild(dirt: DIRT, f0_cores, fs_cores) -> DIRT:
                 evalcnt=dirt.evalcnt, history=dirt.history)
 
 
-def finetune_loss(stack: DIRT, lpfun, q, objective: str = "reverse"):
+def finetune_loss(stack: DIRT, lpfun, q, objective: str = "reverse",
+                  mesh=None):
     """The fine-tuning objective of ``stack`` on the seeds q (M, d): a
-    scalar tensor with the stack's cores in its graph."""
-    dev = q.device
+    scalar tensor with the stack's cores in its graph.  With a ``mesh``
+    the passes through the stack run a shard a mesh device, the stack
+    replicated there by ``.to(device)`` (autograd carries the gradient
+    back to its cores), and the loss is formed on the mesh's first
+    device."""
+    def run(fn, x):
+        def on_rows(rows):
+            return fn(stack.to(rows.device), rows, device=rows.device)
+
+        return on_rows(x) if mesh is None else sharded_rows(mesh, on_rows, x)
+
     if objective == "reverse":
-        z, lfapp = tt_dirt_sample(stack, q, device=dev)
+        z, lfapp = run(tt_dirt_sample, q)
         return torch.mean(lfapp - lpfun(z))
     with torch.no_grad():
-        z, lfapp_s = tt_dirt_sample(stack, q, device=dev)
+        z, lfapp_s = run(tt_dirt_sample, q)
         w = torch.softmax(lpfun(z) - lfapp_s, dim=0)
-    _, lfapp = tt_dirt_inverse(stack, z, device=dev)
+    _, lfapp = run(tt_dirt_inverse, z)
     return -torch.sum(w * lfapp)
 
 
@@ -74,8 +85,11 @@ def dirt_finetune(dirt: DIRT, lpfun, *, steps: int = 100,
         0 frozen) or 'f0' (level 0 alone).
       objective: 'reverse' (mode-seeking) or 'forward' (mass-covering,
         about twice the cost a step); module docstring.
-      mesh: not ported (a multi-device minibatch is ROADMAP.md Queue 1
-        item 13); anything but None raises NotImplementedError.
+      mesh: optional ``parallel.sample_mesh``: each step's minibatch
+        runs sharded along its sample axis (finetune_loss), so the
+        gradient is computed data-parallel; the losses and tuned cores
+        equal the single-device run's up to the order in which the
+        shards' gradients are summed.
       seed: seeds the ``torch.Generator`` of the minibatches.
       seed_margin: seeds lie in [m, 1 - m]: the CDF inversion is not
         differentiable at the box boundary.
@@ -96,9 +110,7 @@ def dirt_finetune(dirt: DIRT, lpfun, *, steps: int = 100,
     if objective not in ("reverse", "forward"):
         raise ValueError(f"objective={objective!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "dirt_finetune(mesh=...): the multi-device minibatch is not "
-            "ported; see ROADMAP.md Queue 1 item 13")
+        check_mesh(mesh)
     dev = resolve_device(device)
     dirt = dirt.to(dev)
 
@@ -118,7 +130,8 @@ def dirt_finetune(dirt: DIRT, lpfun, *, steps: int = 100,
     for it in range(steps):
         q = seed_margin + (1.0 - 2.0 * seed_margin) * torch.rand(
             (nsamples, dirt.d), generator=gen, dtype=dtype, device=dev)
-        loss = finetune_loss(_rebuild(dirt, f0, fs), lpfun, q, objective)
+        loss = finetune_loss(_rebuild(dirt, f0, fs), lpfun, q, objective,
+                             mesh)
         if opt is not None:
             opt.zero_grad(set_to_none=True)
             loss.backward()

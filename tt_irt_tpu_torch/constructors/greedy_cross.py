@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.tt import TT
+from ..parallel.mesh import sharded_batch_fn
 from ..utils.device import resolve_device
 from .amen_cross import CrossResult, _as_values, _FunCall
 
@@ -76,19 +77,17 @@ def greedy_cross(n, fun, tol, *, nswp=20, y0=None, tol_exit=None,
         reference's greedy cross reuses evaluated fibers too) — the
         interpolation blocks u/w repeat almost entirely between
         sweeps and in the final core assembly.
-      mesh: not ported (ROADMAP.md Queue 1 item 13); anything but None
-        raises NotImplementedError.
+      mesh: optional ``parallel.sample_mesh``: probe batches evaluate
+        with the sample axis sharded over the mesh, each shard a torch
+        tensor on its device (as in amen_cross_s).
       torch_fun / device: as in amen_cross_s: how each probe batch is
         handed to ``fun`` (int64 indices), and where the result TT is put
         (default "cuda").
     Returns CrossResult (statvals/statind are None).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "greedy_cross(mesh=...): the multi-device cross is not ported; "
-            "see ROADMAP.md Queue 1 item 13")
     dev = resolve_device(device)
-    call_fun = _FunCall(fun, torch_fun, dev)
+    call_fun = (_FunCall(fun, torch_fun, dev) if mesh is None
+                else sharded_batch_fn(mesh, fun))
     rng = np.random.default_rng(seed)
     n = [int(v) for v in np.asarray(n).reshape(-1)]
     d = len(n)

@@ -76,14 +76,6 @@ struct Kernel {
 
 extern "C" {
 
-// Caps the wrapper checks before launching.
-int dim_step_max_n() { return kMaxN; }
-int dim_step_max_r() { return kMaxR; }
-// Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
-long long dim_step_smem_bytes(int n, int r) {
-  return static_cast<long long>(tc_smem_bytes(n, r));
-}
-
 // All pointers are device pointers to contiguous f32 arrays:
 // phi (m, r), qp/um (m,), bmat (r, n*r), cmat (n, r*r), h (n-1,),
 // xg (2, n) -> phin (m, r), out9 (m, 9), all on device `device`, which

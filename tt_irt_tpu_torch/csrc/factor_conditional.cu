@@ -159,14 +159,6 @@ struct Kernel {
 
 extern "C" {
 
-// Caps the wrapper checks before launching.
-int factor_conditional_max_n() { return kMaxN; }
-int factor_conditional_max_r() { return kMaxR; }
-// Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
-long long factor_conditional_smem_bytes(int n, int r) {
-  return static_cast<long long>(tc_smem_bytes(n, r));
-}
-
 // Device pointers to contiguous f32 arrays phi (m, r), bmat (r, n*r)
 // -> fk (m, n), all on device `device`, which must be the current
 // device.  Returns the launch's cudaError_t (0 on success); the launch

@@ -87,14 +87,6 @@ struct Kernel {
 
 extern "C" {
 
-// Caps the wrapper checks before launching.
-int factor_step_max_n() { return kMaxN; }
-int factor_step_max_r() { return kMaxR; }
-// Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
-long long cdf_bracket_factor_smem_bytes(int n, int r) {
-  return static_cast<long long>(tc_smem_bytes(n, r));
-}
-
 // Device pointers to contiguous f32 arrays phi (m, r), qp (m,),
 // bmat (r, n*r), h (n-1,), xg (2, n) -> out9 (m, 9) f32 and i0 (m,)
 // int32, all on device `device`, which must be the current device.

@@ -67,14 +67,6 @@ struct Kernel {
 
 extern "C" {
 
-// Caps the wrapper checks before launching.
-int odim_step_max_n() { return kMaxN; }
-int odim_step_max_r() { return kMaxR; }
-// Shared memory a launch at (n, r <= kMaxR) asks for, in bytes.
-long long odim_step_smem_bytes(int n, int r) {
-  return static_cast<long long>(tc_smem_bytes(n, r));
-}
-
 // All pointers are device pointers to contiguous f32 arrays:
 // psi (m, r), qp/um (m,), qmat (r, n*r), h (n-1,), xg (2, n)
 // -> psin (m, r), out9 (m, 9), all on device `device`, which must be the

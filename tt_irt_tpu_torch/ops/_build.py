@@ -20,7 +20,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["build_all", "load_library", "library_path", "sass_tensor_ops",
-           "BUILD_DIR", "NVCC_FLAGS"]
+           "sources", "BUILD_DIR", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -54,6 +54,12 @@ def _target(name: str) -> tuple[str, str]:
             sha.update(fh.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}_{sha.hexdigest()[:16]}.so")
+
+
+def sources() -> list:
+    """The names of the kernel sources, ``csrc/<name>.cu``, one library
+    each."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
 def build_all(names) -> dict:
@@ -117,12 +123,17 @@ def load_library(name: str) -> ctypes.CDLL:
 # kernels, the conditional's variant (ttirt::Tc: 0 wgmma, 1 mma.sync).
 _MANGLED = re.compile(r"\d+([a-z][a-z_]*_kernel)ILi(\d+)E"
                       r"(?:Lb(\d)E)?(?:LN5ttirt2TcE(\d)E)?E")
+# A kernel of the wide tiers (csrc/factor_wide.cu): the 'rt' flag and the
+# prefix update's class, where it has them, and its k-steps.
+_MANGLED_WIDE = re.compile(r"\d+([a-z][a-z_]*_wide_kernel)I(?:Lb(\d)E)?"
+                           r"(?:NS_\d+([A-Za-z]+?)E)?Li(\d+)EE")
 
 
 def sass_tensor_ops(name: str) -> dict:
     """Tensor-core instructions in the SASS of ``csrc/<name>.cu``'s
     library, by kernel instance: {"dim_step_kernel<24, irt, wgmma>":
-    {"HGMMA": count, "HMMA": count}, ...} (``cuobjdump -sass``; the
+    {"HGMMA": count, "HMMA": count}, ...}; the wide tier's instances as
+    "dim_wide_kernel<irt, CoreUpdate, ks16>" (``cuobjdump -sass``; the
     machine needs the CUDA toolkit)."""
     out = subprocess.run([_tool("cuobjdump"), "-sass", library_path(name)],
                          capture_output=True, text=True, check=True).stdout
@@ -131,13 +142,23 @@ def sass_tensor_ops(name: str) -> dict:
         mangled = part.split(None, 1)[0]
         hit = _MANGLED.search(mangled)
         if hit is None:
-            continue
-        kern, tier, rt, variant = hit.groups()
-        label = [tier]
+            hit = _MANGLED_WIDE.search(mangled)
+            if hit is None:
+                continue
+            kern, rt, update, ksteps = hit.groups()
+            tier, variant = None, None
+        else:
+            kern, tier, rt, variant = hit.groups()
+            update = ksteps = None
+        label = [] if tier is None else [tier]
         if rt is not None:
             label.append("rt" if rt == "1" else "irt")
         if variant is not None:
             label.append("wgmma" if variant == "0" else "mma")
+        if update is not None:
+            label.append(update)
+        if ksteps is not None:
+            label.append(f"ks{ksteps}")
         counts[f"{kern}<{', '.join(label)}>"] = {
             op: len(re.findall(rf"\b{op}\b", part)) for op in ("HGMMA", "HMMA")}
     return counts

@@ -2,7 +2,8 @@
 
 Counterpart of ``tt_irt_tpu/ops/pallas_dim.py::dim_step``.
 ``dim_step_cuda`` launches the hand-written CUDA kernel
-``csrc/dim_step.cu`` and takes CUDA tensors only; ``dim_step_ref`` is the
+``csrc/dim_step.cu`` (past n, r of 64 or its shared memory, the wide
+tier of ``csrc/factor_wide.cu``) and takes CUDA tensors only; ``dim_step_ref`` is the
 same function in plain PyTorch (``irt_scan._step_factor_b`` +
 ``_cdf_rows32`` of the JAX package; the CDF part is
 ``ops/rowmath.cdf_rows32``).  Which of the two a tensor gets is
@@ -26,9 +27,9 @@ import ctypes
 
 import torch
 
-from ._build import load_library
 from .rowmath import (SMEM_LIMIT, cdf_rows32, check_cuda_operands,
-                      check_factor_caps, full_f32_matmul)
+                      full_f32_matmul)
+from .step import _factor_launcher
 
 __all__ = ["dim_step_cuda", "dim_step_ref", "SMEM_LIMIT"]
 
@@ -48,20 +49,6 @@ def dim_step_ref(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     return phin / torch.clamp(scale, min=1e-30), out9
 
 
-def _lib():
-    lib = load_library("dim_step")
-    if not getattr(lib, "_typed", False):
-        p = ctypes.c_void_p
-        lib.dim_step_launch.argtypes = [p] * 9 + [ctypes.c_int] * 5 + [p]
-        lib.dim_step_launch.restype = ctypes.c_int
-        for f in ("dim_step_max_n", "dim_step_max_r"):
-            getattr(lib, f).restype = ctypes.c_int
-        lib.dim_step_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.dim_step_smem_bytes.restype = ctypes.c_longlong
-        lib._typed = True
-    return lib
-
-
 def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
     """One dimension step through the CUDA kernel; raises on anything
     but f32 CUDA tensors of the documented shapes.
@@ -78,14 +65,14 @@ def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
         "um32": (um32, f32, (m,)), "bmat": (bmat, f32, (r, n * r)),
         "cmat": (cmat, f32, (n, r * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
-    lib = _lib()
-    check_factor_caps("dim_step_cuda", n, r, lib.dim_step_max_n(),
-                      lib.dim_step_max_r(), lib.dim_step_smem_bytes(n, r))
+    p = ctypes.c_void_p
+    launch = _factor_launcher("dim_step_cuda", "dim_step", "dim_step",
+                              [p] * 9 + [ctypes.c_int] * 5 + [p], n, r)
     phin = torch.empty((m, r), dtype=torch.float32, device=phi.device)
     out9 = torch.empty((m, 9), dtype=torch.float32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        err = lib.dim_step_launch(
+        err = launch(
             phi.data_ptr(), qp32.data_ptr(), um32.data_ptr(),
             bmat.data_ptr(), cmat.data_ptr(), hrow.data_ptr(),
             xg.data_ptr(), phin.data_ptr(), out9.data_ptr(), m, n, r,

@@ -7,7 +7,9 @@ Gram carry, then cast); ``fused_irt_sqr_cuda`` packs them
 layout the kernel stages) and launches the hand-written kernel
 ``csrc/fused_irt.cu`` on CUDA tensors; ``fused_irt_sqr_ref`` is the
 same function in plain PyTorch, a Python loop over the dimensions that
-follows the kernel step by step.  ``fused_irt_sqr`` is the public entry
+follows the kernel step by step.  Past n, r of 64 (or where no launch
+plan of ``fused_irt.cu`` fits shared memory) the wrapper launches the
+wide tier ``csrc/fused_wide.cu``, which takes the operands unpacked.  ``fused_irt_sqr`` is the public entry
 point.  The inversion is one-sided (from the left, against q * total),
 so the numerics are those of the JAX package's whole-transform kernel,
 not of ``tt_irt_sqr(precision='f32')``.
@@ -31,8 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import load_library
-from .rowmath import (SERVED_WIDER, SMEM_LIMIT, check_cuda_operands,
-                      cumsum_rows)
+from .rowmath import check_cuda_operands, check_factor_caps, cumsum_rows
 from .step import condition_update_ref, gram_conditional_ref
 
 __all__ = ["build_fused_data", "fused_irt_sqr", "fused_irt_sqr_cuda",
@@ -156,6 +157,20 @@ def _lib():
     return lib
 
 
+def _wide_lib():
+    lib = load_library("fused_wide")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_wide_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.fused_wide_launch.restype = i
+        for f in ("fused_wide_max_n", "fused_wide_max_r"):
+            getattr(lib, f).restype = i
+        lib.fused_wide_smem_bytes.argtypes = [i, i]
+        lib.fused_wide_smem_bytes.restype = ctypes.c_longlong
+        lib._typed = True
+    return lib
+
+
 def fused_irt_plan(n: int, r: int, m: int = 1, device: int | None = None):
     """The kernel's launch plan for m rows at (n, r) on CUDA device
     ``device`` (default: the current one): (rows a thread, staging
@@ -174,8 +189,11 @@ def fused_irt_plan(n: int, r: int, m: int = 1, device: int | None = None):
 
 
 def fused_irt_sqr_cuda(q, p2, coreu, x, h):
-    """The whole transform through the CUDA kernel; raises on anything
-    but f32 CUDA tensors of the documented shapes.
+    """The whole transform through the CUDA kernel: ``csrc/fused_irt.cu``
+    where its caps (n, r <= 64) and a launch plan of it allow, else the
+    wide tier ``csrc/fused_wide.cu`` (n, r <= 128); raises on anything
+    but f32 CUDA tensors of the documented shapes, and past the wide
+    tier's caps.
     ``fused_irt_sqr_cuda.launches`` counts kernel launches."""
     fn = "fused_irt_sqr_cuda"
     if q.ndim != 2 or p2.ndim != 3:
@@ -189,24 +207,29 @@ def fused_irt_sqr_cuda(q, p2, coreu, x, h):
         "coreu": (coreu, f32, (d, n, r * r)), "x": (x, f32, (d, n)),
         "h": (h, f32, (d, n - 1))})
     lib = _lib()
-    if not (2 <= n <= lib.fused_irt_max_n()
-            and 1 <= r <= lib.fused_irt_max_r()):
-        raise ValueError(f"{fn}: n={n}, r={r} outside the kernel's caps "
-                         f"n<={lib.fused_irt_max_n()}, "
-                         f"r<={lib.fused_irt_max_r()}; {SERVED_WIDER}")
-    rows, _, smem, _ = fused_irt_plan(n, r, m, q.device.index)
-    if rows == 0:
-        raise ValueError(f"{fn}: n={n}, r={r} needs {smem} bytes of shared "
-                         f"memory (limit {SMEM_LIMIT})")
-    _, cstride, block = fused_layout(n, r)
-    pack = pack_fused(p2, coreu, x, h)
+    narrow = (2 <= n <= lib.fused_irt_max_n()
+              and 1 <= r <= lib.fused_irt_max_r()
+              and fused_irt_plan(n, r, m, q.device.index)[0] > 0)
+    if not narrow:
+        wide = _wide_lib()
+        check_factor_caps(fn, n, r, wide.fused_wide_max_n(),
+                          wide.fused_wide_max_r(),
+                          wide.fused_wide_smem_bytes(n, r))
     out = torch.empty((m, d), dtype=torch.float32, device=q.device)
     lf = torch.empty((m,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fused_irt_launch(
-            q.data_ptr(), pack.data_ptr(), out.data_ptr(), lf.data_ptr(), m,
-            d, n, r, cstride, block, q.device.index, stream)
+        if narrow:
+            _, cstride, block = fused_layout(n, r)
+            pack = pack_fused(p2, coreu, x, h)
+            err = lib.fused_irt_launch(
+                q.data_ptr(), pack.data_ptr(), out.data_ptr(), lf.data_ptr(),
+                m, d, n, r, cstride, block, q.device.index, stream)
+        else:
+            err = wide.fused_wide_launch(
+                q.data_ptr(), p2.data_ptr(), coreu.data_ptr(), x.data_ptr(),
+                h.data_ptr(), out.data_ptr(), lf.data_ptr(), m, d, n, r,
+                q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"fused_irt kernel launch failed: cudaError {err}")
     fused_irt_sqr_cuda.launches += 1

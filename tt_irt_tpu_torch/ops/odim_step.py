@@ -31,9 +31,8 @@ import ctypes
 
 import torch
 
-from ._build import load_library
-from .rowmath import (cdf_rows32, check_cuda_operands, check_factor_caps,
-                      full_f32_matmul)
+from .rowmath import cdf_rows32, check_cuda_operands, full_f32_matmul
+from .step import _factor_launcher
 
 __all__ = ["odim_step_cuda", "odim_step_ref"]
 
@@ -52,20 +51,6 @@ def odim_step_ref(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
     return psin / torch.clamp(scale, min=1e-30), out9
 
 
-def _lib():
-    lib = load_library("odim_step")
-    if not getattr(lib, "_typed", False):
-        p = ctypes.c_void_p
-        lib.odim_step_launch.argtypes = [p] * 8 + [ctypes.c_int] * 5 + [p]
-        lib.odim_step_launch.restype = ctypes.c_int
-        for f in ("odim_step_max_n", "odim_step_max_r"):
-            getattr(lib, f).restype = ctypes.c_int
-        lib.odim_step_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.odim_step_smem_bytes.restype = ctypes.c_longlong
-        lib._typed = True
-    return lib
-
-
 def odim_step_cuda(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
     """One dimension step through the CUDA kernel; raises on anything
     but f32 CUDA tensors of the documented shapes.
@@ -81,14 +66,14 @@ def odim_step_cuda(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
         "psi": (psi, f32, (m, r)), "qp32": (qp32, f32, (m,)),
         "um32": (um32, f32, (m,)), "qmat": (qmat, f32, (r, n * r)),
         "hrow": (hrow, f32, (n - 1,)), "xg": (xg, f32, (2, n))})
-    lib = _lib()
-    check_factor_caps("odim_step_cuda", n, r, lib.odim_step_max_n(),
-                      lib.odim_step_max_r(), lib.odim_step_smem_bytes(n, r))
+    p = ctypes.c_void_p
+    launch = _factor_launcher("odim_step_cuda", "odim_step", "odim_step",
+                              [p] * 8 + [ctypes.c_int] * 5 + [p], n, r)
     psin = torch.empty((m, r), dtype=f32, device=psi.device)
     out9 = torch.empty((m, 9), dtype=f32, device=psi.device)
     with torch.cuda.device(psi.device):
         stream = torch.cuda.current_stream(psi.device).cuda_stream
-        err = lib.odim_step_launch(
+        err = launch(
             psi.data_ptr(), qp32.data_ptr(), um32.data_ptr(),
             qmat.data_ptr(), hrow.data_ptr(), xg.data_ptr(),
             psin.data_ptr(), out9.data_ptr(), m, n, r, int(mode == "rt"),

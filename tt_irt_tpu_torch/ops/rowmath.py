@@ -12,15 +12,12 @@ import torch
 
 __all__ = ["invert_quadratic", "full_f32_matmul", "cumsum_rows", "cdf_sums32",
            "cdf_rows32", "check_cuda_operands", "check_factor_caps",
-           "SMEM_LIMIT", "SERVED_WIDER", "SERVED_ANY"]
+           "SMEM_LIMIT", "SERVED_ANY"]
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 232448
-# What serves a shape on the card past the caps of the factor-family and
-# whole-transform kernels (n, r <= 64), and past the Gram family's wide
-# tier (n, r <= 128).
-SERVED_WIDER = ("on the card precision 'f32' serves n<=128, r<=128 "
-                "(gram_conditional and condition_update) and 'f64' any shape")
+# What serves a shape on the card past the kernels' wide tiers (n, r <=
+# 128).
 SERVED_ANY = "on the card precision 'f64' (no kernel) serves any shape"
 
 
@@ -57,7 +54,7 @@ def check_cuda_operands(fn, dev, operands) -> None:
 
 
 def check_factor_caps(fn, n, r, max_n, max_r, smem,
-                      served=SERVED_WIDER) -> None:
+                      served=SERVED_ANY) -> None:
     """Raise ValueError for a shape (n, r) outside a kernel's caps or
     needing more than ``SMEM_LIMIT`` bytes of shared memory; the message
     ends with ``served``, what serves such a shape instead."""

@@ -7,9 +7,10 @@ Counterpart of ``tt_irt_tpu/ops/pallas_step.py``: ``gram_conditional``,
 ``condition_update``, ``factor_conditional`` and ``cdf_bracket_factor``.
 The ``*_cuda`` functions launch the hand-written kernels of
 ``csrc/step.cu`` (the first two), ``csrc/factor_conditional.cu`` and
-``csrc/factor_step.cu`` (``cdf_bracket_factor``) and take CUDA tensors
-only; the ``*_ref`` functions are the same
-functions in plain PyTorch (any float dtype, any device).  Which of the
+``csrc/factor_step.cu`` (``cdf_bracket_factor``), the last two past
+n, r of 64 through ``csrc/factor_wide.cu``, and take CUDA tensors only;
+the ``*_ref`` functions are the same functions in plain PyTorch (any
+float dtype, any device).  Which of the
 two a tensor gets is decided in ``ops/kernel_plan.py``; there is no
 fallback from a kernel to its plain version on the card.
 
@@ -43,8 +44,8 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .rowmath import (SERVED_ANY, cdf_rows32, check_cuda_operands,
-                      check_factor_caps, full_f32_matmul)
+from .rowmath import (cdf_rows32, check_cuda_operands, check_factor_caps,
+                      full_f32_matmul)
 
 __all__ = ["gram_conditional_cuda", "gram_conditional_ref",
            "condition_update_cuda", "condition_update_ref",
@@ -106,7 +107,7 @@ def gram_conditional_cuda(phi, pmat):
                                          "pmat": (pmat, f32, (r * r, n))})
     lib = _lib()
     check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
-                      lib.gram_conditional_smem_bytes(n, r), SERVED_ANY)
+                      lib.gram_conditional_smem_bytes(n, r))
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -140,7 +141,7 @@ def condition_update_cuda(phi, i0, la, lb, cmat):
         "cmat": (cmat, f32, (n, r * r))})
     lib = _lib()
     check_factor_caps(fn, n, r, lib.step_max_n(), lib.step_max_r(),
-                      lib.condition_update_smem_bytes(n, r), SERVED_ANY)
+                      lib.condition_update_smem_bytes(n, r))
     phin = torch.empty((m, r), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -175,20 +176,28 @@ def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
 
 
 def _factor_launcher(fn, name, kernel, argtypes, n, r):
-    """``<kernel>_launch`` of ``csrc/<name>.cu``'s library (typed with
-    ``argtypes``), once (n, r) has passed the library's caps and the
-    shared memory that ``<kernel>_smem_bytes`` asks for; raises
-    otherwise."""
-    lib = load_library(name)
-    launch = getattr(lib, kernel + "_launch")
-    smem = getattr(lib, kernel + "_smem_bytes")
-    caps = [getattr(lib, f"{name}_max_{k}") for k in "nr"]
+    """The launch function of the factor-family tier that takes (n, r):
+    ``<kernel>_wide_launch`` of ``csrc/factor_wide.cu`` past the narrow
+    tier's caps (n, r <= 64) or shared memory, else ``<kernel>_launch``
+    of ``csrc/<name>.cu`` (the rule is ``factor_wide_tier``'s), typed
+    with ``argtypes``; raises past the wide tier's caps (n, r <= 128)."""
+    wide = load_library("factor_wide")
+    if wide.factor_wide_tier.argtypes is None:
+        for f in ("factor_wide_tier", "factor_wide_smem_bytes"):
+            getattr(wide, f).argtypes = [ctypes.c_int] * 2
+        for f in ("factor_wide_tier", "factor_wide_max_n",
+                  "factor_wide_max_r"):
+            getattr(wide, f).restype = ctypes.c_int
+        wide.factor_wide_smem_bytes.restype = ctypes.c_longlong
+    check_factor_caps(fn, n, r, wide.factor_wide_max_n(),
+                      wide.factor_wide_max_r(),
+                      wide.factor_wide_smem_bytes(n, r))
+    if wide.factor_wide_tier(n, r):
+        launch = getattr(wide, kernel + "_wide_launch")
+    else:
+        launch = getattr(load_library(name), kernel + "_launch")
     if launch.argtypes is None:
         launch.argtypes, launch.restype = argtypes, ctypes.c_int
-        smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
-        for f in caps:
-            f.restype = ctypes.c_int
-    check_factor_caps(fn, n, r, caps[0](), caps[1](), smem(n, r))
     return launch
 
 
