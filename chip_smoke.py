@@ -207,9 +207,12 @@ Phases (any failure raises; nothing falls back to the CPU):
      maximum); the four kernels against their plain versions at (9, 128),
      (96, 32), (33, 96) and (96, 128) on 2^14 rows with the ties of
      phase 9, timed at 2^18 rows beside the plain versions (at 2^16),
-     torch.matmul(phi, B), factor_conditional's einsum and the bounds;
-     fused_irt_sqr on d=8 TTs at (9, 128) and (96, 32) against its plain
-     version (p99) and timed;
+     torch.matmul(phi, B), factor_conditional's einsum and the bounds,
+     with the factor's split (the first of a wide launch's two kernels)
+     timed alone and as a share of each call; condition_update's wide
+     tier at (33, 96) (the split steps of the d=40 serve launch it)
+     against its plain version and timed; fused_irt_sqr on d=8 TTs at
+     (9, 128) and (96, 32) against its plain version (p99) and timed;
  32. the sample mesh on four shards of the one card against the one-card
      mesh: __graft_entry__.py's dryrun_multichip in the port (a sharded
      tt_irt_sqr step with a global essinv, the two-level DIRT build, a
@@ -237,6 +240,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4352,6 +4356,98 @@ def _wide_factor_checks(t, rows):
     return err
 
 
+def wide_factor_work(mb, n, r):
+    """{kernel: (tensor-core flops, other flops, bytes)} of one call of
+    each factor-family kernel at (n, r) on mb rows: the conditional's
+    product (2 n r^2 a row, on the tensor cores as 3xTF32 in the TC
+    bound), the squares, the CDF and each kernel's update on the CUDA
+    cores, each input read once and each output written once."""
+    tc = mb * 2 * n * r * r
+    squares = 2 * n * r
+    common = 4 * (mb * r + r * n * r)
+    grid = 4 * (mb + (n - 1) + 2 * n + 9 * mb)
+    work = {"factor_conditional": (squares, common + 4 * mb * n),
+            "cdf_bracket_factor": (squares + 6 * n, common + grid + 4 * mb),
+            "odim_step": (squares + 6 * n + 4 * r,
+                          common + grid + 4 * (mb + mb * r)),
+            "dim_step": (squares + 5 * r * r + 6 * n,
+                         common + grid + 4 * (mb + n * r * r + mb * r))}
+    return {k: (tc, mb * rest, nbytes) for k, (rest, nbytes) in work.items()}
+
+
+def _split_share(run, t, n, r, ms):
+    """The factor's split (factor_wide_split_launch, the first of a wide
+    launch's two kernels) alone at (n, r), timed through its C entry
+    point, and its share of each kernel's time at mb rows ({kernel: ms})."""
+    import ctypes
+
+    import torch
+
+    from tt_irt_tpu_torch.ops._build import load_library
+
+    lib = load_library("factor_wide")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.factor_wide_split_launch.argtypes = [p, p, i, i, i, p]
+    lib.factor_wide_scratch_floats.argtypes = [i, i]
+    lib.factor_wide_scratch_floats.restype = ctypes.c_longlong
+    scratch = torch.empty((lib.factor_wide_scratch_floats(n, r),),
+                          dtype=torch.float32, device=run.dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def split():
+        err = lib.factor_wide_split_launch(t["bmat"].data_ptr(),
+                                           scratch.data_ptr(), n, r,
+                                           run.dev.index or 0, stream)
+        assert err == 0, err
+
+    split_ms = _time_ms(split, 20)
+    return {"split_ms": split_ms, "scratch_mb": scratch.numel() * 4 / 2**20,
+            "share": {k: split_ms / v for k, v in ms.items()}}
+
+
+def _wide_update_n33(run):
+    """Kernel 3 (condition_update) in its wide tier at the shape of cell
+    U, (33, 96), where the d=40 serve launches it 40 times a split step:
+    2^18 rows on random operands (phase 26's), its plain version and
+    bound."""
+    import numpy as np
+    import torch
+
+    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+                                           condition_update_ref)
+
+    mb, dev = run.mb, run.dev
+    n, r = WIDE_HI[1], WIDE_HI[2]
+    rng = np.random.default_rng(n * r)
+    phi = rng.uniform(0.05, 1.0, (mb, r)).astype(np.float32)
+    phi /= phi.max(axis=1, keepdims=True)
+    cmat = rng.uniform(0.05, 1.0, (n, r * r)).astype(np.float32)
+    i0 = rng.integers(0, n - 1, mb).astype(np.int32)
+    la = rng.uniform(size=mb).astype(np.float32)
+    phi, cmat, i0, la = (torch.from_numpy(a).to(dev)
+                         for a in (phi, cmat, i0, la))
+    lb = 1.0 - la
+    pk = condition_update_cuda(phi, i0, la, lb, cmat)
+    pr = condition_update_ref(phi, i0, la, lb, cmat)
+    p64 = condition_update_ref(phi.double(), i0, la.double(), lb.double(),
+                               cmat.double())
+    err_k = float((pk.double() - p64).abs().max())
+    err_p = float((pr.double() - p64).abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    ms = _time_ms(lambda: condition_update_cuda(phi, i0, la, lb, cmat), 5)
+    plain_ms = _time_ms(lambda: condition_update_ref(phi, i0, la, lb,
+                                                     cmat), 2)
+    bound = _bound(mb * (5 * r * r + 2 * r),
+                   4 * (mb * (2 * r + 3) + n * r * r))
+    return {f"n{n}_r{r}": {
+        "ms": ms, "rows": mb, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1], "max_abs_err": float((pk - pr).abs().max()),
+        "err_kernel_vs_f64": err_k, "err_plain_vs_f64": err_p,
+        "launches_u": {"31 d40 hi_bracket": WIDE_HI[0],
+                       "31 d40 hi_pair": WIDE_HI[0],
+                       "31 d40 hid": WIDE_HI[0]}}}
+
+
 def _wide_factor_timings(run):
     """Phase 31's timings: at each WIDE_FACTOR_TIMED shape the four
     factor-family kernels on random operands (_wide_factor_checks on the
@@ -4391,17 +4487,7 @@ def _wide_factor_timings(run):
                                    lambda k: (phi[:k], bm)),
             "odim_step": (odim_step_cuda, odim_step_ref,
                           lambda k: (phi[:k], qp[:k], um[:k], bm, h, xg))}
-        tc = mb * 2 * n * r * r
-        squares = 2 * n * r
-        common = 4 * (mb * r + r * n * r)
-        grid = 4 * (mb + (n - 1) + 2 * n + 9 * mb)
-        work = {"factor_conditional": (squares, common + 4 * mb * n),
-                "cdf_bracket_factor": (squares + 6 * n,
-                                       common + grid + 4 * mb),
-                "odim_step": (squares + 6 * n + 4 * r,
-                              common + grid + 4 * (mb + mb * r)),
-                "dim_step": (squares + 5 * r * r + 6 * n,
-                             common + grid + 4 * (mb + n * r * r + mb * r))}
+        work = wide_factor_work(mb, n, r)
         mm_ms = _time_ms(lambda: torch.matmul(phi, bm), 3)
         b3 = bm.reshape(r, n, r)
         torch.cuda.empty_cache()
@@ -4416,18 +4502,24 @@ def _wide_factor_timings(run):
                      _time_ms(lambda: kern(*args(mb)), 5))
             ms_p = _time_ms(lambda: kern(*args(pr_)), 5)
             plain_ms = _time_ms(lambda: plain(*args(pr_)), 2)
-            rest, nbytes = work[name]
-            bound, bound_by = _bound_tc(tc, mb * rest, nbytes)
+            tc, rest, nbytes = work[name]
+            bound, bound_by = _bound_tc(tc, rest, nbytes)
             out.setdefault(name, {})[shape] = {
                 "ms": ms, "rows": mb, "ms_at_plain_rows": ms_p,
                 "plain_ms": plain_ms, "plain_rows": pr_,
                 "bound_ms": bound, "bound_by": bound_by,
-                "bound_fp32_ms": _bound(tc + mb * rest, nbytes)[0],
+                "bound_fp32_ms": _bound(tc + rest, nbytes)[0],
                 "matmul_ms": mm_ms,
                 "library_ms": (ein_ms if name == "factor_conditional"
                                else mm_ms),
                 "max_abs_err": errs[name], "check_rows": WIDE_CHECK_ROWS}
             torch.cuda.empty_cache()
+        split = _split_share(run, t, n, r, {
+            name: out[name][shape]["ms"] for name in cases})
+        for name in cases:
+            out[name][shape]["split_ms"] = split["split_ms"]
+            out[name][shape]["split_share"] = split["share"][name]
+            out[name][shape]["scratch_mb"] = split["scratch_mb"]
         del t, phi, qp, um, bm, cm, h, xg, b3
         torch.cuda.empty_cache()
     return out
@@ -4505,6 +4597,7 @@ def _wide_path(run):
     Returns (launches by kernel and path, {kernel: {shape: numbers}})."""
     launches = _wide_hi_path(run)
     timings = _wide_factor_timings(run)
+    timings["condition_update"] = _wide_update_n33(run)
     timings["fused_irt_sqr"] = _wide_fused(run)
     run.rec["wide_factor_tier"] = timings
     print(f"the factor family's and the whole transform's wide tiers: "
@@ -4727,7 +4820,8 @@ def main(argv=None):
     rec["ptxas"] = {name: [ln.strip() for ln in rep.splitlines()
                            if "registers" in ln or "spill" in ln
                            or "entry function" in ln
-                           or "serializ" in ln]
+                           or "serializ" in ln or "warning" in ln
+                           or "(C75" in ln]
                     for name, (rep, _) in reports.items()}
     print(f"built kernels in {rec['build_s']:.1f} s into {_build.BUILD_DIR}"
           f" (one nvcc a source, all started together; seconds to the end "
@@ -4737,15 +4831,25 @@ def main(argv=None):
     for name, lines in rec["ptxas"].items():
         for ln in lines:
             print(f"  {name}: {ln}")
+    # the wide tier's instances past ks = 4 trade registers between their
+    # warpgroups (setmaxnreg), which needs the block's 168 a thread (as
+    # allocated: 8 at a time)
+    if "factor_wide" in reports:          # built by this run
+        wide_regs = {k: v for k, v in _build.ptxas_registers(
+            reports["factor_wide"][0]).items() if "_wide_kernel" in k}
+        rec["factor_wide_registers"] = wide_regs
+        assert len(wide_regs) == 21, wide_regs
+        assert all(-(-v[0] // 8) * 8 == 168 for k, v in wide_regs.items()
+                   if re.search(r"Li(8|16)EEEv", k)), wide_regs
     # the tensor-core instructions of the four kernels whose conditional
-    # runs on the tensor cores: HGMMA in each wgmma instance, HMMA in
-    # each mma.sync instance and in each instance of their wide tier
+    # runs on the tensor cores: HGMMA in each wgmma instance and in each
+    # instance of their wide tier, HMMA in each mma.sync instance
     # (cuobjdump -sass)
     # (one cuobjdump a library, all at once)
     with ThreadPoolExecutor() as pool:
         sass = list(pool.map(_build.sass_tensor_ops, (
-            "dim_step", "odim_step", "factor_step", "factor_conditional",
-            "factor_wide")))
+            "dim_step", "dim_step_rt", "odim_step", "factor_step",
+            "factor_conditional", "factor_wide")))
     rec["sass_tensor_ops"] = {
         k: v for ops in sass for k, v in ops.items()
         if k.startswith(("dim_step_kernel<", "odim_step_kernel<",
@@ -4755,7 +4859,8 @@ def main(argv=None):
     for k, v in rec["sass_tensor_ops"].items():
         print(f"  SASS {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}")
     bad = [k for k, v in rec["sass_tensor_ops"].items()
-           if v["HGMMA" if k.endswith("wgmma>") else "HMMA"] == 0]
+           if v["HGMMA" if k.endswith("wgmma>") or "_wide_kernel<" in k
+                else "HMMA"] == 0]
     assert not bad, bad
     assert {k.split("<")[0] for k in rec["sass_tensor_ops"]} == {
         "dim_step_kernel", "odim_step_kernel", "cdf_bracket_factor_kernel",
@@ -5000,6 +5105,8 @@ def main(argv=None):
                                                          + "fk_kp_rel"]
                 else:
                     err["max_abs_err"] = rec[per_dim + "phin_kp"]
+            if entry["name"] in wide_f:      # cell U's (33, 96), phase 31
+                entry["wide_tier"].update(wide_f[entry["name"]])
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start
     print("seconds per phase: " + ", ".join(

@@ -148,14 +148,21 @@ def test_tensor_core_kernels_use_the_tensor_cores():
     cdf_bracket_factor, factor_conditional) hold tensor-core
     instructions (cuobjdump -sass): HGMMA in every wgmma instance, HMMA
     in every mma.sync instance, at least one instance of each kernel at
-    the rank tier 24 with HGMMA."""
+    the rank tier 24 with HGMMA; HGMMA in each of the 21 instances of
+    their wide tier (csrc/factor_wide.cu).  dim_step's two modes are two
+    sources."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     from tt_irt_tpu_torch.ops._build import sass_tensor_ops
 
     ops = {}
-    for lib in ("dim_step", "odim_step", "factor_step", "factor_conditional"):
+    for lib in ("dim_step", "dim_step_rt", "odim_step", "factor_step",
+                "factor_conditional"):
         ops.update(sass_tensor_ops(lib))
+    wide = {k: v for k, v in sass_tensor_ops("factor_wide").items()
+            if "_wide_kernel<" in k}
+    assert len(wide) == 21, wide
+    assert all(v["HGMMA"] > 0 for v in wide.values()), wide
     # 4 wgmma tiers + 3 mma.sync tiers, in 'irt' and 'rt' where the
     # kernel has the two modes
     for kern, count in (("dim_step_kernel", 14), ("odim_step_kernel", 14),
@@ -1241,9 +1248,12 @@ def test_core_gradient_on_card_matches_finite_differences():
 
 # The factor family's wide tier (csrc/factor_wide.cu): n or r above 64,
 # and narrow shapes whose staged factor passes shared memory ((33, 33),
-# (65, 65) past the caps, (33, 96) the shape of the d = 40 serve below).
+# (65, 65) past the caps, (33, 96) the shape of the d = 40 serve below);
+# the edges of its ring and k-step padding: (2, 65) one node of three
+# 24-column units, (128, 128) the largest shared memory, (33, 127) a
+# zero-padded last k-step.
 WIDE_FACTOR_SHAPES = [(9, 128), (96, 32), (33, 33), (33, 96), (100, 70),
-                      (9, 127), (65, 65)]
+                      (9, 127), (65, 65), (2, 65), (128, 128), (33, 127)]
 
 
 def _wide_tier(n, r):
@@ -1306,6 +1316,50 @@ def test_factor_kernels_wide_tier_match_plain_on_card(n, r):
     assert float(live.double().mean()) > 0.99
     assert torch.equal(fk[rows, i1][live], o9[:, 2][live])
     assert torch.equal(fk[rows, i1 + 1][live], o9[:, 3][live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 129, 4096 + 7])
+@pytest.mark.parametrize("n,r", [(33, 96), (96, 32)])
+def test_wide_tier_masks_the_last_tile_on_card(m, n, r):
+    """Row counts that end inside a warpgroup's 64 rows or the 128-row
+    tile, in the wide tier (three 32-column units a node at (33, 96), one
+    at (96, 32)): on the first m rows of the operands of a longer launch,
+    the outputs of all four wide kernels (dim_step's phin and out9,
+    odim_step's psin and out9 with the factor as Q, cdf_bracket_factor's
+    out9 and i0, factor_conditional's fk) equal that launch's first m rows
+    bit for bit (every row's arithmetic is its own, whatever tile and
+    warpgroup take it and wherever the ring stands), odim_step's out9
+    equals dim_step's, cdf_bracket_factor's equals both wherever um32 ==
+    1 - qp32, and every output is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    assert _wide_tier(n, r)
+    full = _card_operands(4096 + 7 + 200, n, r, "irt", n + r)
+    rows = ("phi", "qp32", "um32")
+    t = {k: (v[:m].contiguous() if k in rows else v) for k, v in full.items()}
+
+    def all4(o):
+        args = (o["phi"], o["qp32"], o["um32"], o["bmat"], o["cmat"],
+                o["hrow"], o["xg"])
+        return (*dim_step_cuda(*args),
+                *odim_step_cuda(o["phi"], o["qp32"], o["um32"], o["bmat"],
+                                o["hrow"], o["xg"]),
+                *cdf_bracket_factor_cuda(o["phi"], o["qp32"], o["bmat"],
+                                         o["hrow"], o["xg"]),
+                factor_conditional_cuda(o["phi"], o["bmat"]))
+
+    got, longer = all4(t), all4(full)
+    torch.cuda.synchronize()
+    for a, b in zip(got, longer):
+        assert torch.equal(a, b[:m])
+    pk, d9, ps, q9, o9, i0, fk = got
+    assert torch.equal(q9, d9)
+    eq = t["um32"] == 1.0 - t["qp32"]
+    assert torch.equal(o9[eq], d9[eq])
+    assert torch.equal(o9[:, 4], t["xg"][0][i0.long()])
+    for out in (pk, d9, ps, o9, fk):
+        assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

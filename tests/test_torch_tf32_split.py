@@ -23,7 +23,9 @@ recomputes it in the f32 FMA chain of the CUDA cores (``chain_fk``;
 ``_model_step``).  factor_conditional, which has no bracket, recomputes
 every node below 2^-8 of its row's largest fk the same way
 (``factor_conditional_model``), so that its fk at the bracket nodes is
-the bracket's f1 and f2.  Nothing here needs a card."""
+the bracket's f1 and f2.  The wide tier past rank 64
+(tt_irt_tpu_torch/csrc/factor_wide.cu) groups the large products
+instead: ``wide_conditional_model``.  Nothing here needs a card."""
 
 RECOMPUTE = 2.0 ** -8         # tc_conditional.cuh: kRecompute
 
@@ -129,6 +131,61 @@ def tc_conditional_model(phi, bmat):
     return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
 
 
+def wide_conditional_model(phi, bmat, rows=128, parts=4):
+    """fk (M, n) as the wide tier's tensor-core conditional computes it
+    (csrc/factor_wide.cu::tile_conditional), from f32 phi (M, r) and bmat
+    (r, n*r): ks = ceil(r / 8) k-steps; lo.hi, then hi.lo, over every
+    k-step into one accumulator; hi.hi of each G = ceil(ks / parts)
+    consecutive k-steps into an accumulator of its own (each a
+    tensor-core accumulator, truncating as it adds a k-step); v =
+    ((small + P0) + P1) ... in f32 rounded to nearest; the squares in
+    tc_conditional_model's lane order over the ks column groups (the
+    units of a node in order, their zero padding adding nothing).
+    ``rows`` rows at a time."""
+    m, r = phi.shape
+    n = bmat.shape[1] // r
+    ks = -(-r // 8)
+    kp = 8 * ks
+    g = -(-ks // parts)
+    b = torch.zeros((kp, n * r), dtype=torch.float32)
+    b[:r] = bmat
+    bh, bl = split_tf32(b)
+    bl = tf32_truncate(bl)
+    out = []
+    for lo_row in range(0, m, rows):
+        mm = min(rows, m - lo_row)
+        a = torch.zeros((mm, kp), dtype=torch.float32)
+        a[:, :r] = phi[lo_row:lo_row + mm]
+        ah, al = split_tf32(a)
+        al = tf32_truncate(al)
+
+        def ksteps(x, y):
+            return torch.bmm(x.double().reshape(mm, ks, 8).transpose(0, 1),
+                             y.double().reshape(ks, 8, n * r))
+
+        def accumulate(prods, steps, acc=None):
+            for s in steps:
+                acc = _toward_zero(prods[s] if acc is None else acc + prods[s])
+            return acc
+
+        small = accumulate(ksteps(al, bh), range(ks))
+        small = accumulate(ksteps(ah, bl), range(ks), small)
+        big = ksteps(ah, bh)
+        v = small.float()
+        for first in range(0, ks, g):
+            v = v + accumulate(big, range(first, min(ks, first + g))).float()
+        vp = torch.zeros((mm, n, kp), dtype=torch.float32)
+        vp[:, :, :r] = v.reshape(mm, n, r)
+        vp = vp.reshape(mm, n, ks, 4, 2).double()
+        acc = torch.zeros((mm, n, 4), dtype=torch.float32)
+        for c in range(ks):
+            for e in range(2):
+                x = vp[:, :, c, :, e]
+                acc = (x * x + acc.double()).float()
+        out.append((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))
+    return torch.cat(out)
+
+
 def chain_fk(phi, bmat, at=None):
     """fk (M, n) in the CUDA cores' f32 FMA chain (TcStage::warp_node_fk):
     v_j = fma(phi_i, B_ij, v_j) over i in order, then f = fma(v_j, v_j, f)
@@ -218,6 +275,60 @@ def test_model_meets_the_card_rule_on_random_operands(n, r):
     bmat = rng.standard_normal((r, n * r)).astype(np.float32)
     em, ep = _errors(torch.from_numpy(phi), torch.from_numpy(bmat))
     assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+# The wide tier's timed shapes (chip_smoke.py, WIDE_FACTOR_TIMED) and the
+# edges of its k-step padding and unit widths (the card tests' new shapes).
+WIDE_MODEL_SHAPES = [(33, 96), (96, 128), (9, 128), (96, 32), (2, 65),
+                     (33, 127)]
+
+
+@pytest.mark.parametrize("n,r", WIDE_MODEL_SHAPES)
+def test_wide_model_meets_the_card_rule_on_random_operands(n, r):
+    """The wide tier's grouping of k-steps (at most four tensor-core
+    accumulators for hi.hi, summed in f32) on random operands as the card
+    tests make them: its fk at most twice as far from the f64 fk as the
+    plain f32 version plus 1e-6, relative to the largest fk and to each
+    row's own largest (the card's fk_2x and fk_row_2x), and
+    factor_conditional's recompute of the nodes below 2^-8 of their row's
+    largest on top of it likewise."""
+    rng = np.random.default_rng(n + r)
+    phi = rng.uniform(0.05, 1.0, (512, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    phi = torch.from_numpy(phi)
+    bmat = torch.from_numpy(rng.standard_normal((r, n * r)).astype(
+        np.float32))
+    f64 = factor_conditional_ref(phi.double(), bmat.double())
+    fkp = factor_conditional_ref(phi, bmat)
+    tc = wide_conditional_model(phi, bmat)
+    fk = tc.clone()
+    for i, x in (tc < RECOMPUTE * tc.amax(1, keepdim=True)).nonzero().tolist():
+        fk[i, x] = chain_fk(phi[i:i + 1], bmat, torch.tensor([[x]]))[0, 0]
+    for model in (tc, fk):
+        for scale in (f64.amax(1, keepdim=True), f64.max()):
+            em = float(((model.double() - f64).abs() / scale).max())
+            ep = float(((fkp.double() - f64).abs() / scale).max())
+            assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+def test_wide_grouping_beats_fewer_accumulators():
+    """Why four parts: at (96, 128) on random operands (16 k-steps) the
+    wide model's fk is closer to the f64 fk with hi.hi in four
+    tensor-core accumulators than in two, and in two than in one, whose
+    truncation errors add up over more k-steps.  Two parts left the
+    card's dim_step phin at 2.2x the plain version's error against f64
+    at (128, 128), past the 2x + 1e-6 bar."""
+    rng = np.random.default_rng(7)
+    r, n = 128, 96
+    phi = rng.uniform(0.05, 1.0, (256, r)).astype(np.float32)
+    phi /= np.max(phi, axis=1, keepdims=True)
+    phi = torch.from_numpy(phi)
+    bmat = torch.from_numpy(rng.standard_normal((r, n * r)).astype(
+        np.float32))
+    f64 = factor_conditional_ref(phi.double(), bmat.double())
+    err = [float((wide_conditional_model(phi, bmat, parts=p).double()
+                  - f64).abs().max()) for p in (4, 2, 1)]
+    assert err[0] < err[1] < err[2], err
 
 
 @pytest.fixture(scope="module")

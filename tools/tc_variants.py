@@ -91,16 +91,31 @@ BAR) and, from ptxas's registers and the launch's shared memory and
 threads, the blocks and warps resident on an SM.  Output in
 chiprun_out/tc_variants_wide.json.
 
-    python3 tools/tc_variants.py --factor-wide --baseline CSRC
+    python3 tools/tc_variants.py --factor-wide --baseline CSRC [--other-arith]
 
 times the factor family's wide tier (csrc/factor_wide.cu: dim_step,
 odim_step, cdf_bracket_factor, factor_conditional past n or r of 64, up
 to 128) through its C entry points at 2^18 rows on random operands at
 FACTOR_WIDE_SHAPES beside the other checkout's factor_wide.cu (e.g. the
-tier's first design), in turns (shipped, baseline, baseline, shipped),
-and holds every output of the two builds to each other bit for bit.
-ptxas's registers and spills of both builds.  Output in
+tier's previous design; one whose entry points take no scratch is
+called so), torch.matmul(phi, B) and factor_conditional's einsum, all in
+turns, with the tensor-core and FP32 bounds of chip_smoke.py's phase
+31.  It holds every output of the two builds to each other bit for bit;
+with --other-arith (a baseline with other arithmetic) it holds each
+build instead to the plain versions run in f64 on the first
+FACTOR_WIDE_CHECK_ROWS rows (maximum and 99th percentile, beside the
+plain f32 versions') and to its own ties.  ptxas's registers, spills and
+warnings of both builds.  Output in
 chiprun_out/tc_variants_factor_wide.json.
+
+    python3 tools/tc_variants.py --update-batches
+
+times dim_step's wide tier (2^18 rows, FACTOR_WIDE_SHAPES) with the
+edits UPDATE_VARIANTS of its prefix update (the rows unsorted, the
+update's batches left out, batches of 1, 2, 8 rows, with and without a
+branch around a row's FMAs) beside the shipped build and
+cdf_bracket_factor, in turns, phin bit for bit.  Output in
+chiprun_out/tc_variants_update.json.
 
     python3 tools/tc_variants.py --fused [--baseline CSRC]
 
@@ -171,7 +186,8 @@ from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_cuda,  # noqa: E402
 OUT = os.path.join(ROOT, "build", "variants")
 P = ctypes.c_void_p
 I = ctypes.c_int
-PACKAGE = ("dim_step", "odim_step", "factor_step", "factor_conditional")
+PACKAGE = ("dim_step", "dim_step_rt", "odim_step", "factor_step",
+           "factor_conditional")
 
 FIRST_PASS = """    if (live) write_out9(out9 + row * 9, b, xg + n);
     wg_barrier(wg);      // the fk tile is free for the next tile
@@ -265,7 +281,7 @@ def _ptxas(report):
     """ptxas's lines on each instance's registers and spills."""
     return [ln.strip() for ln in report.splitlines()
             if "registers" in ln or "spill" in ln or "entry function" in ln
-            or "serializ" in ln]
+            or "serializ" in ln or "warning" in ln or "(C75" in ln]
 
 
 def _build_variants(jobs, package_names=PACKAGE, reports=None):
@@ -493,6 +509,14 @@ def main(argv=None):
     ap.add_argument("--factor-wide", action="store_true",
                     help="the factor family's wide tier against "
                          "--baseline's factor_wide.cu only")
+    ap.add_argument("--other-arith", action="store_true",
+                    help="with --factor-wide: a baseline with other "
+                         "arithmetic (each build held to the plain "
+                         "version in f64 and to its own ties, not to the "
+                         "other build bit for bit)")
+    ap.add_argument("--update-batches", action="store_true",
+                    help="dim_step's wide prefix update against edits of "
+                         "its batching only")
     ap.add_argument("--wide", action="store_true",
                     help="gram_conditional's wide tier against "
                          "--baseline's and its variants only")
@@ -512,6 +536,8 @@ def main(argv=None):
         return wide_main(args, card)
     if args.factor_wide:
         return factor_wide_main(args, card)
+    if args.update_batches:
+        return update_main(args, card)
     if args.fused:
         return fused_main(args, card)
     if args.stride:
@@ -1044,60 +1070,158 @@ FACTOR_WIDE_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
 
 def _factor_wide_calls(lib, t, m, n, r, stream):
     """{kernel: call} of one factor_wide build's four entry points on the
-    operands t; each call returns its outputs."""
+    operands t; each call returns its outputs.  A build that exports
+    factor_wide_scratch_floats takes its scratch last (allocated a call,
+    as the package's wrappers do)."""
     p, i = ctypes.c_void_p, ctypes.c_int
+    split = hasattr(lib, "factor_wide_scratch_floats")
     types = {"dim_step_wide_launch": [p] * 9 + [i] * 5 + [p],
              "odim_step_wide_launch": [p] * 8 + [i] * 5 + [p],
              "cdf_bracket_factor_wide_launch": [p] * 7 + [i] * 5 + [p],
              "factor_conditional_wide_launch": [p] * 3 + [i] * 4 + [p]}
     for name, argtypes in types.items():
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, i
+        fn.argtypes, fn.restype = argtypes + [p] * split, i
+    if split:
+        lib.factor_wide_scratch_floats.argtypes = [i, i]
+        lib.factor_wide_scratch_floats.restype = ctypes.c_longlong
     dev = t["phi"].device.index
     f32 = dict(dtype=torch.float32, device=t["phi"].device)
 
-    def check(err):
+    def launch(fn, *args):
+        extra = ()
+        if split:
+            scratch = torch.empty(
+                (lib.factor_wide_scratch_floats(n, r),), **f32)
+            extra = (scratch.data_ptr(),)
+        err = fn(*args, *extra)
         if err != 0:
             raise RuntimeError(f"factor_wide launch failed: cudaError {err}")
 
     def dim():
         phin, out9 = torch.empty((m, r), **f32), torch.empty((m, 9), **f32)
-        check(lib.dim_step_wide_launch(
-            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["um32"].data_ptr(),
-            t["bmat"].data_ptr(), t["cmat"].data_ptr(), t["hrow"].data_ptr(),
-            t["xg"].data_ptr(), phin.data_ptr(), out9.data_ptr(), m, n, r, 0,
-            dev, stream))
+        launch(lib.dim_step_wide_launch,
+               t["phi"].data_ptr(), t["qp32"].data_ptr(),
+               t["um32"].data_ptr(), t["bmat"].data_ptr(),
+               t["cmat"].data_ptr(), t["hrow"].data_ptr(),
+               t["xg"].data_ptr(), phin.data_ptr(), out9.data_ptr(), m, n, r,
+               0, dev, stream)
         return phin, out9
 
     def odim():
         psin, out9 = torch.empty((m, r), **f32), torch.empty((m, 9), **f32)
-        check(lib.odim_step_wide_launch(
-            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["um32"].data_ptr(),
-            t["bmat"].data_ptr(), t["hrow"].data_ptr(), t["xg"].data_ptr(),
-            psin.data_ptr(), out9.data_ptr(), m, n, r, 0, dev, stream))
+        launch(lib.odim_step_wide_launch,
+               t["phi"].data_ptr(), t["qp32"].data_ptr(),
+               t["um32"].data_ptr(), t["bmat"].data_ptr(),
+               t["hrow"].data_ptr(), t["xg"].data_ptr(), psin.data_ptr(),
+               out9.data_ptr(), m, n, r, 0, dev, stream)
         return psin, out9
 
     def bracket():
         out9 = torch.empty((m, 9), **f32)
         i0 = torch.empty((m,), dtype=torch.int32, device=t["phi"].device)
-        check(lib.cdf_bracket_factor_wide_launch(
-            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["bmat"].data_ptr(),
-            t["hrow"].data_ptr(), t["xg"].data_ptr(), out9.data_ptr(),
-            i0.data_ptr(), m, n, r, 0, dev, stream))
+        launch(lib.cdf_bracket_factor_wide_launch,
+               t["phi"].data_ptr(), t["qp32"].data_ptr(),
+               t["bmat"].data_ptr(), t["hrow"].data_ptr(),
+               t["xg"].data_ptr(), out9.data_ptr(), i0.data_ptr(), m, n, r,
+               0, dev, stream)
         return out9, i0
 
     def cond():
         fk = torch.empty((m, n), **f32)
-        check(lib.factor_conditional_wide_launch(
-            t["phi"].data_ptr(), t["bmat"].data_ptr(), fk.data_ptr(), m, n,
-            r, dev, stream))
+        launch(lib.factor_conditional_wide_launch,
+               t["phi"].data_ptr(), t["bmat"].data_ptr(), fk.data_ptr(), m,
+               n, r, dev, stream)
         return (fk,)
 
     return {"dim_step": dim, "odim_step": odim, "cdf_bracket_factor": bracket,
             "factor_conditional": cond}
 
 
+# Rows of the accuracy checks of --other-arith (the plain version in f64
+# materialises phi B: 0.8 GB at (96, 128) and 2^13 rows).
+FACTOR_WIDE_CHECK_ROWS = 1 << 13
+
+
+def _stats(err):
+    """(max, p99) of a non-negative error tensor."""
+    err = err.flatten().double()
+    return float(err.max()), float(torch.quantile(
+        err[torch.randperm(err.numel(), device=err.device)[:1 << 24]], 0.99))
+
+
+def _factor_wide_accuracy(outs, t, rows):
+    """One build's outputs (the first ``rows`` rows of each kernel's) held
+    to the plain versions run in f64 on the same f32 operands, beside the
+    plain f32 versions' errors: {kernel: {what: numbers}}; and the ties
+    within the build (cdf_bracket_factor's out9 equal to dim_step's where
+    um32 == 1 - qp32, odim_step's out9 equal to dim_step's,
+    factor_conditional's fk at dim_step's bracket nodes equal to its f1
+    and f2)."""
+    from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_ref
+    from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_ref,
+                                           factor_conditional_ref)
+
+    a = {k: (v[:rows] if k in ("phi", "qp32", "um32") else v)
+         for k, v in t.items()}
+    pk, d9 = (o[:rows] for o in outs["dim_step"])
+    ps, q9 = (o[:rows] for o in outs["odim_step"])
+    b9, i0 = (o[:rows] for o in outs["cdf_bracket_factor"])
+    fk = outs["factor_conditional"][0][:rows]
+    acc = {}
+    for name, ref, args, kern in (
+            ("dim_step", dim_step_ref, (a["phi"], a["qp32"], a["um32"],
+                                        a["bmat"], a["cmat"], a["hrow"],
+                                        a["xg"]), (pk, d9)),
+            ("odim_step", odim_step_ref, (a["phi"], a["qp32"], a["um32"],
+                                          a["bmat"], a["hrow"], a["xg"]),
+             (ps, q9))):
+        p32, o32 = ref(*args)
+        p64, o64 = ref(*(x.double() for x in args))
+        same = (kern[1][:, 4] == o32[:, 4]) & (o64[:, 4].float()
+                                               == o32[:, 4])
+        out = {"brackets_equal_share": float(same.double().mean())}
+        for who, p_ in (("kernel", kern[0]), ("plain", p32)):
+            e_max, e_p99 = _stats((p_.double() - p64)[same].abs().amax(1))
+            out[f"phin_{who}_vs_f64_max"] = e_max
+            out[f"phin_{who}_vs_f64_p99"] = e_p99
+        acc[name] = out
+        del p32, o32, p64, o64
+    o32, _ = cdf_bracket_factor_ref(a["phi"], a["qp32"], a["bmat"],
+                                    a["hrow"], a["xg"])
+    scale = o32.abs().amax(0) + 1e-30
+    same = i0 == cdf_bracket_factor_ref(a["phi"], a["qp32"], a["bmat"],
+                                        a["hrow"], a["xg"])[1]
+    acc["cdf_bracket_factor"] = {
+        "brackets_equal_share": float(same.double().mean()),
+        "out9_max_rel_to_column_scale": float(
+            ((b9 - o32).abs() / scale)[same].max())}
+    f64 = factor_conditional_ref(a["phi"].double(), a["bmat"].double())
+    fkp = factor_conditional_ref(a["phi"], a["bmat"])
+    out = {}
+    for who, f_ in (("kernel", fk), ("plain", fkp)):
+        for scale_name, sc in (("max", f64.max()),
+                               ("row", f64.amax(1, keepdim=True))):
+            e_max, e_p99 = _stats((f_.double() - f64).abs() / sc)
+            out[f"fk_{who}_vs_f64_rel_{scale_name}_max"] = e_max
+            out[f"fk_{who}_vs_f64_rel_{scale_name}_p99"] = e_p99
+    acc["factor_conditional"] = out
+    eq = a["um32"] == 1.0 - a["qp32"]
+    i1 = torch.searchsorted(a["xg"][0].contiguous(), d9[:, 4].contiguous())
+    live = ~((d9[:, 2] == 1.0) & (d9[:, 3] == 1.0))
+    rr = torch.arange(rows, device=fk.device)
+    ties = {"bracket_out9_eq_dim": bool(torch.equal(b9[eq], d9[eq])),
+            "odim_out9_eq_dim": bool(torch.equal(q9, d9)),
+            "conditional_fk_eq_dim_f1_f2": bool(
+                torch.equal(fk[rr, i1][live], d9[:, 2][live])
+                and torch.equal(fk[rr, i1 + 1][live], d9[:, 3][live]))}
+    return acc, ties
+
+
 def factor_wide_main(args, card):
+    import chip_smoke
+
     if not args.baseline:
         raise SystemExit("--factor-wide needs --baseline (another csrc)")
     base = _edited_copy("baseline", [], src=args.baseline)
@@ -1111,47 +1235,150 @@ def factor_wide_main(args, card):
     m = 1 << 18
     rows = []
     for n, r in FACTOR_WIDE_SHAPES:
-        rng = np.random.default_rng(n * r)
-        x = np.sort(rng.uniform(-2.0, 2.0, n))
-        x[0], x[-1] = -2.0, 2.0
-        phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
-        phi /= phi.max(axis=1, keepdims=True)
-        qv = rng.uniform(size=m)
-        x32 = x.astype(np.float32)
-        t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in {
-            "phi": phi, "qp32": qv.astype(np.float32),
-            "um32": (1.0 - qv).astype(np.float32),
-            "bmat": rng.standard_normal((r, n * r)).astype(np.float32),
-            "cmat": rng.uniform(0.05, 1.0, (n, r * r)).astype(np.float32),
-            "hrow": np.diff(x).astype(np.float32),
-            "xg": np.stack([x32, (x - x32).astype(np.float32)])}.items()}
+        t = chip_smoke._wide_operands(m, n, r, n * r, "cuda")
         calls = {b: _factor_wide_calls(lib, t, m, n, r, stream)
                  for b, lib in builds.items()}
-        equal = {k: all(torch.equal(a, b) for a, b in zip(
-            calls["shipped"][k](), calls["baseline"][k]()))
-            for k in calls["shipped"]}
-        ms = {b: {k: [] for k in calls[b]} for b in builds}
-        for order in (("shipped", "baseline"), ("baseline", "shipped")):
-            for b in order:
-                for k, fn in calls[b].items():
-                    ms[b][k].append(_time_ms(fn, 3))
-        rows.append({"n": n, "r": r, "rows": m, "ms": ms,
-                     "equal_to_baseline": equal})
-        print(f"factor_wide at (n={n}, r={r}), {m} rows: "
-              + json.dumps({b: {k: min(v) for k, v in d.items()}
-                            for b, d in ms.items()})
-              + f"; outputs equal to the baseline's {json.dumps(equal)} "
-              f"({card})", flush=True)
-        del t, calls
+        outs = {b: {k: fn() for k, fn in c.items()}
+                for b, c in calls.items()}
+        row = {"n": n, "r": r, "rows": m}
+        if args.other_arith:
+            for b in builds:
+                row[f"{b}_accuracy"], row[f"{b}_ties"] = (
+                    _factor_wide_accuracy(outs[b], t,
+                                          FACTOR_WIDE_CHECK_ROWS))
+        else:
+            row["equal_to_baseline"] = {
+                k: all(torch.equal(a, b) for a, b in zip(
+                    outs["shipped"][k], outs["baseline"][k]))
+                for k in outs["shipped"]}
+        del outs
+        torch.cuda.empty_cache()
+        phi, bm = t["phi"], t["bmat"]
+        b3 = bm.reshape(r, n, r)
+        cases = {f"{b} {k}": fn for b, c in calls.items()
+                 for k, fn in c.items()}
+        cases["matmul"] = lambda: torch.matmul(phi, bm)
+        cases["einsum"] = lambda: torch.einsum("mi,ixj,mk,kxj->mx", phi, b3,
+                                               phi, b3)
+        ms = {k: [] for k in cases}
+        for order in (list(cases), list(cases)[::-1]):
+            for k in order:
+                ms[k].append(_time_ms(cases[k], 3))
+                torch.cuda.empty_cache()
+        row["ms"] = ms
+        row["bounds"] = {}
+        for k, (tc, rest, nbytes) in chip_smoke.wide_factor_work(
+                m, n, r).items():
+            row["bounds"][k] = {
+                "tc_ms": chip_smoke._bound_tc(tc, rest, nbytes)[0],
+                "fp32_ms": chip_smoke._bound(tc + rest, nbytes)[0]}
+        rows.append(row)
+        print(f"factor_wide at (n={n}, r={r}), {m} rows, best of 2 in "
+              f"turns: " + json.dumps({k: min(v) for k, v in ms.items()})
+              + "; " + json.dumps({k: v for k, v in row.items()
+                                   if k not in ("ms", "n", "r", "rows")})
+              + f" ({card})", flush=True)
+        del t, calls, cases
         torch.cuda.empty_cache()
     rec = {"card": card, "baseline": args.baseline, "ptxas": reports,
-           "shapes": rows}
+           "other_arith": bool(args.other_arith), "shapes": rows}
+    for name, lines in reports.items():
+        for ln in lines:
+            print(f"ptxas {name}: {ln}")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "tc_variants_factor_wide.json"),
               "w") as fh:
         json.dump(rec, fh, indent=1)
-    assert all(all(r_["equal_to_baseline"].values()) for r_ in rows), rows
+    if args.other_arith:
+        assert all(all(r_[f"{b}_ties"].values()) for r_ in rows
+                   for b in builds), rows
+    else:
+        assert all(all(r_["equal_to_baseline"].values()) for r_ in rows), \
+            rows
+    return 0
+
+
+# dim_step's wide prefix update (csrc/factor_wide.cu, CoreUpdate): the
+# shipped batches of up to 4 rows of a cell, no branch among the FMAs,
+# beside edits of it.
+UPDATE_BATCH = ("constexpr int kBatch = 4;                "
+                "// rows of one cell in an update\n")
+UPDATE_FMAS = ("              const float pi = __shfl_sync(0xFFFFFFFFu, "
+               "pv[k][u0], l0 + d);\n")
+
+
+def _wide_edit(old, new):
+    return ("factor_wide.cu", old, new)
+
+
+UPDATE_VARIANTS = {
+    # the rows in tile order (a batch only where neighbours share a cell)
+    "unsorted": [_wide_edit(
+        "    if (tid < rows) sm.order[sm.start[sm.i0[tid]] + rank] = tid;\n",
+        "    if (tid < rows) sm.order[tid] = tid + 0 * rank;\n")],
+    # the sort and the walk over cells, no batch
+    "no_batches": [_wide_edit(
+        "      batch<KS / 4>(sm, phi, cmat, phin, row0, r, p, cnt, x);\n",
+        "      (void)x;\n")],
+    **{f"batch{b}": [_wide_edit(UPDATE_BATCH,
+                                f"constexpr int kBatch = {b};\n")]
+       for b in (1, 2, 8)},
+    # batches of 2 and 8 with a branch around each row's FMAs
+    **{f"batch{b}_guarded": [
+        _wide_edit(UPDATE_BATCH, f"constexpr int kBatch = {b};\n"),
+        _wide_edit(UPDATE_FMAS,
+                   "              if (k >= cnt) continue;\n" + UPDATE_FMAS)]
+       for b in (2, 8)},
+}
+
+
+def update_main(args, card):
+    """dim_step's wide tier with UPDATE_VARIANTS of its prefix update, at
+    FACTOR_WIDE_SHAPES and 2^18 rows, in turns with the shipped build and
+    cdf_bracket_factor (the kernel without the update); phin of every
+    variant that updates held to the shipped one bit for bit (a row's
+    chain is its own, whatever its batch)."""
+    import chip_smoke
+    from tt_irt_tpu_torch.ops._build import load_library
+
+    jobs = {name: os.path.join(_edited_copy(name, edits), "factor_wide.cu")
+            for name, edits in UPDATE_VARIANTS.items()}
+    reports = {}
+    libs = _build_variants(jobs, ("factor_wide",), reports)
+    builds = {"shipped": load_library("factor_wide"),
+              **{k: ctypes.CDLL(v) for k, v in libs.items()}}
+    stream = torch.cuda.current_stream().cuda_stream
+    m = 1 << 18
+    rows = []
+    for n, r in FACTOR_WIDE_SHAPES:
+        t = chip_smoke._wide_operands(m, n, r, n * r, "cuda")
+        calls = {b: _factor_wide_calls(lib, t, m, n, r, stream)
+                 for b, lib in builds.items()}
+        ref = calls["shipped"]["dim_step"]()[0]
+        equal = {b: bool(torch.equal(c["dim_step"]()[0], ref))
+                 for b, c in calls.items() if b != "no_batches"}
+        cases = {b: c["dim_step"] for b, c in calls.items()}
+        cases["cdf_bracket_factor"] = calls["shipped"]["cdf_bracket_factor"]
+        ms = {k: [] for k in cases}
+        for order in (list(cases), list(cases)[::-1]):
+            for k in order:
+                ms[k].append(_time_ms(cases[k], 3))
+        rows.append({"n": n, "r": r, "rows": m, "ms": ms,
+                     "phin_equal_to_shipped": equal})
+        print(f"dim_step's update variants at (n={n}, r={r}), {m} rows, "
+              f"best of 2 in turns: " + json.dumps(
+                  {k: round(min(v), 4) for k, v in ms.items()})
+              + f"; phin equal to the shipped {json.dumps(equal)} ({card})",
+              flush=True)
+        del t, calls, cases
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tc_variants_update.json"), "w") as fh:
+        json.dump({"card": card, "ptxas": reports, "shapes": rows}, fh,
+                  indent=1)
+    assert all(all(r_["phin_equal_to_shipped"].values()) for r_ in rows)
     return 0
 
 

@@ -40,69 +40,25 @@
 // slices from shared memory.  cdf_bracket_factor
 // (factor_step.cu) runs the first pass's stages, so its out9 equals
 // this kernel's bit for bit.  The kernel body is tc_dim.cuh's, which
-// odim_step.cu shares.
+// odim_step.cu shares.  This source holds the instances of mode 'irt';
+// dim_step_rt.cu those of mode 'rt' (dim_step.cuh: the kernel and its
+// launch).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include "tc_dim.cuh"
-
-namespace {
-
-using namespace ttirt;
-
-template <int T, bool RT, Tc V>
-__global__ void __launch_bounds__(tc_kernel_threads<T, V>())
-dim_step_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
-                const float* __restrict__ um, const float* __restrict__ bmat,
-                const float* __restrict__ cmat, const float* __restrict__ h,
-                const float* __restrict__ xg, float* __restrict__ phin,
-                float* __restrict__ out9, int m, int n, int r) {
-  tc_dim_step<T, RT, V, CoreSlices>(phi, qp, um, bmat, cmat, h, xg, phin,
-                                    out9, m, n, r);
-}
-
-template <bool RT>
-struct Kernel {
-  template <int T, Tc V>
-  struct At {
-    static const void* fn() {
-      return reinterpret_cast<const void*>(&dim_step_kernel<T, RT, V>);
-    }
-  };
-};
-
-}  // namespace
+#include "dim_step.cuh"
 
 extern "C" {
 
-// All pointers are device pointers to contiguous f32 arrays:
-// phi (m, r), qp/um (m,), bmat (r, n*r), cmat (n, r*r), h (n-1,),
-// xg (2, n) -> phin (m, r), out9 (m, 9), all on device `device`, which
-// must be the current device.  Returns the launch's cudaError_t (0 on
-// success); the launch is asynchronous on `stream`.
+// Mode 'irt' (rt == 0; dim_step_rt.cu takes rt == 1): the operands of
+// dim_step_launch_mode.
 int dim_step_launch(const void* phi, const void* qp, const void* um,
                     const void* bmat, const void* cmat, const void* h,
                     const void* xg, void* phin, void* out9, int m, int n,
                     int r, int rt, int device, void* stream) {
-  if (m == 0) return 0;
-  if (!in_caps(n, r) || slices_bytes(n, r) > tc_smem_bytes(n, r))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* p[7];
-  const void* in[7] = {phi, qp, um, bmat, cmat, h, xg};
-  for (int k = 0; k < 7; ++k) p[k] = static_cast<const float*>(in[k]);
-  float* pn = static_cast<float*>(phin);
-  float* o = static_cast<float*>(out9);
-  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &p[6], &pn, &o,
-                  &m, &n, &r};
-  const void* kern = nullptr;
-  if (rt) {
-    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<true>::At, TIER>(n, r)));
-  } else {
-    TTIRT_FOR_TIER(r, (kern = tc_instance<Kernel<false>::At, TIER>(n, r)));
-  }
-  return static_cast<int>(tc_launch(kern, args, m, n, r, device,
-                                    static_cast<cudaStream_t>(stream)));
+  return dim_step_launch_mode<false>(phi, qp, um, bmat, cmat, h, xg, phin,
+                                     out9, m, n, r, rt, device, stream);
 }
 
 }  // extern "C"

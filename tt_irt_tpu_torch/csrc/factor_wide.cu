@@ -14,54 +14,68 @@
 // What bounds it: the conditional, n r^2 multiply-adds a row (1.2M at
 // n = 96, r = 128) against 4 (r + 11) bytes of row traffic; as 3xTF32 on
 // the tensor cores 5.0 ms at 2^18 rows at (96, 128), 12.3 ms on the FP32
-// CUDA cores.  At rank 128 neither the split factor (2 n r^2 floats) nor
-// the f32 factor (n r^2) fits shared memory, and a row's phi no longer
-// fits a thread's registers, so the narrow tiers' design (the factor
-// staged once a persistent block, phi split in registers) does not
-// carry over.  The design here, 256 threads a block and a tile of 128
-// rows at a time, a warp 16 of them:
-//  - A warp keeps its 16 rows of phi in registers as the m16n8k8 A
-//    fragments of every k-step, in f32 (4 KS registers: KS = 4, 8 or 16
-//    k-steps by the rank, an instance each; split per k-step as it is
-//    used), and the factor comes in a node at a time: B_x, node x's
-//    (r, r) block, split once into hi and lo (hi = tf32(x) rounded to
-//    nearest even, lo = x - hi, as tc_conditional.cuh's split_tf32) and
-//    staged zero-padded to whole k-steps at a pitch of 8 mod 32 floats
-//    (the B fragments, 4 K rows by 8 columns, meet 32 banks), between
-//    two barriers, for the block's 8 warps.  At (128, 128) that is 136 KB
-//    of B_x and the 64 KB (n, 128) fk tile; the KS = 16 instances spill
-//    160-236 bytes a thread at 255 registers.
-//  - The products run as 3xTF32 mma.sync m16n8k8 (HMMA), as the narrow
-//    kMma variant's.  A warp holds v = phi B_x for its 16 rows and all r
-//    columns in 4 KS registers: a first walk over the k-steps sums the
-//    small products lo.hi and hi.lo into v, a second adds each k-step's
-//    large product hi.hi, formed in an accumulator of its own, in f32
-//    (round to nearest), k-step after k-step: the narrow tiers' scheme
-//    (the tensor core truncates as it accumulates).
-//  - fk = sum_j v^2 goes into the (n, 128) fk tile as the narrow stage's
-//    reduce_half leaves it; the CDF, bracket and readout are
-//    row_common.cuh's, one thread a row.  A bracket node whose fk is
-//    below kRecompute of its row's largest is recomputed in f32 from phi
-//    and the factor in global memory (node_fk: one FMA chain over i for
-//    each v_j, one over j for the squares, the chain of the narrow tiers'
-//    warp_node_fk and thread_node_fk), so cdf_bracket_factor's out9
-//    equals dim_step's bit for bit (the same device functions, in the
-//    same order), and factor_conditional, which recomputes every node
-//    below kRecompute by the same chain, gives fk equal to dim_step's f1
-//    and f2 at a row's bracket nodes bit for bit.
-//  - The prefix update runs a warp a row after the tile's CDF (the
-//    bracket and weight of each row through shared memory): dim_step
-//    interpolates C[i0] and C[i0+1] read from L2 and forms one FMA chain
+// CUDA cores.  A 128-row tile (as many rows as two warpgroups' registers
+// hold) streams the whole split factor, 2 n r^2 floats, from L2 through
+// shared memory: 25.8 GB a call at (96, 128) and 2^18 rows, about as long
+// at L2's rate as the tensor-core bound.  The design:
+//  - One launch ahead of the main kernel, on the same stream, splits the
+//    factor once a call (split_factor_kernel): hi = tf32(x) rounded to
+//    nearest even, lo = x - hi (tc_conditional.cuh's split_tf32), each
+//    node's (r, r) block cut into units of at most 4 column groups (32
+//    columns), each unit's hi and lo written in the K-major core-matrix
+//    layout that wgmma reads without swizzle (unit_core_offset),
+//    zero-padded to whole k-steps and groups, into scratch the caller
+//    allocates (2 n nu 8 ks 8 nc floats: factor_wide_scratch_floats;
+//    16.8 MB at (128, 128)).
+//  - The main kernel is persistent, 384 threads a block: one thread of a
+//    producer warpgroup streams the units in order through a ring of
+//    shared-memory stages (one unit a stage, up to 6 stages) by
+//    cp.async.bulk with mbarriers (full: the bytes landed; empty: the
+//    eight consumer warps are done with it), so unit u+1 lands while
+//    unit u is on the tensor cores, across nodes and tiles; two consumer
+//    warpgroups take 64 rows of the 128-row tile each, with the
+//    registers the producer warpgroup gives up (setmaxnreg: 240 a
+//    consumer thread, 24 a producer one).
+//  - A consumer keeps its rows of phi split into hi and lo in registers
+//    as the A fragments of every k-step (8 ks registers, 128 at ks = 16)
+//    and runs a unit as one commit group of wgmma.mma_async m64nNk8
+//    .tf32 (N = 8 nc <= 32): lo.hi and hi.lo over every k-step into one
+//    accumulator, hi.hi into at most four more, G = ceil(ks / 4)
+//    consecutive k-steps each; then v = (((small + P0) + P1) + ...) in
+//    f32 (round to nearest) and its squares, summed over the node's
+//    units in column-group order, then across the lane quad (the narrow
+//    tiers' reduce_half order).  The tensor core truncates as it
+//    accumulates, so the narrow tiers give each k-step's hi.hi an
+//    accumulator of its own; four parts keep fk about as accurate as the
+//    plain f32 product (tests/test_torch_tf32_split.py models it; two
+//    parts left dim_step's phin at 2.2x the plain version's error against
+//    f64 at (128, 128)) at 5 accumulators of 16 registers.  The other
+//    warpgroup's products overlap one's waits and squares.
+//  - fk leaves the stage in the (n, 128) fk tile in shared memory; the
+//    CDF, bracket and readout are row_common.cuh's, one thread a row on
+//    the first warpgroup.  A bracket node whose fk is below kRecompute of
+//    its row's largest is recomputed in f32 from phi and the factor in
+//    global memory by the warp (warp_node_fk: lane j forms v_j by one FMA
+//    chain over i, reading B's row coalesced; then one chain over j for
+//    the squares, the chain of the narrow tiers' warp_node_fk), so
+//    cdf_bracket_factor's out9 equals dim_step's bit for bit (the same
+//    device functions, in the same order), and factor_conditional, which
+//    recomputes every node below kRecompute by the same chain (a warp a
+//    row), gives fk equal to dim_step's f1 and f2 at a row's bracket
+//    nodes bit for bit.
+//  - dim_step's prefix update sorts the tile's rows by cell in shared
+//    memory (a counting sort on i0), and each warp takes 16 sorted rows
+//    in batches of up to 4 of one cell: one read of C[i0] and C[i0+1]
+//    serves the batch, 32 / L of its rows in flight before their FMAs
+//    (L = 1, 2 or 4 columns a lane by the rank), each row one FMA chain
 //    over i a column (step.cu's update_wide_kernel); odim_step forms
-//    v[i0] and v[i0+1] from Q in L2, one chain each, and reads out
-//    la v[i0] + (1 - la) v[i0+1] (tc_dim.cuh's FactorSlices).  Both
-//    divide by the max-abs over the row (floor 1e-30).
-// The same arithmetic in the same order as this tier's first design (4
-// warps a block, phi staged in shared memory, B split per fragment in
-// the inner loop), so the same bits, in 0.24-0.76x its time
-// (`tools/tc_variants.py --factor-wide --baseline DIR`; PERF.md).
-// The factor is still staged with no copy in flight while the tensor
-// cores run.
+//    v[i0] and v[i0+1] from Q in L2, a warp a row, one chain each, and
+//    reads out la v[i0] + (1 - la) v[i0+1] (tc_dim.cuh's FactorSlices).
+//    Both divide by the max-abs over the row (floor 1e-30).
+// tools/tc_variants.py --update-batches times the update's batching.
+// tools/tc_variants.py --factor-wide --baseline DIR --other-arith times
+// it against the tier's previous design (mma.sync, the factor split a
+// tile) and holds both to the plain version run in f64; PERF.md.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
@@ -74,13 +88,16 @@ using namespace ttirt;
 
 constexpr int kWideMaxN = 128;
 constexpr int kWideMaxR = 128;
-constexpr int kLanes = kWideMaxR / 32;   // columns a lane in the update
-constexpr int kWarps = kTcRows / 16;     // a warp takes 16 rows of the tile
-constexpr int kBlock = 32 * kWarps;
+constexpr int kLanes = kWideMaxR / 32;   // columns a lane in the updates
+constexpr int kConsumers = 2 * kTcRows;  // two warpgroups, 64 rows each
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kBlock = kConsumers + kTcRows;  // and the producer's
+constexpr int kMaxStages = 6;
+constexpr int kBatch = 4;                // rows of one cell in an update
+constexpr int kParts = 4;                // accumulators of hi.hi a unit
 
-// Run STMT with the constant KS set to the k-steps (and column groups)
-// an instance unrolls at rank r: 4 up to r = 32, 8 up to 64, 16 up to
-// 128, so that a warp's A fragments and sums take 32 KS registers.
+// Run STMT with the constant KS set to the k-steps whose A fragments an
+// instance holds at rank r: 4 up to r = 32, 8 up to 64, 16 up to 128.
 #define TTIRT_FOR_KSTEPS(r, STMT)                                 \
   switch ((r) <= 32 ? 4 : (r) <= 64 ? 8 : 16) {                   \
     case 4: { constexpr int KS = 4; STMT; } break;                \
@@ -98,247 +115,551 @@ inline bool factor_wide(int n, int r) {
   return !in_caps(n, r) || tc_smem_bytes(n, r) > kSmemOptIn;
 }
 
-// The rank padded to whole k-steps, and the pitch of the staged B_x
-// (8 mod 32 floats: the B fragments, 4 K rows by 8 columns, meet 32
-// banks).
-__host__ __device__ inline int padded_rank(int r) { return 8 * ((r + 7) / 8); }
-__host__ __device__ inline int node_pitch(int r) {
-  return ((padded_rank(r) + 23) / 32) * 32 + 8;
+// The k-steps of rank r, the units a node's columns are cut into (at
+// most 4 column groups of 8 a unit), the groups a unit (the last unit
+// zero-padded), and the floats of one unit's hi and lo.
+__host__ __device__ constexpr int ksteps(int r) { return (r + 7) / 8; }
+__host__ __device__ constexpr int node_units(int ks) { return (ks + 3) / 4; }
+__host__ __device__ constexpr int unit_groups(int ks) {
+  return (ks + node_units(ks) - 1) / node_units(ks);
+}
+__host__ __device__ constexpr int unit_floats(int ks) {
+  return 2 * (8 * ks) * (8 * unit_groups(ks));
+}
+
+// Shared memory besides the ring, in floats: the (n, 128) fk tile, and
+// la, i0, the sorted rows, the cell counts and starts of the update.
+__host__ __device__ inline int fixed_floats(int n) {
+  return (n + 5) * kTcRows;
+}
+
+// Stages of the ring at (n, r): as many units as fit beside the rest,
+// at most kMaxStages (at least 5 within the caps).
+__host__ __device__ inline int ring_stages(int n, int r) {
+  const long long room = static_cast<long long>(kSmemOptIn)
+                         - 4LL * fixed_floats(n) - 16LL * kMaxStages;
+  const long long s = room / (4LL * unit_floats(ksteps(r)));
+  return s < kMaxStages ? static_cast<int>(s) : kMaxStages;
 }
 
 inline size_t wide_smem_bytes(int n, int r) {
-  const int rp = padded_rank(r);
-  return (static_cast<size_t>(n) * kTcRows
-          + 2 * static_cast<size_t>(rp) * node_pitch(r) + 2 * kTcRows)
-         * sizeof(float);
+  return 4 * (static_cast<size_t>(ring_stages(n, r))
+                  * unit_floats(ksteps(r))
+              + fixed_floats(n))
+         + 16 * kMaxStages;
 }
 
-// The block's shared memory: the (n, 128) fk tile, node x's B_x split
-// into hi and lo, and the bracket (i0, la) of each tile row.
+inline long long scratch_floats(int n, int r) {
+  const int ks = ksteps(r);
+  return static_cast<long long>(n) * node_units(ks) * unit_floats(ks);
+}
+
+// The block's shared memory: the ring of unit stages, the fk tile, the
+// tile's brackets (i0, la) and the update's sort, the ring's barriers.
 struct Smem {
+  float* ring;
   float* fk;
-  float* bhi;
-  float* blo;
   float* la;
   int* i0;
-  int rp, bp;
+  int* order;
+  int* count;
+  int* start;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, unit;
   __device__ __forceinline__ Smem(float* smem, int n, int r)
-      : rp(padded_rank(r)), bp(node_pitch(r)) {
-    fk = smem;
-    bhi = fk + n * kTcRows;
-    blo = bhi + rp * bp;
-    la = blo + rp * bp;
+      : stages(ring_stages(n, r)), unit(unit_floats(ksteps(r))) {
+    ring = smem;
+    fk = ring + stages * unit;
+    la = fk + n * kTcRows;
     i0 = reinterpret_cast<int*>(la + kTcRows);
+    order = i0 + kTcRows;
+    count = order + kTcRows;
+    start = count + kTcRows;
+    full = reinterpret_cast<uint64_t*>(start + kTcRows);
+    empty = full + kMaxStages;
   }
 };
 
-// This warp's rows of the tile at row0 as its A fragments, in f32: ax[s]
-// holds k-step s (element e: row 16w + g + 8 (e & 1), column 8s + t +
-// 4 (e >> 1)); zero past row m and column r.
-template <int KS>
-__device__ __forceinline__ void load_ax(float (&ax)[KS][4],
-                                        const float* __restrict__ phi,
-                                        long long row0, int m, int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long base = row0 + 16 * warp + (lane >> 2);
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long row = base + 8 * (e & 1);
-      const int col = 8 * s + (lane & 3) + 4 * (e >> 1);
-      ax[s][e] = (row < m && col < r) ? phi[row * r + col] : 0.0f;
-    }
-  }
+// ---- the ring: mbarriers and bulk copies ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Node x's (r, r) block of the factor into bhi / blo, split, zero up to
-// the padded rank; a warp a row, lanes along the row.
-__device__ __forceinline__ void stage_node(const Smem& sm,
-                                           const float* __restrict__ bmat,
-                                           int n, int r, int x) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t nr = static_cast<size_t>(n) * r;
-  for (int i = warp; i < sm.rp; i += kWarps) {
-    for (int j = lane; j < sm.rp; j += 32) {
-      const float v = (i < r && j < r) ? bmat[i * nr + x * r + j] : 0.0f;
-      uint32_t hi, lo;
-      split_tf32(v, hi, lo);
-      sm.bhi[i * sm.bp + j] = __uint_as_float(hi);
-      sm.blo[i * sm.bp + j] = __uint_as_float(lo);
-    }
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
 }
 
-// fk of this warp's 16 rows at node x (B_x staged) into the fk tile
-// (fk_at<SWZ>).  The small products lo.hi and hi.lo of every k-step go
-// into v first, then each k-step's large product hi.hi, formed in an
-// accumulator of its own, is added in f32 in k-step order.
-template <bool SWZ, int KS>
-__device__ __forceinline__ void node_conditional(const Smem& sm,
-                                                 const float (&ax)[KS][4],
-                                                 int ks, int x) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float v[KS][4];
-#pragma unroll
-  for (int c = 0; c < KS; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[c][e] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    if (s < ks) {
-      uint32_t ahi[4], alo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(ax[s][e], ahi[e], alo[e]);
-      const float* bh = sm.bhi + (8 * s + t) * sm.bp + g;
-      const float* bl = sm.blo + (8 * s + t) * sm.bp + g;
-#pragma unroll
-      for (int c = 0; c < KS; ++c) {
-        if (c < ks) {
-          mma_tf32(v[c], alo, __float_as_uint(bh[8 * c]),
-                   __float_as_uint(bh[4 * sm.bp + 8 * c]));
-          mma_tf32(v[c], ahi, __float_as_uint(bl[8 * c]),
-                   __float_as_uint(bl[4 * sm.bp + 8 * c]));
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    if (s < ks) {
-      uint32_t ahi[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ahi[e] = __float_as_uint(tf32_round(ax[s][e]));
-      const float* bh = sm.bhi + (8 * s + t) * sm.bp + g;
-#pragma unroll
-      for (int c = 0; c < KS; ++c) {
-        if (c < ks) {
-          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_tf32(p, ahi, __float_as_uint(bh[8 * c]),
-                   __float_as_uint(bh[4 * sm.bp + 8 * c]));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[c][e] = __fadd_rn(v[c][e], p[e]);
-        }
-      }
-    }
-  }
-  // the squares of rows 16w + g (s0) and 16w + g + 8 (s1): reduce_half's
-  // order, then the quad's sums
-  float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < KS; ++c) {
-    if (c < ks) {
-      s0 = fmaf(v[c][0], v[c][0], s0);
-      s0 = fmaf(v[c][1], v[c][1], s0);
-      s1 = fmaf(v[c][2], v[c][2], s1);
-      s1 = fmaf(v[c][3], v[c][3], s1);
-    }
-  }
-  s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 1);
-  s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 1);
-  s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 2);
-  s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 2);
-  if (t == 0) {
-    sm.fk[fk_at<SWZ>(x, 16 * warp + g)] = s0;
-    sm.fk[fk_at<SWZ>(x, 16 * warp + g + 8)] = s1;
-  }
+// Until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
 }
 
-// fk of the tile at row0 at every node into the fk tile, B_x staged
-// node by node.  Every thread of the block calls it; it returns after a
-// barrier, with the fk tile complete.
-template <bool SWZ, int KS>
-__device__ __forceinline__ void wide_conditional(const Smem& sm,
-                                                 const float* __restrict__ phi,
-                                                 const float* __restrict__ bmat,
-                                                 long long row0, int m, int n,
-                                                 int r) {
-  float ax[KS][4];
-  load_ax<KS>(ax, phi, row0, m, r);
-  const int ks = sm.rp / 8;
-  for (int x = 0; x < n; ++x) {
-    __syncthreads();                 // the last node's B_x is done with
-    stage_node(sm, bmat, n, r, x);
-    __syncthreads();
-    node_conditional<SWZ, KS>(sm, ax, ks, x);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst by the bulk
+// copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+// The consumer warpgroups' barrier (the producer warpgroup never
+// joins).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// A position in the ring: the stage and the parity of its round.
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Thread 0 initialises the barriers; every thread of the block returns
+// after they are visible.
+__device__ __forceinline__ void init_ring(const Smem& sm) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sm.stages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// fk of one row at node x in f32 on the CUDA cores, by one thread (p:
-// the row's phi): for each j one FMA chain over i in order, then one
-// over j for the squares; the chain of TcStage::warp_node_fk and
-// thread_node_fk, read from the factor in global memory.
-__device__ __forceinline__ float node_fk(const float* p,
-                                         const float* __restrict__ bmat,
-                                         int n, int r, int x) {
+// Registers.  A block of 384 threads compiles to 168 a thread (ptxas
+// allocates a block by whole warpgroups); where ks > 4 the consumers need
+// more (phi's split and five accumulators: ~230 at ks = 16), so the
+// producer warpgroup gives 144 back and each consumer takes 72
+// (setmaxnreg; the counts of every such instance are 168, which
+// chip_smoke.py checks in ptxas's report).
+template <int KS>
+__device__ __forceinline__ void producer_registers() {
+  if constexpr (KS > 4)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+
+template <int KS>
+__device__ __forceinline__ void consumer_registers() {
+  if constexpr (KS > 4)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// The producer (one lane): every unit of every tile of this block, in
+// the consumers' order, into the next free stage.
+__device__ __forceinline__ void produce(const Smem& sm,
+                                        const float* __restrict__ split,
+                                        int m, int n, int r) {
+  const int per_tile = n * node_units(ksteps(r));
+  const int ntiles = (m + kTcRows - 1) / kTcRows;
+  const uint32_t bytes = 4u * static_cast<uint32_t>(sm.unit);
+  RingPos pos;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    for (int k = 0; k < per_tile; ++k) {
+      mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+      mbar_expect_tx(&sm.full[pos.stage], bytes);
+      bulk_load(sm.ring + static_cast<size_t>(pos.stage) * sm.unit,
+                split + static_cast<size_t>(k) * sm.unit, bytes,
+                &sm.full[pos.stage]);
+      pos.next(sm.stages);
+    }
+  }
+}
+
+// ---- the conditional on the tensor cores ----
+
+template <int K>
+__device__ __forceinline__ void zero(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) d[i] = 0.0f;
+}
+
+// fk of this warpgroup's 64 rows of the tile at every node into the fk
+// tile, KSR k-steps (KSR <= KS, the fragments held).  A unit is one
+// commit group: lo.hi and hi.lo of every k-step into `small`, hi.hi of
+// k-steps s into part[s / G] (G k-steps a part, at most kParts parts);
+// then v = (((small + P0) + P1) + ...) in f32 and its squares into the
+// row sums.
+template <int KSR, bool SWZ, int KS>
+__device__ __forceinline__ void tile_conditional(
+    const Smem& sm, RingPos& pos, const uint32_t (&ahi)[KS][4],
+    const uint32_t (&alo)[KS][4], int n) {
+  static_assert(KSR >= 1 && KSR <= KS, "k-steps past the fragments held");
+  constexpr int NU = node_units(KSR);
+  constexpr int NC = unit_groups(KSR);
+  constexpr int G = (KSR + kParts - 1) / kParts;
+  constexpr int NP = (KSR + G - 1) / G;
+  constexpr uint32_t kPart = 4u * (8 * KSR) * (8 * NC);
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int row = 64 * (threadIdx.x >> 7) + 16 * warp + (lane >> 2);
+  const uint32_t ring = smem_u32(sm.ring);
+  for (int x = 0; x < n; ++x) {
+    float s0 = 0.0f, s1 = 0.0f;
+    for (int u = 0; u < NU; ++u) {
+      float small[4 * NC], part[NP][4 * NC];
+      zero(small);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) zero(part[p]);
+      mbar_wait(&sm.full[pos.stage], pos.phase);
+      const uint32_t hi = ring + 4u * pos.stage * sm.unit;
+      const uint32_t lo = hi + kPart;
+      fence_regs(small);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(part[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < KSR; ++s)
+        Wgmma<8 * NC>::mma(small, alo[s], unit_desc(hi, NC, s), s > 0);
+#pragma unroll
+      for (int s = 0; s < KSR; ++s)
+        Wgmma<8 * NC>::mma(small, ahi[s], unit_desc(lo, NC, s), 1);
+#pragma unroll
+      for (int s = 0; s < KSR; ++s)
+        Wgmma<8 * NC>::mma(part[s / G], ahi[s], unit_desc(hi, NC, s),
+                           s % G != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(small);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(part[p]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[pos.stage]);
+      pos.next(sm.stages);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = small[4 * c + e];
+#pragma unroll
+          for (int p = 0; p < NP; ++p)
+            v[e] = __fadd_rn(v[e], part[p][4 * c + e]);
+        }
+        s0 = fmaf(v[0], v[0], s0);
+        s0 = fmaf(v[1], v[1], s0);
+        s1 = fmaf(v[2], v[2], s1);
+        s1 = fmaf(v[3], v[3], s1);
+      }
+    }
+    s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 1);
+    s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 1);
+    s0 += __shfl_xor_sync(0xFFFFFFFFu, s0, 2);
+    s1 += __shfl_xor_sync(0xFFFFFFFFu, s1, 2);
+    if ((lane & 3) == 0) {
+      sm.fk[fk_at<SWZ>(x, row)] = s0;
+      sm.fk[fk_at<SWZ>(x, row + 8)] = s1;
+    }
+  }
+}
+
+#define TTIRT_KSR(K) \
+  case K: tile_conditional<K, SWZ, KS>(sm, pos, ahi, alo, n); break;
+
+// fk of the tile at row0 at every node into the fk tile, by the two
+// consumer warpgroups (every consumer thread calls it; it returns after
+// their barrier, with the tile complete).
+template <bool SWZ, int KS>
+__device__ __forceinline__ void consumer_stage(const Smem& sm, RingPos& pos,
+                                               const float* __restrict__ phi,
+                                               long long row0, int m, int n,
+                                               int r) {
+  uint32_t ahi[KS][4], alo[KS][4];
+  load_a_split<KS>(ahi, alo, phi, row0, threadIdx.x >> 7, m, r);
+  consumer_sync();                  // the last tile's fk tile is done with
+  if constexpr (KS == 4) {
+    switch (ksteps(r)) { TTIRT_KSR(1) TTIRT_KSR(2) TTIRT_KSR(3)
+                         default: TTIRT_KSR(4) }
+  } else if constexpr (KS == 8) {
+    switch (ksteps(r)) { TTIRT_KSR(5) TTIRT_KSR(6) TTIRT_KSR(7)
+                         default: TTIRT_KSR(8) }
+  } else {
+    switch (ksteps(r)) { TTIRT_KSR(9) TTIRT_KSR(10) TTIRT_KSR(11)
+                         TTIRT_KSR(12) TTIRT_KSR(13) TTIRT_KSR(14)
+                         TTIRT_KSR(15) default: TTIRT_KSR(16) }
+  }
+  consumer_sync();                  // every row's fk at every node
+}
+
+#undef TTIRT_KSR
+
+// ---- the f32 recompute and the CDF stage ----
+
+// pv[u] = p[lane + 32 u] (0 past r).
+template <int L>
+__device__ __forceinline__ void load_lanes(float (&pv)[L],
+                                           const float* __restrict__ p,
+                                           int r) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < L; ++u) {
+    const int j = lane + 32 * u;
+    pv[u] = j < r ? p[j] : 0.0f;
+  }
+}
+
+// fk of one row at node x in f32 on the CUDA cores, by the whole warp
+// (pv: the row's phi as load_lanes leaves it): lane j forms v_j by one
+// FMA chain over i in order, reading B_x's row i coalesced from global
+// memory, then every lane forms sum_j v_j^2 by one FMA chain over j in
+// order (TcStage::warp_node_fk's chains).
+__device__ __forceinline__ float warp_node_fk(const float (&pv)[kLanes],
+                                              const float* __restrict__ bmat,
+                                              int n, int r, int x) {
+  const int lane = threadIdx.x & 31;
   const size_t nr = static_cast<size_t>(n) * r;
-  const float* bx = bmat + x * r;
+  const float* bx = bmat + static_cast<size_t>(x) * r;
+  float v[kLanes];
+#pragma unroll
+  for (int u = 0; u < kLanes; ++u) v[u] = 0.0f;
+#pragma unroll
+  for (int u0 = 0; u0 < kLanes; ++u0) {
+    for (int l = 0; l < 32; ++l) {
+      const int i = 32 * u0 + l;
+      if (i >= r) break;
+      const float pi = __shfl_sync(0xFFFFFFFFu, pv[u0], l);
+      const float* bi = bx + i * nr;
+#pragma unroll
+      for (int u = 0; u < kLanes; ++u) {
+        const int j = lane + 32 * u;
+        if (j < r) v[u] = fmaf(pi, bi[j], v[u]);
+      }
+    }
+  }
   float f = 0.0f;
-  for (int j = 0; j < r; ++j) {
-    float v = 0.0f;
-    for (int i = 0; i < r; ++i) v = fmaf(p[i], bx[i * nr + j], v);
-    f = fmaf(v, v, f);
+#pragma unroll
+  for (int u = 0; u < kLanes; ++u) {
+    for (int l = 0; l < 32; ++l) {
+      if (32 * u + l >= r) break;
+      const float vj = __shfl_sync(0xFFFFFFFFu, v[u], l);
+      f = fmaf(vj, vj, f);
+    }
   }
   return f;
 }
 
-// The CDF stage of tile row tid (row = row0 + tid < m) on its fk column:
-// cdf_bracket, then f1 or f2 below kRecompute of the row's largest fk
-// recomputed by node_fk (TcStage::bracket's rule).
+// The CDF stage of tile row tid (< kTcRows; live: row < m) on its fk
+// column: cdf_bracket, then f1 or f2 below kRecompute of the row's
+// largest fk recomputed by warp_node_fk (TcStage::bracket's rule).
+// Every thread of the warp calls it.
 template <bool RT>
-__device__ __forceinline__ Bracket wide_bracket(const Smem& sm, int tid,
-                                                const float* p,
-                                                const float* __restrict__ bmat,
-                                                const float* __restrict__ h,
-                                                const float* __restrict__ xg,
-                                                int n, int r, float q,
-                                                float um) {
-  const float* fcol = sm.fk + tid;
-  Bracket b = cdf_bracket<RT>(fcol, kTcRows, h, xg, n, q, um);
-  if (!b.flat) {
-    float fmax = 0.0f;
-    for (int k = 0; k < n; ++k) fmax = fmaxf(fmax, fcol[k * kTcRows]);
-    const float tiny = kRecompute * fmax;
-    if (b.f1 < tiny) b.f1 = node_fk(p, bmat, n, r, b.i0);
-    if (b.f2 < tiny) b.f2 = node_fk(p, bmat, n, r, b.i0 + 1);
+__device__ __forceinline__ Bracket wide_bracket(
+    const Smem& sm, int tid, bool live, const float* __restrict__ phi,
+    long long row, const float* __restrict__ bmat,
+    const float* __restrict__ h, const float* __restrict__ xg, int n, int r,
+    float q, float um) {
+  const int lane = threadIdx.x & 31;
+  Bracket b{};
+  int need = 0;                     // bit 0: f1, bit 1: f2
+  if (live) {
+    const float* fcol = sm.fk + tid;
+    b = cdf_bracket<RT>(fcol, kTcRows, h, xg, n, q, um);
+    if (!b.flat) {
+      float fmax = 0.0f;
+      for (int k = 0; k < n; ++k) fmax = fmaxf(fmax, fcol[k * kTcRows]);
+      const float tiny = kRecompute * fmax;
+      need = (b.f1 < tiny ? 1 : 0) | (b.f2 < tiny ? 2 : 0);
+    }
+  }
+  unsigned todo = __ballot_sync(0xFFFFFFFFu, need != 0);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const long long rs = __shfl_sync(0xFFFFFFFFu, row, src);
+    const int is = __shfl_sync(0xFFFFFFFFu, b.i0, src);
+    const int which = __shfl_sync(0xFFFFFFFFu, need, src);
+    float pv[kLanes];
+    load_lanes(pv, phi + rs * r, r);
+    if (which & 1) {
+      const float f = warp_node_fk(pv, bmat, n, r, is);
+      if (lane == src) b.f1 = f;
+    }
+    if (which & 2) {
+      const float f = warp_node_fk(pv, bmat, n, r, is + 1);
+      if (lane == src) b.f2 = f;
+    }
   }
   return b;
 }
 
-// dim_step's prefix update: acc_j = sum_i p_i (la Ca[i, j] + lb Cb[i, j])
-// over i in order, Ca and Cb the (r, r) core slices C[i0], C[i0+1]
-// (cmat (n, r*r)); update_wide_kernel's chain.
+// ---- the prefix updates ----
+
+// dim_step's: phi' = phi (la C[i0] + (1 - la) C[i0+1]) / max-abs, each
+// column one FMA chain over i in order (update_wide_kernel's chain), for
+// the tile's rows sorted by cell so that one read of the two (r, r)
+// slices (cmat (n, r*r)) serves a batch of up to kBatch rows of a cell.
+// An instance of KS k-steps gives a lane L = KS / 4 columns.
 struct CoreUpdate {
-  __device__ __forceinline__ static void row(const float* p,
-                                             const float* __restrict__ cmat,
-                                             int n, int r, int i0, float la,
-                                             float (&acc)[kLanes]) {
+  template <int KS>
+  __device__ __forceinline__ static void tile(const Smem& sm,
+                                              const float* __restrict__ phi,
+                                              const float* __restrict__ cmat,
+                                              float* __restrict__ phin,
+                                              long long row0, int m, int n,
+                                              int r) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long left = m - row0;
+    const int rows = static_cast<int>(left < kTcRows ? left : kTcRows);
+    const int cells = n - 1;
+    for (int c = tid; c < cells; c += kConsumers) sm.count[c] = 0;
+    consumer_sync();
+    int rank = 0;
+    if (tid < rows) rank = atomicAdd(&sm.count[sm.i0[tid]], 1);
+    consumer_sync();
+    if (warp == 0) {                // the cells' starts, 4 cells a lane
+      int c4[4], sum = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 4 * lane + k;
+        c4[k] = c < cells ? sm.count[c] : 0;
+        sum += c4[k];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+        if (lane >= off) incl += t;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = 4 * lane + k;
+        if (c < cells) sm.start[c] = run;
+        run += c4[k];
+      }
+    }
+    consumer_sync();
+    if (tid < rows) sm.order[sm.start[sm.i0[tid]] + rank] = tid;
+    consumer_sync();
+    const int end = min(16 * warp + 16, rows);
+    for (int p = 16 * warp; p < end;) {
+      const int x = sm.i0[sm.order[p]];
+      int cnt = 1;
+      while (cnt < kBatch && p + cnt < end && sm.i0[sm.order[p + cnt]] == x)
+        ++cnt;
+      batch<KS / 4>(sm, phi, cmat, phin, row0, r, p, cnt, x);
+      p += cnt;
+    }
+  }
+
+  // The rows at sorted positions p .. p + cnt - 1, all of cell x (a
+  // short batch repeats its first row and stores kBatch - cnt fewer: no
+  // branch among the FMAs); rows i of C[x] and C[x+1] are read D = 32 / L
+  // at a time, all loaded before their FMAs (2 D L = 64 registers).  The
+  // loop's body, not its bytes, sets the time: larger batches are slower
+  // (tools/tc_variants.py --update-batches; PERF.md).
+  template <int L>
+  __device__ __forceinline__ static void batch(const Smem& sm,
+                                               const float* __restrict__ phi,
+                                               const float* __restrict__ cmat,
+                                               float* __restrict__ phin,
+                                               long long row0, int r, int p,
+                                               int cnt, int x) {
+    constexpr int D = 32 / L;
     const int lane = threadIdx.x & 31;
+    int row[kBatch];
+    float la[kBatch], lb[kBatch], pv[kBatch][L], acc[kBatch][L];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      row[k] = sm.order[p + (k < cnt ? k : 0)];
+      la[k] = sm.la[row[k]];
+      lb[k] = 1.0f - la[k];
+      load_lanes(pv[k], phi + (row0 + row[k]) * r, r);
+#pragma unroll
+      for (int u = 0; u < L; ++u) acc[k][u] = 0.0f;
+    }
     const size_t rr = static_cast<size_t>(r) * r;
-    const float* ca = cmat + i0 * rr;
+    const float* ca = cmat + x * rr;
     const float* cb = ca + rr;
-    const float lb = 1.0f - la;
 #pragma unroll
-    for (int k = 0; k < kLanes; ++k) acc[k] = 0.0f;
-    for (int i = 0; i < r; ++i) {
-      const float pi = p[i];
+    for (int u0 = 0; u0 < L; ++u0) {
+      for (int l0 = 0; l0 < 32 && 32 * u0 + l0 < r; l0 += D) {
+        float a[D][L], b[D][L];
 #pragma unroll
-      for (int k = 0; k < kLanes; ++k) {
-        const int j = lane + 32 * k;
-        if (j < r) {
-          const float b = la * ca[i * r + j] + lb * cb[i * r + j];
-          acc[k] = fmaf(pi, b, acc[k]);
+        for (int d = 0; d < D; ++d) {
+          const int i = 32 * u0 + l0 + d;
+#pragma unroll
+          for (int u = 0; u < L; ++u) {
+            const int j = lane + 32 * u;
+            const bool in = i < r && j < r;
+            a[d][u] = in ? ca[i * r + j] : 0.0f;
+            b[d][u] = in ? cb[i * r + j] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          if (32 * u0 + l0 + d < r) {
+#pragma unroll
+            for (int k = 0; k < kBatch; ++k) {
+              const float pi = __shfl_sync(0xFFFFFFFFu, pv[k][u0], l0 + d);
+#pragma unroll
+              for (int u = 0; u < L; ++u)
+                acc[k][u] = fmaf(pi, la[k] * a[d][u] + lb[k] * b[d][u],
+                                 acc[k][u]);
+            }
+          }
         }
       }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (k < cnt) store_row(acc[k], phin + (row0 + row[k]) * r, r);
+  }
+
+  // acc / max-abs over the row (floor 1e-30) into out (r,).
+  template <int L>
+  __device__ __forceinline__ static void store_row(const float (&acc)[L],
+                                                   float* __restrict__ out,
+                                                   int r) {
+    const int lane = threadIdx.x & 31;
+    float scale = 0.0f;
+#pragma unroll
+    for (int u = 0; u < L; ++u)
+      if (lane + 32 * u < r) scale = fmaxf(scale, fabsf(acc[u]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      scale = fmaxf(scale, __shfl_xor_sync(0xFFFFFFFFu, scale, off));
+    const float denom = fmaxf(scale, 1e-30f);
+#pragma unroll
+    for (int u = 0; u < L; ++u) {
+      const int j = lane + 32 * u;
+      if (j < r) out[j] = acc[u] / denom;
     }
   }
 };
 
 // odim_step's readout: va_j = sum_i p_i Q[i, i0*r + j] and vb_j at
 // i0 + 1, one chain each over i in order, then la va + (1 - la) vb
-// (FactorSlices' order), Q (r, n*r).
+// (FactorSlices' order), Q (r, n*r); a warp a row, 16 tile rows a warp.
 struct FactorUpdate {
   __device__ __forceinline__ static void row(const float* p,
                                              const float* __restrict__ qmat,
@@ -366,172 +687,251 @@ struct FactorUpdate {
 #pragma unroll
     for (int k = 0; k < kLanes; ++k) acc[k] = la * acc[k] + lb * vb[k];
   }
+
+  template <int KS>
+  __device__ __forceinline__ static void tile(const Smem& sm,
+                                              const float* __restrict__ phi,
+                                              const float* __restrict__ qmat,
+                                              float* __restrict__ phin,
+                                              long long row0, int m, int n,
+                                              int r) {
+    const int warp = threadIdx.x >> 5;
+    for (int k = 0; k < 16; ++k) {
+      const int trow = 16 * warp + k;
+      const long long row = row0 + trow;
+      if (row >= m) break;                      // uniform across the warp
+      float acc[kLanes];
+      FactorUpdate::row(phi + row * r, qmat, n, r, sm.i0[trow], sm.la[trow],
+                        acc);
+      CoreUpdate::store_row(acc, phin + row * r, r);
+    }
+  }
 };
 
-// The prefix update of this warp's 16 tile rows (their i0 and la in
-// shared memory), a warp a row: Update's sums, then / max-abs over the
-// row (floor 1e-30).
-template <class Update>
-__device__ __forceinline__ void warp_update(const Smem& sm,
-                                            const float* __restrict__ phi,
-                                            const float* __restrict__ slices,
-                                            float* __restrict__ phin,
-                                            long long row0, int m, int n,
-                                            int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k = 0; k < 16; ++k) {
-    const int trow = 16 * warp + k;
-    const long long row = row0 + trow;
-    if (row >= m) break;                      // uniform across the warp
-    float acc[kLanes];
-    Update::row(phi + row * r, slices, n, r, sm.i0[trow], sm.la[trow], acc);
-    float scale = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kLanes; ++u)
-      if (lane + 32 * u < r) scale = fmaxf(scale, fabsf(acc[u]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      scale = fmaxf(scale, __shfl_xor_sync(0xFFFFFFFFu, scale, off));
-    const float denom = fmaxf(scale, 1e-30f);
-#pragma unroll
-    for (int u = 0; u < kLanes; ++u) {
-      const int j = lane + 32 * u;
-      if (j < r) phin[row * r + j] = acc[u] / denom;
-    }
+// ---- the kernels ----
+
+// The split factor: unit k = x * nu + u of node x holds its hi part,
+// then its lo part, each (8 ks, 8 nc) in unit_core_offset's layout;
+// columns u * 8 nc + j past r and K rows past r are zero.
+__global__ void split_factor_kernel(const float* __restrict__ bmat,
+                                    float* __restrict__ split, int n, int r) {
+  const int ks = ksteps(r), nu = node_units(ks), nc = unit_groups(ks);
+  const int cols = 8 * nc, part = (8 * ks) * cols;
+  const long long total = static_cast<long long>(n) * nu * part;
+  const size_t nr = static_cast<size_t>(n) * r;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x)
+                       + threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long k = idx / part;
+    const int rem = static_cast<int>(idx - k * part);
+    const int i = rem / cols, jl = rem - i * cols;
+    const int x = static_cast<int>(k / nu), u = static_cast<int>(k % nu);
+    const int j = cols * u + jl;
+    const float v = (i < r && j < r) ? bmat[i * nr + x * r + j] : 0.0f;
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    const long long o = 2 * k * part + unit_core_offset(nc, i, jl);
+    split[o] = __uint_as_float(hi);
+    split[o + part] = __uint_as_float(lo);
   }
 }
 
 // dim_step (Update = CoreUpdate, slices = cmat) and odim_step (Update =
 // FactorUpdate, slices = bmat = Q): phi (m, r), qp/um (m,), bmat (r, n*r),
-// h (n-1,), xg (2, n) -> phin (m, r), out9 (m, 9).
+// split (the factor as split_factor_kernel leaves it), h (n-1,), xg (2, n)
+// -> phin (m, r), out9 (m, 9).
 template <bool RT, class Update, int KS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 1)
 dim_wide_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
                 const float* __restrict__ um, const float* __restrict__ bmat,
                 const float* __restrict__ slices, const float* __restrict__ h,
-                const float* __restrict__ xg, float* __restrict__ phin,
-                float* __restrict__ out9, int m, int n, int r) {
+                const float* __restrict__ xg, const float* __restrict__ split,
+                float* __restrict__ phin, float* __restrict__ out9, int m,
+                int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
+  init_ring(sm);
+  if (threadIdx.x >= kConsumers) {
+    producer_registers<KS>();
+    if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
+    return;
+  }
+  consumer_registers<KS>();
   const int tid = threadIdx.x;
   const int ntiles = (m + kTcRows - 1) / kTcRows;
+  RingPos pos;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = static_cast<long long>(tile) * kTcRows;
-    wide_conditional<false, KS>(sm, phi, bmat, row0, m, n, r);
-    const long long row = row0 + tid;
-    if (tid < kTcRows && row < m) {
-      const float q = qp[row];
-      const Bracket b = wide_bracket<RT>(sm, tid, phi + row * r, bmat, h, xg,
-                                         n, r, q, RT ? 0.0f : um[row]);
-      write_out9(out9 + row * 9, b, xg + n);
-      sm.i0[tid] = b.i0;
-      sm.la[tid] = cell_weight<RT>(b, q);
+    consumer_stage<false, KS>(sm, pos, phi, row0, m, n, r);
+    if (tid < kTcRows) {            // the first warpgroup: a thread a row
+      const long long row = row0 + tid;
+      const bool live = row < m;
+      const float q = live ? qp[row] : 0.0f;
+      const Bracket b = wide_bracket<RT>(
+          sm, tid, live, phi, row, bmat, h, xg, n, r, q,
+          (RT || !live) ? 0.0f : um[row]);
+      if (live) {
+        write_out9(out9 + row * 9, b, xg + n);
+        sm.i0[tid] = b.i0;
+        sm.la[tid] = cell_weight<RT>(b, q);
+      }
     }
-    __syncthreads();                 // every row's bracket and weight
-    warp_update<Update>(sm, phi, slices, phin, row0, m, n, r);
+    consumer_sync();                // every row's bracket and weight
+    Update::template tile<KS>(sm, phi, slices, phin, row0, m, n, r);
   }
 }
 
-// cdf_bracket_factor: phi (m, r), qp (m,), bmat, h, xg -> out9 (m, 9),
-// i0 (m,) int32; the right-tail target from f32(1 - qp).
+// cdf_bracket_factor: phi (m, r), qp (m,), bmat, split, h, xg -> out9
+// (m, 9), i0 (m,) int32; the right-tail target from f32(1 - qp).
 template <bool RT, int KS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 1)
 bracket_wide_kernel(const float* __restrict__ phi,
                     const float* __restrict__ qp,
                     const float* __restrict__ bmat,
                     const float* __restrict__ h,
-                    const float* __restrict__ xg, float* __restrict__ out9,
+                    const float* __restrict__ xg,
+                    const float* __restrict__ split, float* __restrict__ out9,
                     int* __restrict__ i0, int m, int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
+  init_ring(sm);
+  if (threadIdx.x >= kConsumers) {
+    producer_registers<KS>();
+    if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
+    return;
+  }
+  consumer_registers<KS>();
   const int tid = threadIdx.x;
   const int ntiles = (m + kTcRows - 1) / kTcRows;
+  RingPos pos;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = static_cast<long long>(tile) * kTcRows;
-    wide_conditional<false, KS>(sm, phi, bmat, row0, m, n, r);
-    const long long row = row0 + tid;
-    if (tid < kTcRows && row < m) {
-      const float q = qp[row];
-      const Bracket b = wide_bracket<RT>(sm, tid, phi + row * r, bmat, h, xg,
-                                         n, r, q, __fsub_rn(1.0f, q));
-      write_out9(out9 + row * 9, b, xg + n);
-      i0[row] = b.i0;
+    consumer_stage<false, KS>(sm, pos, phi, row0, m, n, r);
+    if (tid < kTcRows) {
+      const long long row = row0 + tid;
+      const bool live = row < m;
+      const float q = live ? qp[row] : 0.0f;
+      const Bracket b = wide_bracket<RT>(sm, tid, live, phi, row, bmat, h,
+                                         xg, n, r, q, __fsub_rn(1.0f, q));
+      if (live) {
+        write_out9(out9 + row * 9, b, xg + n);
+        i0[row] = b.i0;
+      }
     }
   }
 }
 
-// factor_conditional: phi (m, r), bmat (r, n*r) -> fk (m, n).  Every
-// node below kRecompute of its row's largest is recomputed by node_fk
-// (the row's own thread), then the tile leaves as the contiguous
+// factor_conditional: phi (m, r), bmat (r, n*r), split -> fk (m, n).
+// Every node below kRecompute of its row's largest is recomputed by
+// warp_node_fk (a warp a row), then the tile leaves as the contiguous
 // (rows, n) block (the fk tile swizzled per node, fk_at<true>, so that a
 // warp's transposed read meets 32 banks).
 template <int KS>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, 1)
 conditional_wide_kernel(const float* __restrict__ phi,
                         const float* __restrict__ bmat,
+                        const float* __restrict__ split,
                         float* __restrict__ fk_out, int m, int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
-  const int tid = threadIdx.x;
+  init_ring(sm);
+  if (threadIdx.x >= kConsumers) {
+    producer_registers<KS>();
+    if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
+    return;
+  }
+  consumer_registers<KS>();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ntiles = (m + kTcRows - 1) / kTcRows;
+  RingPos pos;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = static_cast<long long>(tile) * kTcRows;
-    wide_conditional<true, KS>(sm, phi, bmat, row0, m, n, r);
-    if (tid < kTcRows && row0 + tid < m) {
-      float fmax = 0.0f;
-      for (int x = 0; x < n; ++x)
-        fmax = fmaxf(fmax, sm.fk[fk_at<true>(x, tid)]);
-      const float tiny = kRecompute * fmax;
-      const float* p = phi + (row0 + tid) * r;
-      for (int x = 0; x < n; ++x)
-        if (sm.fk[fk_at<true>(x, tid)] < tiny)
-          sm.fk[fk_at<true>(x, tid)] = node_fk(p, bmat, n, r, x);
-    }
-    __syncthreads();                 // every row's nodes final
+    consumer_stage<true, KS>(sm, pos, phi, row0, m, n, r);
     const long long left = m - row0;
     const int rows = static_cast<int>(left < kTcRows ? left : kTcRows);
+    for (int trow = warp; trow < rows; trow += kConsumerWarps) {
+      float fmax = 0.0f;
+      for (int x = lane; x < n; x += 32)
+        fmax = fmaxf(fmax, sm.fk[fk_at<true>(x, trow)]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        fmax = fmaxf(fmax, __shfl_xor_sync(0xFFFFFFFFu, fmax, off));
+      const float tiny = kRecompute * fmax;
+      float pv[kLanes];
+      load_lanes(pv, phi + (row0 + trow) * r, r);
+      for (int xb = 0; xb < n; xb += 32) {
+        const int x = xb + lane;
+        unsigned todo = __ballot_sync(
+            0xFFFFFFFFu, x < n && sm.fk[fk_at<true>(x, trow)] < tiny);
+        while (todo) {
+          const int src = __ffs(todo) - 1;
+          todo &= todo - 1;
+          const float f = warp_node_fk(pv, bmat, n, r, xb + src);
+          if (lane == src) sm.fk[fk_at<true>(x, trow)] = f;
+        }
+      }
+    }
+    consumer_sync();                 // every row's nodes final
     float* out = fk_out + row0 * n;
-    for (int f = tid; f < rows * n; f += kBlock) {
+    for (int f = tid; f < rows * n; f += kConsumers) {
       const int i = f / n;
       out[f] = sm.fk[fk_at<true>(f - i * n, i)];
     }
   }
 }
 
-// A persistent launch of kern at (m, n, r): kBlock threads and
-// wide_smem_bytes(n, r) a block, one 128-row tile a block at a time.
-cudaError_t wide_launch(const void* kern, void** args, int m, int n, int r,
-                        int device, void* stream) {
+// The factor split into `split` on `stream`.
+cudaError_t split_launch(const float* bmat, float* split, int n, int r,
+                         cudaStream_t stream) {
+  const long long total = scratch_floats(n, r) / 2;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  split_factor_kernel<<<static_cast<int>(blocks), 256, 0, stream>>>(
+      bmat, split, n, r);
+  return cudaGetLastError();
+}
+
+// The split, then a persistent launch of kern at (m, n, r): kBlock
+// threads and wide_smem_bytes(n, r) a block, one 128-row tile a block at
+// a time (one block an SM: the registers and shared memory).
+cudaError_t wide_launch(const void* kern, void** args, const float* bmat,
+                        float* split, int m, int n, int r, int device,
+                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = split_launch(bmat, split, n, r, s);
+  if (e != cudaSuccess) return e;
   const size_t smem = wide_smem_bytes(n, r);
   int cap = 0;
-  cudaError_t e = grid_cap(kern, device, smem, &cap, kBlock);
+  e = grid_cap(kern, device, smem, &cap, kBlock);
   if (e != cudaSuccess) return e;
   const int tiles = (m + kTcRows - 1) / kTcRows;
   return cudaLaunchKernel(kern, dim3(tiles < cap ? tiles : cap),
-                          dim3(kBlock), args, smem,
-                          static_cast<cudaStream_t>(stream));
+                          dim3(kBlock), args, smem, s);
 }
 
 template <class Update>
 int dim_like_launch(const void* phi, const void* qp, const void* um,
                     const void* bmat, const void* slices, const void* h,
                     const void* xg, void* phin, void* out9, int m, int n,
-                    int r, int rt, int device, void* stream) {
+                    int r, int rt, int device, void* stream, void* scratch) {
   if (m == 0) return 0;
   if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
   const float* p[7];
   const void* in[7] = {phi, qp, um, bmat, slices, h, xg};
   for (int k = 0; k < 7; ++k) p[k] = static_cast<const float*>(in[k]);
+  const float* sp = static_cast<const float*>(scratch);
   float* pn = static_cast<float*>(phin);
   float* o = static_cast<float*>(out9);
-  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &p[6], &pn, &o,
-                  &m, &n, &r};
+  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &p[6], &sp, &pn,
+                  &o, &m, &n, &r};
   const void* kern = nullptr;
   TTIRT_FOR_KSTEPS(r, kern = rt ? reinterpret_cast<const void*>(
                                       &dim_wide_kernel<true, Update, KS>)
                                 : reinterpret_cast<const void*>(
                                       &dim_wide_kernel<false, Update, KS>));
-  return static_cast<int>(wide_launch(kern, args, m, n, r, device, stream));
+  return static_cast<int>(wide_launch(kern, args, p[3],
+                                      static_cast<float*>(scratch), m, n, r,
+                                      device, stream));
 }
 
 }  // namespace
@@ -547,62 +947,91 @@ int factor_wide_tier(int n, int r) { return factor_wide(n, r) ? 1 : 0; }
 long long factor_wide_smem_bytes(int n, int r) {
   return static_cast<long long>(wide_smem_bytes(n, r));
 }
+// The f32 scratch a launch at (n, r) within the caps needs, in floats:
+// the factor split into hi and lo, unit by unit.
+long long factor_wide_scratch_floats(int n, int r) {
+  return scratch_floats(n, r);
+}
+
+// The split alone (the first of a launch's two kernels), for timing:
+// bmat (r, n*r) -> scratch (factor_wide_scratch_floats(n, r) floats).
+int factor_wide_split_launch(const void* bmat, void* scratch, int n, int r,
+                             int device, void* stream) {
+  (void)device;
+  if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(split_launch(static_cast<const float*>(bmat),
+                                       static_cast<float*>(scratch), n, r,
+                                       static_cast<cudaStream_t>(stream)));
+}
 
 // Each launch takes the operands of its narrow tier's entry point
 // (dim_step.cu, odim_step.cu, factor_step.cu, factor_conditional.cu),
 // device pointers to contiguous f32 arrays (i0: int32) on device
-// `device`, which must be the current device; it returns the launch's
-// cudaError_t (0 on success) and is asynchronous on `stream`.
+// `device`, which must be the current device, and last `scratch`, device
+// memory of factor_wide_scratch_floats(n, r) floats that the launch
+// overwrites; it runs two kernels (the split, then the tier's kernel),
+// returns the first failing launch's cudaError_t (0 on success) and is
+// asynchronous on `stream`.
 int dim_step_wide_launch(const void* phi, const void* qp, const void* um,
                          const void* bmat, const void* cmat, const void* h,
                          const void* xg, void* phin, void* out9, int m, int n,
-                         int r, int rt, int device, void* stream) {
+                         int r, int rt, int device, void* stream,
+                         void* scratch) {
   return dim_like_launch<CoreUpdate>(phi, qp, um, bmat, cmat, h, xg, phin,
-                                     out9, m, n, r, rt, device, stream);
+                                     out9, m, n, r, rt, device, stream,
+                                     scratch);
 }
 
 int odim_step_wide_launch(const void* psi, const void* qp, const void* um,
                           const void* qmat, const void* h, const void* xg,
                           void* psin, void* out9, int m, int n, int r, int rt,
-                          int device, void* stream) {
+                          int device, void* stream, void* scratch) {
   return dim_like_launch<FactorUpdate>(psi, qp, um, qmat, qmat, h, xg, psin,
-                                       out9, m, n, r, rt, device, stream);
+                                       out9, m, n, r, rt, device, stream,
+                                       scratch);
 }
 
 int cdf_bracket_factor_wide_launch(const void* phi, const void* qp,
                                    const void* bmat, const void* h,
                                    const void* xg, void* out9, void* i0,
                                    int m, int n, int r, int rt, int device,
-                                   void* stream) {
+                                   void* stream, void* scratch) {
   if (m == 0) return 0;
   if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
   const float* p[5];
   const void* in[5] = {phi, qp, bmat, h, xg};
   for (int k = 0; k < 5; ++k) p[k] = static_cast<const float*>(in[k]);
+  const float* sp = static_cast<const float*>(scratch);
   float* o = static_cast<float*>(out9);
   int* ix = static_cast<int*>(i0);
-  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &o, &ix, &m, &n, &r};
+  void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &sp, &o, &ix, &m, &n,
+                  &r};
   const void* kern = nullptr;
   TTIRT_FOR_KSTEPS(r, kern = rt ? reinterpret_cast<const void*>(
                                       &bracket_wide_kernel<true, KS>)
                                 : reinterpret_cast<const void*>(
                                       &bracket_wide_kernel<false, KS>));
-  return static_cast<int>(wide_launch(kern, args, m, n, r, device, stream));
+  return static_cast<int>(wide_launch(kern, args, p[2],
+                                      static_cast<float*>(scratch), m, n, r,
+                                      device, stream));
 }
 
 int factor_conditional_wide_launch(const void* phi, const void* bmat,
                                    void* fk, int m, int n, int r, int device,
-                                   void* stream) {
+                                   void* stream, void* scratch) {
   if (m == 0) return 0;
   if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
   const float* p = static_cast<const float*>(phi);
   const float* b = static_cast<const float*>(bmat);
+  const float* sp = static_cast<const float*>(scratch);
   float* f = static_cast<float*>(fk);
-  void* args[] = {&p, &b, &f, &m, &n, &r};
+  void* args[] = {&p, &b, &sp, &f, &m, &n, &r};
   const void* kern = nullptr;
   TTIRT_FOR_KSTEPS(r, kern = reinterpret_cast<const void*>(
                           &conditional_wide_kernel<KS>));
-  return static_cast<int>(wide_launch(kern, args, m, n, r, device, stream));
+  return static_cast<int>(wide_launch(kern, args, b,
+                                      static_cast<float*>(scratch), m, n, r,
+                                      device, stream));
 }
 
 }  // extern "C"

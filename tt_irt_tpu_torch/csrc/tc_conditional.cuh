@@ -377,6 +377,20 @@ __device__ __forceinline__ int core_offset(int x, int i, int j) {
          + (j & 7) * 4 + (i & 3);
 }
 
+// The same layout for one part (hi or lo) of a unit of the wide tier's
+// pre-split factor (csrc/factor_wide.cu): K = 8 ks values by N = 8 nc
+// columns, cores along N first (SBO = 128 bytes), then along K (LBO =
+// nc * 128 bytes); float offset of (K index i, column j < 8 nc).
+__host__ __device__ inline int unit_core_offset(int nc, int i, int j) {
+  return ((i >> 2) * nc + (j >> 3)) * 32 + (j & 7) * 4 + (i & 3);
+}
+
+// The descriptor of k-step s of such a part at shared address `part`.
+__device__ __forceinline__ uint64_t unit_desc(uint32_t part, int nc, int s) {
+  const uint32_t lbo = static_cast<uint32_t>(nc) * 128;
+  return smem_desc(part + 2 * s * lbo, lbo, 128);
+}
+
 template <int T>
 __device__ __forceinline__ void stage_factor_wgmma(float* bhi, float* blo,
                                                    const float* bmat, int n,

@@ -19,8 +19,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["build_all", "load_library", "library_path", "sass_tensor_ops",
-           "sources", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build_all", "load_library", "library_path", "ptxas_registers",
+           "sass_tensor_ops", "sources", "BUILD_DIR", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -116,6 +116,25 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(library_path(name))
     return _LIBS[name]
+
+
+def ptxas_registers(report: str) -> dict:
+    """{kernel (mangled name): (registers, spill-store bytes)} from the
+    ptxas lines of a ``build_all`` report (``-Xptxas -v``)."""
+    out, name, spill = {}, None, 0
+    for ln in report.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", ln)
+        if hit:
+            name, spill = hit.group(1), 0
+            continue
+        hit = re.search(r"(\d+) bytes spill stores", ln)
+        if hit:
+            spill = int(hit.group(1))
+        hit = re.search(r"Used (\d+) registers", ln)
+        if hit and name is not None:
+            out[name] = (int(hit.group(1)), spill)
+            name = None
+    return out
 
 
 # A kernel template instance in cuobjdump's function headers (mangled):

@@ -2,8 +2,9 @@
 
 Counterpart of ``tt_irt_tpu/ops/pallas_dim.py::dim_step``.
 ``dim_step_cuda`` launches the hand-written CUDA kernel
-``csrc/dim_step.cu`` (past n, r of 64 or its shared memory, the wide
-tier of ``csrc/factor_wide.cu``) and takes CUDA tensors only; ``dim_step_ref`` is the
+``csrc/dim_step.cu`` (``csrc/dim_step_rt.cu`` in mode 'rt'; past n, r
+of 64 or its shared memory, the wide tier of ``csrc/factor_wide.cu``)
+and takes CUDA tensors only; ``dim_step_ref`` is the
 same function in plain PyTorch (``irt_scan._step_factor_b`` +
 ``_cdf_rows32`` of the JAX package; the CDF part is
 ``ops/rowmath.cdf_rows32``).  Which of the two a tensor gets is
@@ -66,8 +67,13 @@ def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
         "cmat": (cmat, f32, (n, r * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
     p = ctypes.c_void_p
-    launch = _factor_launcher("dim_step_cuda", "dim_step", "dim_step",
-                              [p] * 9 + [ctypes.c_int] * 5 + [p], n, r)
+    # the narrow tier's two modes are two sources (csrc/dim_step.cu and
+    # dim_step_rt.cu), built in parallel
+    name = "dim_step_rt" if mode == "rt" else "dim_step"
+    launch = _factor_launcher("dim_step_cuda", name, name + "_launch",
+                              "dim_step_wide_launch",
+                              [p] * 9 + [ctypes.c_int] * 5 + [p], n, r,
+                              phi.device)
     phin = torch.empty((m, r), dtype=torch.float32, device=phi.device)
     out9 = torch.empty((m, 9), dtype=torch.float32, device=phi.device)
     with torch.cuda.device(phi.device):

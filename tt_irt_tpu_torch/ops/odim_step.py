@@ -67,8 +67,10 @@ def odim_step_cuda(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
         "um32": (um32, f32, (m,)), "qmat": (qmat, f32, (r, n * r)),
         "hrow": (hrow, f32, (n - 1,)), "xg": (xg, f32, (2, n))})
     p = ctypes.c_void_p
-    launch = _factor_launcher("odim_step_cuda", "odim_step", "odim_step",
-                              [p] * 8 + [ctypes.c_int] * 5 + [p], n, r)
+    launch = _factor_launcher("odim_step_cuda", "odim_step",
+                              "odim_step_launch", "odim_step_wide_launch",
+                              [p] * 8 + [ctypes.c_int] * 5 + [p], n, r,
+                              psi.device)
     psin = torch.empty((m, r), dtype=f32, device=psi.device)
     out9 = torch.empty((m, 9), dtype=f32, device=psi.device)
     with torch.cuda.device(psi.device):

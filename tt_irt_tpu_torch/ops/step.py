@@ -175,30 +175,44 @@ def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
     return out9, i0.to(torch.int32)
 
 
-def _factor_launcher(fn, name, kernel, argtypes, n, r):
+def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device):
     """The launch function of the factor-family tier that takes (n, r):
-    ``<kernel>_wide_launch`` of ``csrc/factor_wide.cu`` past the narrow
-    tier's caps (n, r <= 64) or shared memory, else ``<kernel>_launch``
-    of ``csrc/<name>.cu`` (the rule is ``factor_wide_tier``'s), typed
-    with ``argtypes``; raises past the wide tier's caps (n, r <= 128)."""
+    ``wide_fn`` of ``csrc/factor_wide.cu`` past the narrow tier's caps
+    (n, r <= 64) or shared memory, else ``launch_fn`` of
+    ``csrc/<name>.cu`` (the rule is ``factor_wide_tier``'s), typed with
+    ``argtypes``; raises past the wide tier's caps (n, r <= 128).  A wide
+    launch also takes the tier's scratch (the factor split once a call),
+    which the returned function allocates on ``device`` with the
+    caller's arguments and holds until the launch is queued."""
     wide = load_library("factor_wide")
     if wide.factor_wide_tier.argtypes is None:
-        for f in ("factor_wide_tier", "factor_wide_smem_bytes"):
+        for f in ("factor_wide_tier", "factor_wide_smem_bytes",
+                  "factor_wide_scratch_floats"):
             getattr(wide, f).argtypes = [ctypes.c_int] * 2
         for f in ("factor_wide_tier", "factor_wide_max_n",
                   "factor_wide_max_r"):
             getattr(wide, f).restype = ctypes.c_int
-        wide.factor_wide_smem_bytes.restype = ctypes.c_longlong
+        for f in ("factor_wide_smem_bytes", "factor_wide_scratch_floats"):
+            getattr(wide, f).restype = ctypes.c_longlong
     check_factor_caps(fn, n, r, wide.factor_wide_max_n(),
                       wide.factor_wide_max_r(),
                       wide.factor_wide_smem_bytes(n, r))
-    if wide.factor_wide_tier(n, r):
-        launch = getattr(wide, kernel + "_wide_launch")
-    else:
-        launch = getattr(load_library(name), kernel + "_launch")
+    if not wide.factor_wide_tier(n, r):
+        launch = getattr(load_library(name), launch_fn)
+        if launch.argtypes is None:
+            launch.argtypes, launch.restype = argtypes, ctypes.c_int
+        return launch
+    launch = getattr(wide, wide_fn)
     if launch.argtypes is None:
-        launch.argtypes, launch.restype = argtypes, ctypes.c_int
-    return launch
+        launch.argtypes = argtypes + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+    floats = wide.factor_wide_scratch_floats(n, r)
+
+    def call(*args):
+        scratch = torch.empty((floats,), dtype=torch.float32, device=device)
+        return launch(*args, scratch.data_ptr())
+
+    return call
 
 
 def factor_conditional_cuda(phi, bmat):
@@ -215,8 +229,10 @@ def factor_conditional_cuda(phi, bmat):
     check_cuda_operands(fn, phi.device, {"phi": (phi, f32, (m, r)),
                                          "bmat": (bmat, f32, (r, n * r))})
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _factor_launcher(fn, "factor_conditional", "factor_conditional",
-                              [p, p, p, i, i, i, i, p], n, r)
+    launch = _factor_launcher(fn, "factor_conditional",
+                              "factor_conditional_launch",
+                              "factor_conditional_wide_launch",
+                              [p, p, p, i, i, i, i, p], n, r, phi.device)
     fk = torch.empty((m, n), dtype=f32, device=phi.device)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -250,8 +266,9 @@ def cdf_bracket_factor_cuda(phi, qp32, bmat, hrow, xg, mode="irt"):
         "bmat": (bmat, f32, (r, n * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
     p, i = ctypes.c_void_p, ctypes.c_int
-    launch = _factor_launcher(fn, "factor_step", "cdf_bracket_factor",
-                              [p] * 7 + [i] * 5 + [p], n, r)
+    launch = _factor_launcher(fn, "factor_step", "cdf_bracket_factor_launch",
+                              "cdf_bracket_factor_wide_launch",
+                              [p] * 7 + [i] * 5 + [p], n, r, phi.device)
     out9 = torch.empty((m, 9), dtype=f32, device=phi.device)
     i0 = torch.empty((m,), dtype=torch.int32, device=phi.device)
     with torch.cuda.device(phi.device):
