@@ -3650,7 +3650,8 @@ def _wide_tier_timings(run):
     their plain versions, gram_conditional's einsum, and the bounds
     (phase 8's: the Gram contraction as 3xTF32 on the tensor cores, the
     rest on the FP32 cores, bytes against HBM; the all-FP32 bound
-    beside)."""
+    beside; condition_update's that of its cell-grouped form,
+    cell_readout_work, and the row-by-row form's all-FP32 bound beside)."""
     import numpy as np
     import torch
 
@@ -3684,8 +3685,7 @@ def _wide_tier_timings(run):
                                                       cmat), 5)
         u_plain = _time_ms(lambda: condition_update_ref(phi, i0, la, lb,
                                                         cmat), 2)
-        u_bound = _bound(mb * (5 * r * r + 2 * r),
-                         4 * (mb * (2 * r + 3) + n * r * r))
+        u_bound = _bound_tc(*cell_readout_work(mb, n, r))
         out[f"n{n}_r{r}"] = {
             "gram_ms": g_ms, "gram_plain_ms": g_plain,
             "gram_library_ms": g_lib, "gram_bound_ms": g_bound[0],
@@ -3693,7 +3693,10 @@ def _wide_tier_timings(run):
             "gram_bound_fp32_ms": _bound(mb * (2 * r * r * n + r * r),
                                          g_bytes)[0],
             "update_ms": u_ms, "update_plain_ms": u_plain,
-            "update_bound_ms": u_bound[0], "update_bound_by": u_bound[1]}
+            "update_bound_ms": u_bound[0], "update_bound_by": u_bound[1],
+            "update_bound_fp32_ms": _bound(
+                mb * (5 * r * r + 2 * r),
+                4 * (mb * (2 * r + 3) + n * r * r))[0]}
         del phi, pmat, cmat, i0, la, lb, p3
         torch.cuda.empty_cache()
     return out
@@ -4375,6 +4378,16 @@ def wide_factor_work(mb, n, r):
     return {k: (tc, mb * rest, nbytes) for k, (rest, nbytes) in work.items()}
 
 
+def cell_readout_work(mb, n, r):
+    """(tensor-core flops, other flops, bytes) of the cell-grouped readout
+    (csrc/cell_readout.cu: kernel 3's wide tier) on mb rows at (n, r):
+    each row times the two slices [S[x] | S[x+1]] (4 r^2 a row, on the
+    tensor cores as 3xTF32 in the bound), the blend, max-abs and division
+    on the CUDA cores (5 r a row); phi in and phi' out, i0, la and lb, the
+    n slices read once."""
+    return mb * 4 * r * r, mb * 5 * r, 4 * (mb * (2 * r + 3) + n * r * r)
+
+
 def _split_share(run, t, n, r, ms):
     """The factor's split (factor_wide_split_launch, the first of a wide
     launch's two kernels) alone at (n, r), timed through its C entry
@@ -4409,10 +4422,12 @@ def _wide_update_n33(run):
     """Kernel 3 (condition_update) in its wide tier at the shape of cell
     U, (33, 96), where the d=40 serve launches it 40 times a split step:
     2^18 rows on random operands (phase 26's), its plain version and
-    bound."""
+    bound, and the cell-grouped readout's sort and tile plan alone
+    (cell_readout_plan_launch) with its share of a call."""
     import numpy as np
     import torch
 
+    from tt_irt_tpu_torch.ops.cell_readout import lib as readout_lib
     from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
                                            condition_update_ref)
 
@@ -4437,11 +4452,26 @@ def _wide_update_n33(run):
     ms = _time_ms(lambda: condition_update_cuda(phi, i0, la, lb, cmat), 5)
     plain_ms = _time_ms(lambda: condition_update_ref(phi, i0, la, lb,
                                                      cmat), 2)
-    bound = _bound(mb * (5 * r * r + 2 * r),
-                   4 * (mb * (2 * r + 3) + n * r * r))
+    bound = _bound_tc(*cell_readout_work(mb, n, r))
+    cr = readout_lib()
+    words = torch.empty((cr.cell_readout_plan_words(mb, n),),
+                        dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def plan():
+        err = cr.cell_readout_plan_launch(i0.data_ptr(), mb, n,
+                                          dev.index or 0, stream,
+                                          words.data_ptr())
+        assert err == 0, err
+
+    plan_ms = _time_ms(plan, 20)
     return {f"n{n}_r{r}": {
         "ms": ms, "rows": mb, "plain_ms": plain_ms, "bound_ms": bound[0],
-        "bound_by": bound[1], "max_abs_err": float((pk - pr).abs().max()),
+        "plan_ms": plan_ms, "plan_share": plan_ms / ms,
+        "bound_by": bound[1],
+        "bound_fp32_ms": _bound(mb * (5 * r * r + 2 * r),
+                                4 * (mb * (2 * r + 3) + n * r * r))[0],
+        "max_abs_err": float((pk - pr).abs().max()),
         "err_kernel_vs_f64": err_k, "err_plain_vs_f64": err_p,
         "launches_u": {"31 d40 hi_bracket": WIDE_HI[0],
                        "31 d40 hi_pair": WIDE_HI[0],
@@ -4841,6 +4871,20 @@ def main(argv=None):
         assert len(wide_regs) == 21, wide_regs
         assert all(-(-v[0] // 8) * 8 == 168 for k, v in wide_regs.items()
                    if re.search(r"Li(8|16)EEEv", k)), wide_regs
+    # the cell-grouped readout (csrc/cell_readout.cu): its three instances
+    # (ks 4, 8, 16), the two past ks = 4 at 168 registers as above, none
+    # spilling, and no wgmma that ptxas serializes (a C75xx warning)
+    if "cell_readout" in reports:         # built by this run
+        report = reports["cell_readout"][0]
+        readout_regs = {k: v for k, v in _build.ptxas_registers(
+            report).items() if "cell_readout_kernel" in k}
+        rec["cell_readout_registers"] = readout_regs
+        assert len(readout_regs) == 3, readout_regs
+        assert all(v[1] == 0 for v in readout_regs.values()), readout_regs
+        assert all(-(-v[0] // 8) * 8 == 168 for k, v in readout_regs.items()
+                   if re.search(r"Li(8|16)EEEv", k)), readout_regs
+        serialized = [ln for ln in report.splitlines() if "C75" in ln]
+        assert not serialized, serialized
     # the tensor-core instructions of the four kernels whose conditional
     # runs on the tensor cores: HGMMA in each wgmma instance and in each
     # instance of their wide tier, HMMA in each mma.sync instance
@@ -4849,23 +4893,25 @@ def main(argv=None):
     with ThreadPoolExecutor() as pool:
         sass = list(pool.map(_build.sass_tensor_ops, (
             "dim_step", "dim_step_rt", "odim_step", "factor_step",
-            "factor_conditional", "factor_wide")))
+            "factor_conditional", "factor_wide", "cell_readout")))
     rec["sass_tensor_ops"] = {
         k: v for ops in sass for k, v in ops.items()
         if k.startswith(("dim_step_kernel<", "odim_step_kernel<",
                          "cdf_bracket_factor_kernel<",
                          "factor_conditional_kernel<", "dim_wide_kernel<",
-                         "bracket_wide_kernel<", "conditional_wide_kernel<"))}
+                         "bracket_wide_kernel<", "conditional_wide_kernel<",
+                         "cell_readout_kernel<"))}
     for k, v in rec["sass_tensor_ops"].items():
         print(f"  SASS {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}")
     bad = [k for k, v in rec["sass_tensor_ops"].items()
            if v["HGMMA" if k.endswith("wgmma>") or "_wide_kernel<" in k
-                else "HMMA"] == 0]
+                or k.startswith("cell_readout_kernel<") else "HMMA"] == 0]
     assert not bad, bad
     assert {k.split("<")[0] for k in rec["sass_tensor_ops"]} == {
         "dim_step_kernel", "odim_step_kernel", "cdf_bracket_factor_kernel",
         "factor_conditional_kernel", "dim_wide_kernel",
-        "bracket_wide_kernel", "conditional_wide_kernel"}, \
+        "bracket_wide_kernel", "conditional_wide_kernel",
+        "cell_readout_kernel"}, \
         rec["sass_tensor_ops"]
     _lap(run, "1 build")
 
@@ -5086,6 +5132,9 @@ def main(argv=None):
             by.update(counts.get(entry["name"], {}))
         if entry["name"] in wide_f:
             entry["wide_tier"] = wide_f[entry["name"]]
+        if entry["name"] in ("condition_update", "odim_step"):
+            # past n or r of 64 the update is the cell-grouped readout
+            entry["wide_tier_source"] = "tt_irt_tpu_torch/csrc/cell_readout.cu"
         key = {"gram_conditional": "gram",
                "condition_update": "update"}.get(entry["name"])
         if key is not None:

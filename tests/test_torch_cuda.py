@@ -1577,3 +1577,185 @@ def test_native_matches_f64_on_card():
     xn, ln = tt_irt_native([g.cpu() for g in grids], tt.to("cpu"), q)
     assert np.max(np.abs(xn - xc.cpu().numpy())) < 1e-10
     assert np.max(np.abs(ln - lc.cpu().numpy())) < 1e-8
+
+
+# ---- the cell-grouped readout (csrc/cell_readout.cu): condition_update
+#      past n or r of 64 and odim_step's readout in its wide tier ----
+
+SKEWS = ["uniform", "one_cell", "last_cell", "ends", "63_64_65", "outside"]
+
+
+def _skewed_i0(kind, m, n, rng):
+    """Cells of m rows on n nodes: spread over every cell ("uniform");
+    all in one middle cell, or in the last (n-2); only in cells 0 and
+    n-2 ("ends": the rest empty); cells 0, 1, 2 of exactly 63, 64 and 65
+    rows, the rest spread over cells 3.. ("63_64_65": the second
+    warpgroup of a 128-row tile gets none, none, one row); i0 outside
+    [0, n-2] on both sides ("outside": the kernel clips)."""
+    if kind == "uniform":
+        i0 = rng.integers(0, n - 1, m)
+    elif kind == "one_cell":
+        i0 = np.full(m, (n - 1) // 2)
+    elif kind == "last_cell":
+        i0 = np.full(m, n - 2)
+    elif kind == "ends":
+        i0 = np.where(rng.uniform(size=m) < 0.5, 0, n - 2)
+    elif kind == "63_64_65":
+        i0 = np.concatenate([np.full(63, 0), np.full(64, 1), np.full(65, 2),
+                             rng.integers(3, n - 1, m - 192)])
+        i0 = i0[rng.permutation(m)]
+    else:
+        i0 = rng.integers(-3 * n, 4 * n, m)
+    return i0.astype(np.int32)
+
+
+def _readout_ref(phi, slices, i0, la, lb):
+    """The readout in plain PyTorch, the blend after the product
+    (odim_step_ref's order): (la phi S[x] + lb phi S[x+1]) / max-abs, x =
+    clip(i0, 0, n-2), slices (n, r, r)."""
+    x = torch.clamp(i0.long(), 0, slices.shape[0] - 2)
+    va = torch.bmm(phi[:, None, :], slices[x])[:, 0, :]
+    vb = torch.bmm(phi[:, None, :], slices[x + 1])[:, 0, :]
+    w = la[:, None] * va + lb[:, None] * vb
+    return w / torch.clamp(w.abs().amax(1, keepdim=True), min=1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SKEWS)
+@pytest.mark.parametrize("n", [9, 33, 96])
+def test_cell_plan_matches_plain_on_card(kind, n):
+    """The readout's sort and tile plan on the card (cell_plan_cuda)
+    against its plain version (cell_plan_ref): the same tiles (cell,
+    first sorted position, rows) in the same order, every row once in
+    the permutation, each in its (clipped) cell's range, on skewed cells
+    and with empty cells; no tile passes 128 rows or its cell."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops.cell_readout import (cell_plan_cuda,
+                                                   cell_plan_ref)
+
+    m = 4096 + 7
+    i0 = torch.from_numpy(_skewed_i0(kind, m, n, np.random.default_rng(n)))
+    cell, perm_r, tiles_r = cell_plan_ref(i0, n)
+    perm, tiles = cell_plan_cuda(i0.cuda(), n)
+    torch.cuda.synchronize()
+    assert torch.equal(tiles.cpu(), tiles_r)
+    assert int(tiles_r[:, 2].max()) <= 128 and int(tiles_r[:, 2].min()) >= 1
+    perm = perm.cpu()
+    assert torch.equal(torch.sort(perm).values, torch.arange(m))
+    assert torch.equal(cell[perm], cell[perm_r])
+    key = cell * m
+    assert torch.equal(torch.sort(key[perm] + perm).values,
+                       key[perm_r] + perm_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SKEWS)
+@pytest.mark.parametrize("n,r", [(9, 128), (33, 96), (96, 32), (100, 70)])
+def test_wide_condition_update_on_skewed_cells_on_card(kind, n, r):
+    """condition_update in its wide tier (the cell-grouped readout) on
+    skewed cells: one launch a call, as close to the plain version run
+    in f64 (on the clipped cells) as the plain f32 version is (twice its
+    error plus 1e-6); (100, 70) copies rows in 4 bytes at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    m = 4096 + 7
+    phi, _, cmat, _, la, lb = _step_operands(m, n, r, n + r)
+    i0 = torch.from_numpy(_skewed_i0(kind, m, n, np.random.default_rng(r)))
+    ic = torch.clamp(i0, 0, n - 2).cuda()
+    before = condition_update_cuda.launches
+    pk = condition_update_cuda(phi, i0.cuda(), la, lb, cmat)
+    torch.cuda.synchronize()
+    assert condition_update_cuda.launches == before + 1
+    p64 = condition_update_ref(phi.double(), ic, la.double(), lb.double(),
+                               cmat.double())
+    pr = condition_update_ref(phi, ic, la, lb, cmat)
+    err_k = float((pk.double() - p64).abs().max())
+    err_p = float((pr.double() - p64).abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (kind, err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SKEWS)
+@pytest.mark.parametrize("n,r", [(33, 96), (96, 32), (9, 127)])
+def test_odim_readout_on_skewed_cells_on_card(kind, n, r):
+    """odim_step's readout (cell_readout_launch with lb = 1 - la on the
+    split of Q that factor_wide.cu's split leaves) on skewed cells,
+    against the readout in plain PyTorch run in f64 on the same f32
+    operands: as close as the plain f32 readout is (twice its error plus
+    1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import ctypes
+
+    from tt_irt_tpu_torch.ops._build import load_library
+    from tt_irt_tpu_torch.ops.cell_readout import lib as readout_lib
+
+    m = 4096 + 7
+    t = _card_operands(m, n, r, "irt", n * r)
+    rng = np.random.default_rng(n + r)
+    i0 = torch.from_numpy(_skewed_i0(kind, m, n, rng)).cuda()
+    la = torch.from_numpy(rng.uniform(size=m).astype(np.float32)).cuda()
+    wide = load_library("factor_wide")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    wide.factor_wide_split_launch.argtypes = [p, p, i, i, i, p]
+    wide.factor_wide_scratch_floats.argtypes = [i, i]
+    wide.factor_wide_scratch_floats.restype = ctypes.c_longlong
+    cr = readout_lib()
+    split = torch.empty((wide.factor_wide_scratch_floats(n, r),),
+                        device="cuda")
+    plan = torch.empty((cr.cell_readout_plan_words(m, n),),
+                       dtype=torch.int32, device="cuda")
+    psin = torch.empty((m, r), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert wide.factor_wide_split_launch(t["bmat"].data_ptr(),
+                                         split.data_ptr(), n, r, 0,
+                                         stream) == 0
+    assert cr.cell_readout_launch(
+        t["phi"].data_ptr(), i0.data_ptr(), la.data_ptr(), None,
+        split.data_ptr(), psin.data_ptr(), m, n, r, 0, stream,
+        plan.data_ptr()) == 0
+    torch.cuda.synchronize()
+    q3 = t["bmat"].reshape(r, n, r).permute(1, 0, 2).contiguous()
+    lb = 1.0 - la
+    p64 = _readout_ref(t["phi"].double(), q3.double(), i0, la.double(),
+                       lb.double())
+    pr = _readout_ref(t["phi"], q3, i0, la, lb)
+    err_k = float((psin.double() - p64).abs().max())
+    err_p = float((pr.double() - p64).abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (kind, err_k, err_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["low", "high", "both"])
+@pytest.mark.parametrize("n,r", [(33, 96), (96, 32)])
+def test_odim_step_wide_on_skewed_seeds_on_card(where, n, r):
+    """odim_step in its wide tier with seeds crowded at one end of the
+    grid or both (most rows in a few cells, the rest empty): one launch a
+    call, out9 equal to dim_step's bit for bit, psin as close to the
+    plain version run in f64 as the plain f32 version (twice plus 1e-6),
+    on the rows whose brackets agree."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    m = 4096 + 7
+    t = _card_operands(m, n, r, "irt", n + 2 * r)
+    u = np.random.default_rng(n).uniform(size=m) * 1e-3
+    q = {"low": u, "high": 1.0 - u,
+         "both": np.where(np.arange(m) % 2 == 0, u, 1.0 - u)}[where]
+    t["qp32"] = torch.from_numpy(q.astype(np.float32)).cuda()
+    t["um32"] = torch.from_numpy((1.0 - q).astype(np.float32)).cuda()
+    args = (t["phi"], t["qp32"], t["um32"], t["bmat"], t["hrow"], t["xg"])
+    before = odim_step_cuda.launches
+    pk, ok_ = odim_step_cuda(*args)
+    torch.cuda.synchronize()
+    assert odim_step_cuda.launches == before + 1
+    _, d9 = dim_step_cuda(t["phi"], t["qp32"], t["um32"], t["bmat"],
+                          t["cmat"], t["hrow"], t["xg"])
+    assert torch.equal(ok_, d9)
+    pr, orf = odim_step_ref(*args)
+    p64, o64 = odim_step_ref(*(a.double() for a in args))
+    same = (ok_[:, 4] == orf[:, 4]) & (o64[:, 4].float() == orf[:, 4])
+    assert float(same.double().mean()) >= 0.99
+    err_k = float((pk.double() - p64)[same].abs().max())
+    err_p = float((pr.double() - p64)[same].abs().max())
+    assert err_k <= 2.0 * err_p + 1e-6, (where, err_k, err_p)

@@ -25,7 +25,10 @@ every node below 2^-8 of its row's largest fk the same way
 (``factor_conditional_model``), so that its fk at the bracket nodes is
 the bracket's f1 and f2.  The wide tier past rank 64
 (tt_irt_tpu_torch/csrc/factor_wide.cu) groups the large products
-instead: ``wide_conditional_model``.  Nothing here needs a card."""
+instead: ``wide_conditional_model``; the prefix update past rank 64
+(tt_irt_tpu_torch/csrc/cell_readout.cu) runs the same products on the
+rows of one cell and interpolates after them: ``cell_readout_model``.
+Nothing here needs a card."""
 
 RECOMPUTE = 2.0 ** -8         # tc_conditional.cuh: kRecompute
 
@@ -35,9 +38,11 @@ import numpy as np
 import pytest
 import torch
 
+from tt_irt_tpu_torch.ops.cell_readout import cell_plan_ref
 from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
 from tt_irt_tpu_torch.ops.rowmath import cdf_rows32, invert_quadratic
-from tt_irt_tpu_torch.ops.step import factor_conditional_ref
+from tt_irt_tpu_torch.ops.step import (condition_update_ref,
+                                       factor_conditional_ref)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data")
@@ -131,14 +136,52 @@ def tc_conditional_model(phi, bmat):
     return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
 
 
+def _wide_v(a, bh, bl, parts):
+    """v = a B as the wide tiers' units compute it, from f32 a (mm, kp)
+    zero-padded to whole k-steps and B's split (bh, bl (kp, cols), bl
+    as the tensor core reads it): lo.hi, then hi.lo, over every k-step
+    into one accumulator; hi.hi of each G = ceil(ks / parts) consecutive
+    k-steps into an accumulator of its own (each a tensor-core
+    accumulator, truncating as it adds a k-step); v = ((small + P0) +
+    P1) ... in f32 rounded to nearest.  (mm, cols) f32."""
+    mm, kp = a.shape
+    ks, cols = kp // 8, bh.shape[1]
+    g = -(-ks // parts)
+    ah, al = split_tf32(a)
+    al = tf32_truncate(al)
+
+    def ksteps(x, y):
+        return torch.bmm(x.double().reshape(mm, ks, 8).transpose(0, 1),
+                         y.double().reshape(ks, 8, cols))
+
+    def accumulate(prods, steps, acc=None):
+        for s in steps:
+            acc = _toward_zero(prods[s] if acc is None else acc + prods[s])
+        return acc
+
+    small = accumulate(ksteps(al, bh), range(ks))
+    small = accumulate(ksteps(ah, bl), range(ks), small)
+    big = ksteps(ah, bh)
+    v = small.float()
+    for first in range(0, ks, g):
+        v = v + accumulate(big, range(first, min(ks, first + g))).float()
+    return v
+
+
+def _split_padded(b, kp):
+    """B (r, cols) zero-padded to kp rows, split as the wide tiers' split
+    kernel leaves it: (hi, lo as the tensor core reads it)."""
+    bp = torch.zeros((kp, b.shape[1]), dtype=torch.float32)
+    bp[:b.shape[0]] = b
+    bh, bl = split_tf32(bp)
+    return bh, tf32_truncate(bl)
+
+
 def wide_conditional_model(phi, bmat, rows=128, parts=4):
     """fk (M, n) as the wide tier's tensor-core conditional computes it
     (csrc/factor_wide.cu::tile_conditional), from f32 phi (M, r) and bmat
-    (r, n*r): ks = ceil(r / 8) k-steps; lo.hi, then hi.lo, over every
-    k-step into one accumulator; hi.hi of each G = ceil(ks / parts)
-    consecutive k-steps into an accumulator of its own (each a
-    tensor-core accumulator, truncating as it adds a k-step); v =
-    ((small + P0) + P1) ... in f32 rounded to nearest; the squares in
+    (r, n*r): ks = ceil(r / 8) k-steps, v by ``_wide_v`` (hi.hi in at
+    most ``parts`` tensor-core accumulators), the squares in
     tc_conditional_model's lane order over the ks column groups (the
     units of a node in order, their zero padding adding nothing).
     ``rows`` rows at a time."""
@@ -146,34 +189,13 @@ def wide_conditional_model(phi, bmat, rows=128, parts=4):
     n = bmat.shape[1] // r
     ks = -(-r // 8)
     kp = 8 * ks
-    g = -(-ks // parts)
-    b = torch.zeros((kp, n * r), dtype=torch.float32)
-    b[:r] = bmat
-    bh, bl = split_tf32(b)
-    bl = tf32_truncate(bl)
+    bh, bl = _split_padded(bmat, kp)
     out = []
     for lo_row in range(0, m, rows):
         mm = min(rows, m - lo_row)
         a = torch.zeros((mm, kp), dtype=torch.float32)
         a[:, :r] = phi[lo_row:lo_row + mm]
-        ah, al = split_tf32(a)
-        al = tf32_truncate(al)
-
-        def ksteps(x, y):
-            return torch.bmm(x.double().reshape(mm, ks, 8).transpose(0, 1),
-                             y.double().reshape(ks, 8, n * r))
-
-        def accumulate(prods, steps, acc=None):
-            for s in steps:
-                acc = _toward_zero(prods[s] if acc is None else acc + prods[s])
-            return acc
-
-        small = accumulate(ksteps(al, bh), range(ks))
-        small = accumulate(ksteps(ah, bl), range(ks), small)
-        big = ksteps(ah, bh)
-        v = small.float()
-        for first in range(0, ks, g):
-            v = v + accumulate(big, range(first, min(ks, first + g))).float()
+        v = _wide_v(a, bh, bl, parts)
         vp = torch.zeros((mm, n, kp), dtype=torch.float32)
         vp[:, :, :r] = v.reshape(mm, n, r)
         vp = vp.reshape(mm, n, ks, 4, 2).double()
@@ -184,6 +206,32 @@ def wide_conditional_model(phi, bmat, rows=128, parts=4):
                 acc = (x * x + acc.double()).float()
         out.append((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))
     return torch.cat(out)
+
+
+def cell_readout_model(phi, slices, i0, la, lb, parts=4):
+    """phi' (M, r) as the cell-grouped readout computes it
+    (csrc/cell_readout.cu), from f32 phi (M, r), slices S (n, r, r), i0
+    (M,) and f32 la, lb (M,): the rows grouped by their clipped cell x
+    (``cell_plan_ref``'s tiles), v_a = phi S[x] and v_b = phi S[x+1] by
+    ``_wide_v`` on S split once, then la v_a + lb v_b in f32 (each
+    product rounded, then the sum), each row divided by its largest
+    absolute entry (floor 1e-30)."""
+    m, r = phi.shape
+    n = slices.shape[0]
+    kp = 8 * -(-r // 8)
+    split = [_split_padded(s_, kp) for s_ in slices]
+    cell, perm, tiles = cell_plan_ref(i0, n)
+    out = torch.empty_like(phi)
+    for x, first, rows in tiles.tolist():
+        idx = perm[first:first + rows]
+        a = torch.zeros((rows, kp), dtype=torch.float32)
+        a[:, :r] = phi[idx]
+        va = _wide_v(a, *split[x], parts)
+        vb = _wide_v(a, *split[x + 1], parts)
+        w = la[idx, None] * va + lb[idx, None] * vb
+        scale = torch.clamp(w.abs().amax(1, keepdim=True), min=1e-30)
+        out[idx] = w / scale
+    return out
 
 
 def chain_fk(phi, bmat, at=None):
@@ -329,6 +377,85 @@ def test_wide_grouping_beats_fewer_accumulators():
     err = [float((wide_conditional_model(phi, bmat, parts=p).double()
                   - f64).abs().max()) for p in (4, 2, 1)]
     assert err[0] < err[1] < err[2], err
+
+
+def _readout_plain(phi, slices, i0, la, lb):
+    """odim_step_ref's readout in plain PyTorch (the blend after the
+    product) on slices S (n, r, r): (la phi S[x] + lb phi S[x+1]) /
+    max-abs, x = clip(i0, 0, n-2)."""
+    x = torch.clamp(i0.long(), 0, slices.shape[0] - 2)
+    va = torch.bmm(phi[:, None, :], slices[x])[:, 0, :]
+    vb = torch.bmm(phi[:, None, :], slices[x + 1])[:, 0, :]
+    w = la[:, None] * va + lb[:, None] * vb
+    return w / torch.clamp(w.abs().amax(1, keepdim=True), min=1e-30)
+
+
+# Kernel 3's wide shapes (rank 128 at a short grid, cell U's (33, 96))
+# and the largest.
+READOUT_MODEL_SHAPES = [(9, 128), (33, 96), (128, 128)]
+
+
+@pytest.mark.parametrize("kernel", ["condition_update", "odim_step"])
+@pytest.mark.parametrize("n,r", READOUT_MODEL_SHAPES)
+def test_cell_readout_model_meets_the_card_rule(kernel, n, r):
+    """The cell-grouped readout's arithmetic (3xTF32 products of each
+    cell's rows with S[x] and S[x+1], hi.hi in four parts, the blend
+    after) on operands as the card tests make them: its phi' at most
+    twice as far from the plain version run in f64 as the plain f32
+    version plus 1e-6.  condition_update: a normal prefix and core,
+    independent la and lb, against condition_update_ref (which
+    interpolates the core first); odim_step's readout: a positive
+    prefix, a normal factor Q, lb = 1 - la, against its plain readout."""
+    rng = np.random.default_rng(n * r)
+    m = 1024
+    if kernel == "condition_update":
+        phi = rng.standard_normal((m, r)).astype(np.float32)
+        cmat = rng.standard_normal((n, r * r)).astype(np.float32)
+        lb = rng.uniform(size=m).astype(np.float32)
+    else:
+        phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
+        q = rng.standard_normal((r, n * r)).astype(np.float32)
+        cmat = q.reshape(r, n, r).transpose(1, 0, 2).reshape(n, r * r)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    i0 = rng.integers(0, n - 1, m).astype(np.int32)
+    la = rng.uniform(size=m).astype(np.float32)
+    if kernel == "odim_step":
+        lb = (1.0 - la).astype(np.float32)
+    phi, cmat, i0, la, lb = (torch.from_numpy(np.ascontiguousarray(a))
+                             for a in (phi, cmat, i0, la, lb))
+    slices = cmat.reshape(n, r, r)
+    model = cell_readout_model(phi, slices, i0, la, lb)
+    if kernel == "condition_update":
+        p64 = condition_update_ref(phi.double(), i0, la.double(),
+                                   lb.double(), cmat.double())
+        pr = condition_update_ref(phi, i0, la, lb, cmat)
+    else:
+        p64 = _readout_plain(phi.double(), slices.double(), i0, la.double(),
+                             lb.double())
+        pr = _readout_plain(phi, slices, i0, la, lb)
+    em = float((model.double() - p64).abs().max())
+    ep = float((pr.double() - p64).abs().max())
+    assert em <= 2.0 * ep + 1e-6, (em, ep)
+
+
+def test_cell_readout_model_rows_are_their_own():
+    """Every row's modelled phi' is its own: the first 100 rows alone
+    give the same values bit for bit as inside 1024 rows, with every
+    row in one cell or spread over all of them (the card tests'
+    last-tile rule, which the grouping must keep)."""
+    rng = np.random.default_rng(5)
+    n, r, m = 9, 72, 1024
+    phi = torch.from_numpy(rng.standard_normal((m, r)).astype(np.float32))
+    slices = torch.from_numpy(rng.standard_normal((n, r, r)).astype(
+        np.float32))
+    la = torch.from_numpy(rng.uniform(size=m).astype(np.float32))
+    lb = 1.0 - la
+    for i0 in (torch.from_numpy(rng.integers(0, n - 1, m).astype(np.int32)),
+               torch.full((m,), 3, dtype=torch.int32)):
+        full = cell_readout_model(phi, slices, i0, la, lb)
+        part = cell_readout_model(phi[:100], slices, i0[:100], la[:100],
+                                  lb[:100])
+        assert torch.equal(part, full[:100])
 
 
 @pytest.fixture(scope="module")

@@ -108,6 +108,21 @@ plain f32 versions') and to its own ties.  ptxas's registers, spills and
 warnings of both builds.  Output in
 chiprun_out/tc_variants_factor_wide.json.
 
+    python3 tools/tc_variants.py --cell-readout --baseline CSRC
+
+times kernel 3's wide tier (condition_update past n or r of 64) and
+kernel 7's wide readout (odim_step) as csrc/cell_readout.cu runs them
+(the rows grouped by cell, 3xTF32 wgmma; odim_step after factor_wide.cu's
+stage) beside the other checkout's step.cu and factor_wide.cu (e.g. the
+parent's: a warp a row, the slices read from L2), through their C entry
+points with outputs and scratch allocated once, and the new ones through
+the package's wrappers too, with cdf_bracket_factor (the stage without a
+readout), all in turns at CELL_READOUT_SHAPES and 2^18 rows; kernel 3 also
+with every row in one cell.  Each build held to the plain versions run in
+f64, beside the plain f32 versions (twice plus 1e-6), with the bounds
+(the grouped form on the tensor cores, the row-by-row form on the FP32
+cores).  Output in chiprun_out/tc_variants_cell_readout.json.
+
     python3 tools/tc_variants.py --update-batches
 
 times dim_step's wide tier (2^18 rows, FACTOR_WIDE_SHAPES) with the
@@ -520,6 +535,10 @@ def main(argv=None):
     ap.add_argument("--wide", action="store_true",
                     help="gram_conditional's wide tier against "
                          "--baseline's and its variants only")
+    ap.add_argument("--cell-readout", action="store_true",
+                    help="kernel 3's wide tier and kernel 7's wide readout "
+                         "(csrc/cell_readout.cu) against --baseline's "
+                         "step.cu and factor_wide.cu only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tc_variants: torch.cuda is not available", file=sys.stderr)
@@ -532,6 +551,8 @@ def main(argv=None):
     os.makedirs(OUT, exist_ok=True)
     if args.step:
         return step_main(args, card)
+    if args.cell_readout:
+        return cell_readout_main(args, card)
     if args.wide:
         return wide_main(args, card)
     if args.factor_wide:
@@ -1068,11 +1089,15 @@ def _registers(report, kernel="gram_wide_kernel"):
 FACTOR_WIDE_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
 
 
-def _factor_wide_calls(lib, t, m, n, r, stream):
+def _factor_wide_calls(lib, t, m, n, r, stream, readout=None):
     """{kernel: call} of one factor_wide build's four entry points on the
     operands t; each call returns its outputs.  A build that exports
     factor_wide_scratch_floats takes its scratch last (allocated a call,
-    as the package's wrappers do)."""
+    as the package's wrappers do).  With ``readout`` (a cell_readout.cu
+    library, typed as ops/cell_readout.py types it) the build's
+    odim_step_wide_launch writes each row's cell, and the readout forms
+    psin from it and the split (the package's odim_step since the
+    cell-grouped readout); without, it writes psin itself."""
     p, i = ctypes.c_void_p, ctypes.c_int
     split = hasattr(lib, "factor_wide_scratch_floats")
     types = {"dim_step_wide_launch": [p] * 9 + [i] * 5 + [p],
@@ -1110,11 +1135,29 @@ def _factor_wide_calls(lib, t, m, n, r, stream):
 
     def odim():
         psin, out9 = torch.empty((m, r), **f32), torch.empty((m, 9), **f32)
-        launch(lib.odim_step_wide_launch,
-               t["phi"].data_ptr(), t["qp32"].data_ptr(),
-               t["um32"].data_ptr(), t["bmat"].data_ptr(),
-               t["hrow"].data_ptr(), t["xg"].data_ptr(), psin.data_ptr(),
-               out9.data_ptr(), m, n, r, 0, dev, stream)
+        if readout is None:
+            launch(lib.odim_step_wide_launch,
+                   t["phi"].data_ptr(), t["qp32"].data_ptr(),
+                   t["um32"].data_ptr(), t["bmat"].data_ptr(),
+                   t["hrow"].data_ptr(), t["xg"].data_ptr(),
+                   psin.data_ptr(), out9.data_ptr(), m, n, r, 0, dev, stream)
+            return psin, out9
+        split = torch.empty((lib.factor_wide_scratch_floats(n, r),), **f32)
+        cell = torch.empty((2 * m,), dtype=torch.int32, device=psin.device)
+        plan = torch.empty((readout.cell_readout_plan_words(m, n),),
+                           dtype=torch.int32, device=psin.device)
+        err = lib.odim_step_wide_launch(
+            t["phi"].data_ptr(), t["qp32"].data_ptr(), t["um32"].data_ptr(),
+            t["bmat"].data_ptr(), t["hrow"].data_ptr(), t["xg"].data_ptr(),
+            cell.data_ptr(), out9.data_ptr(), m, n, r, 0, dev, stream,
+            split.data_ptr())
+        err = err or readout.cell_readout_launch(
+            t["phi"].data_ptr(), cell.data_ptr(), cell.data_ptr() + 4 * m,
+            None, split.data_ptr(), psin.data_ptr(), m, n, r, dev, stream,
+            plan.data_ptr())
+        if err != 0:
+            raise RuntimeError(f"odim_step wide launch failed: cudaError "
+                               f"{err}")
         return psin, out9
 
     def bracket():
@@ -1226,17 +1269,23 @@ def factor_wide_main(args, card):
         raise SystemExit("--factor-wide needs --baseline (another csrc)")
     base = _edited_copy("baseline", [], src=args.baseline)
     reports = {}
-    libs = _build_variants({"factor_wide_base": os.path.join(
-        base, "factor_wide.cu")}, ("factor_wide",), reports)
+    jobs = {"factor_wide_base": os.path.join(base, "factor_wide.cu")}
+    if os.path.exists(os.path.join(base, "cell_readout.cu")):
+        jobs["cell_readout_base"] = os.path.join(base, "cell_readout.cu")
+    libs = _build_variants(jobs, ("factor_wide", "cell_readout"), reports)
     from tt_irt_tpu_torch.ops._build import load_library
+    from tt_irt_tpu_torch.ops.cell_readout import lib as readout_lib
     builds = {"shipped": load_library("factor_wide"),
               "baseline": ctypes.CDLL(libs["factor_wide_base"])}
+    readouts = {"shipped": readout_lib(),
+                "baseline": (_typed_readout(libs["cell_readout_base"])
+                             if "cell_readout_base" in libs else None)}
     stream = torch.cuda.current_stream().cuda_stream
     m = 1 << 18
     rows = []
     for n, r in FACTOR_WIDE_SHAPES:
         t = chip_smoke._wide_operands(m, n, r, n * r, "cuda")
-        calls = {b: _factor_wide_calls(lib, t, m, n, r, stream)
+        calls = {b: _factor_wide_calls(lib, t, m, n, r, stream, readouts[b])
                  for b, lib in builds.items()}
         outs = {b: {k: fn() for k, fn in c.items()}
                 for b, c in calls.items()}
@@ -1706,6 +1755,210 @@ def fused_main(args, card):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "tc_variants_fused.json"), "w") as fh:
         json.dump(rec, fh, indent=1)
+    return 0
+
+
+# ---- the cell-grouped readout (--cell-readout) ----
+
+CELL_READOUT_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
+CELL_READOUT_CHECK_ROWS = 1 << 13
+
+
+def _typed_readout(path):
+    from tt_irt_tpu_torch.ops.cell_readout import type_library
+
+    return type_library(ctypes.CDLL(path))
+
+
+def _cell_readout_cases(base_step, base_wide, t, u, m, n, r, stream):
+    """{case: call} at (n, r) on mb = m rows: condition_update (kernel 3)
+    and odim_step (kernel 7) in their wide tiers, this checkout's
+    ("new": csrc/cell_readout.cu after factor_wide.cu's stage for odim)
+    and the baseline's ("was": step.cu's update_wide_kernel, factor_wide.cu
+    with FactorUpdate), each through its C entry points with its outputs
+    and scratch allocated once; the new ones also through the package's
+    wrappers ("(wrapper)"), and cdf_bracket_factor (the stage without a
+    readout).  Each call returns its first output."""
+    from tt_irt_tpu_torch.ops._build import load_library
+    from tt_irt_tpu_torch.ops.cell_readout import lib as readout_lib
+
+    cr, wide = readout_lib(), load_library("factor_wide")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    base_step.condition_update_launch.argtypes = [p] * 6 + [i] * 4 + [p]
+    base_wide.odim_step_wide_launch.argtypes = [p] * 8 + [i] * 5 + [p, p]
+    base_wide.factor_wide_scratch_floats.argtypes = [i, i]
+    base_wide.factor_wide_scratch_floats.restype = ctypes.c_longlong
+    wide.odim_step_wide_launch.argtypes = [p] * 8 + [i] * 5 + [p, p]
+    wide.factor_wide_scratch_floats.argtypes = [i, i]
+    wide.factor_wide_scratch_floats.restype = ctypes.c_longlong
+    f32 = dict(dtype=torch.float32, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    out = torch.empty((m, r), **f32)
+    out9 = torch.empty((m, 9), **f32)
+    cell = torch.empty((2 * m,), **i32)
+    split = torch.empty((wide.factor_wide_scratch_floats(n, r),), **f32)
+    base_split = torch.empty((base_wide.factor_wide_scratch_floats(n, r),),
+                             **f32)
+    plan = torch.empty((cr.cell_readout_plan_words(m, n),), **i32)
+    scratch = torch.empty((cr.condition_update_wide_scratch_words(m, n, r),),
+                          **i32)
+    phi, qp, um, bm, cm, h, xg = (t[k] for k in (
+        "phi", "qp32", "um32", "bmat", "cmat", "hrow", "xg"))
+    i0, la, lb = u
+    ptr = [a.data_ptr() for a in (phi, i0, la, lb, cm)]
+
+    def ok(err):
+        if err != 0:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+
+    def update_new():
+        return ok(cr.condition_update_wide_launch(
+            *ptr, out.data_ptr(), m, n, r, 0, stream, scratch.data_ptr()))
+
+    def update_was():
+        return ok(base_step.condition_update_launch(
+            *ptr, out.data_ptr(), m, n, r, 0, stream))
+
+    def odim_new():
+        err = wide.odim_step_wide_launch(
+            phi.data_ptr(), qp.data_ptr(), um.data_ptr(), bm.data_ptr(),
+            h.data_ptr(), xg.data_ptr(), cell.data_ptr(), out9.data_ptr(), m,
+            n, r, 0, 0, stream, split.data_ptr())
+        return ok(err or cr.cell_readout_launch(
+            phi.data_ptr(), cell.data_ptr(), cell.data_ptr() + 4 * m, None,
+            split.data_ptr(), out.data_ptr(), m, n, r, 0, stream,
+            plan.data_ptr()))
+
+    def odim_was():
+        return ok(base_wide.odim_step_wide_launch(
+            phi.data_ptr(), qp.data_ptr(), um.data_ptr(), bm.data_ptr(),
+            h.data_ptr(), xg.data_ptr(), out.data_ptr(), out9.data_ptr(), m,
+            n, r, 0, 0, stream, base_split.data_ptr()))
+
+    return {"condition_update new": update_new,
+            "condition_update was": update_was,
+            "condition_update new (wrapper)": lambda: condition_update_cuda(
+                phi, i0, la, lb, cm),
+            "odim_step new": odim_new, "odim_step was": odim_was,
+            "odim_step new (wrapper)": lambda: odim_step_cuda(
+                phi, qp, um, bm, h, xg)[0],
+            "cdf_bracket_factor": lambda: cdf_bracket_factor_cuda(
+                phi, qp, bm, h, xg)[0]}
+
+
+def _cell_readout_accuracy(cases, t, u, rows):
+    """Each build's kernel 3 and kernel 7 outputs on the first ``rows``
+    rows against the plain versions run in f64 on the same f32 operands,
+    beside the plain f32 versions (maximum over the rows; kernel 7 on the
+    rows whose brackets agree): {kernel: {build or "plain": error}}."""
+    from tt_irt_tpu_torch.ops.odim_step import odim_step_ref
+
+    i0, la, lb = (x[:rows] for x in u)
+    phi = t["phi"][:rows]
+    p64 = condition_update_ref(phi.double(), i0, la.double(), lb.double(),
+                               t["cmat"].double())
+    acc = {"condition_update": {}, "odim_step": {}}
+    for b in ("new", "was"):
+        got = cases[f"condition_update {b}"]()[:rows]
+        acc["condition_update"][b] = float((got.double() - p64).abs().max())
+    acc["condition_update"]["plain"] = float((condition_update_ref(
+        phi, i0, la, lb, t["cmat"]).double() - p64).abs().max())
+    args = (phi, t["qp32"][:rows], t["um32"][:rows], t["bmat"], t["hrow"],
+            t["xg"])
+    pr, orf = odim_step_ref(*args)
+    q64, o64 = odim_step_ref(*(a.double() for a in args))
+    same = o64[:, 4].float() == orf[:, 4]
+    for b in ("new", "was"):
+        got = cases[f"odim_step {b}"]()[:rows]
+        acc["odim_step"][b] = float((got.double() - q64)[same].abs().max())
+    acc["odim_step"]["plain"] = float((pr.double() - q64)[same].abs().max())
+    acc["odim_step"]["brackets_equal_share"] = float(same.double().mean())
+    return acc
+
+
+def cell_readout_main(args, card):
+    """Kernel 3's wide tier (condition_update past n or r of 64) and
+    kernel 7's wide readout (odim_step) as this checkout builds them (the
+    cell-grouped readout of csrc/cell_readout.cu) and as --baseline's
+    step.cu and factor_wide.cu build them (a warp a row, the slices read
+    from L2), at CELL_READOUT_SHAPES and 2^18 rows on phase 26's and 31's
+    random operands (cells uniform), in turns (the list, then reversed);
+    kernel 3 also with every row in one cell (skewed).  Each build held to
+    the plain versions run in f64 on the first CELL_READOUT_CHECK_ROWS
+    rows, beside the plain f32 versions; the bounds of chip_smoke.py:
+    the grouped form's on the tensor cores (cell_readout_work) and the
+    row-by-row form's on the FP32 cores.  Output in
+    chiprun_out/tc_variants_cell_readout.json."""
+    import chip_smoke
+
+    if not args.baseline:
+        raise SystemExit("--cell-readout needs --baseline (another csrc)")
+    base = _edited_copy("baseline", [], src=args.baseline)
+    reports = {}
+    libs = _build_variants(
+        {"step_base": os.path.join(base, "step.cu"),
+         "factor_wide_base": os.path.join(base, "factor_wide.cu")},
+        ("step", "factor_wide", "cell_readout", "factor_step"), reports)
+    base_step = ctypes.CDLL(libs["step_base"])
+    base_wide = ctypes.CDLL(libs["factor_wide_base"])
+    stream = torch.cuda.current_stream().cuda_stream
+    m = 1 << 18
+    rows = []
+    for n, r in CELL_READOUT_SHAPES:
+        t = chip_smoke._wide_operands(m, n, r, 31 + n * r, "cuda")
+        rng = np.random.default_rng(n * r)
+        i0 = torch.from_numpy(rng.integers(0, n - 1, m).astype(
+            np.int32)).cuda()
+        la = torch.from_numpy(rng.uniform(size=m).astype(np.float32)).cuda()
+        u = (i0, la, 1.0 - la)
+        cases = _cell_readout_cases(base_step, base_wide, t, u, m, n, r,
+                                    stream)
+        acc = _cell_readout_accuracy(cases, t, u, CELL_READOUT_CHECK_ROWS)
+        one = (torch.full_like(i0, (n - 1) // 2), la, 1.0 - la)
+        skewed = _cell_readout_cases(base_step, base_wide, t, one, m, n, r,
+                                     stream)
+        cases["condition_update new, one cell"] = skewed[
+            "condition_update new"]
+        cases["condition_update was, one cell"] = skewed[
+            "condition_update was"]
+        ms = {k: [] for k in cases}
+        for order in (list(cases), list(cases)[::-1]):
+            for k in order:
+                ms[k].append(_time_ms(cases[k], 5))
+        tc, rest, nbytes = chip_smoke.cell_readout_work(m, n, r)
+        best = {k: min(v) for k, v in ms.items()}
+        row = {"n": n, "r": r, "rows": m, "ms": ms, "accuracy": acc,
+               "readout_ms": {b: best[f"odim_step {b}"]
+                              - best["cdf_bracket_factor"]
+                              for b in ("new", "was")},
+               "bound_tc_ms": chip_smoke._bound_tc(tc, rest, nbytes)[0],
+               "bound_tc_by": chip_smoke._bound_tc(tc, rest, nbytes)[1],
+               "bound_fp32_ms": chip_smoke._bound(
+                   m * (5 * r * r + 2 * r),
+                   4 * (m * (2 * r + 3) + n * r * r))[0]}
+        rows.append(row)
+        print(f"cell readout at (n={n}, r={r}), {m} rows, best of 2 in "
+              f"turns: " + json.dumps(best) + "; " + json.dumps(
+                  {k: v for k, v in row.items()
+                   if k not in ("ms", "n", "r", "rows")}) + f" ({card})",
+              flush=True)
+        for b in ("new", "was"):
+            for k in ("condition_update", "odim_step"):
+                a = acc[k]
+                assert a[b] <= 2.0 * a["plain"] + 1e-6, (n, r, k, b, a)
+        del t, cases, skewed, u, one
+        torch.cuda.empty_cache()
+    for name, lines in reports.items():
+        for ln in lines:
+            if "cell_readout" in name or "C75" in ln or "spill" in ln:
+                print(f"ptxas {name}: {ln}")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "tc_variants_cell_readout.json"),
+              "w") as fh:
+        json.dump({"card": card, "baseline": args.baseline,
+                   "ptxas": reports, "shapes": rows}, fh, indent=1)
     return 0
 
 

@@ -68,10 +68,15 @@
 //    in batches of up to 4 of one cell: one read of C[i0] and C[i0+1]
 //    serves the batch, 32 / L of its rows in flight before their FMAs
 //    (L = 1, 2 or 4 columns a lane by the rank), each row one FMA chain
-//    over i a column (step.cu's update_wide_kernel); odim_step forms
-//    v[i0] and v[i0+1] from Q in L2, a warp a row, one chain each, and
-//    reads out la v[i0] + (1 - la) v[i0+1] (tc_dim.cuh's FactorSlices).
-//    Both divide by the max-abs over the row (floor 1e-30).
+//    over i a column (the chain of step.cu's narrow condition_update),
+//    divided by the max-abs over the row (floor 1e-30).  odim_step's
+//    readout, la v[i0] + (1 - la) v[i0+1], is not in this kernel: the
+//    stage writes each row's cell (i0, la) to memory, and
+//    cell_readout.cu's kernel runs it next on the same stream, the rows
+//    grouped by cell into dense 3xTF32 products on the units that this
+//    launch's split left in the scratch (the slices S[x] of Q are its
+//    node blocks).
+// The ring, the split and the register trade are in tc_wide.cuh.
 // tools/tc_variants.py --update-batches times the update's batching.
 // tools/tc_variants.py --factor-wide --baseline DIR --other-arith times
 // it against the tier's previous design (mma.sync, the factor split a
@@ -80,51 +85,19 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
 
-#include "tc_conditional.cuh"
+#include "tc_wide.cuh"
 
 namespace {
 
 using namespace ttirt;
 
-constexpr int kWideMaxN = 128;
-constexpr int kWideMaxR = 128;
 constexpr int kLanes = kWideMaxR / 32;   // columns a lane in the updates
-constexpr int kConsumers = 2 * kTcRows;  // two warpgroups, 64 rows each
-constexpr int kConsumerWarps = kConsumers / 32;
-constexpr int kBlock = kConsumers + kTcRows;  // and the producer's
-constexpr int kMaxStages = 6;
 constexpr int kBatch = 4;                // rows of one cell in an update
-constexpr int kParts = 4;                // accumulators of hi.hi a unit
-
-// Run STMT with the constant KS set to the k-steps whose A fragments an
-// instance holds at rank r: 4 up to r = 32, 8 up to 64, 16 up to 128.
-#define TTIRT_FOR_KSTEPS(r, STMT)                                 \
-  switch ((r) <= 32 ? 4 : (r) <= 64 ? 8 : 16) {                   \
-    case 4: { constexpr int KS = 4; STMT; } break;                \
-    case 8: { constexpr int KS = 8; STMT; } break;                \
-    default: { constexpr int KS = 16; STMT; } break;              \
-  }
-
-inline bool in_wide_caps(int n, int r) {
-  return n >= 2 && n <= kWideMaxN && r >= 1 && r <= kWideMaxR;
-}
 
 // Whether (n, r) goes to this tier: past the narrow tiers' caps or their
 // shared memory.
 inline bool factor_wide(int n, int r) {
   return !in_caps(n, r) || tc_smem_bytes(n, r) > kSmemOptIn;
-}
-
-// The k-steps of rank r, the units a node's columns are cut into (at
-// most 4 column groups of 8 a unit), the groups a unit (the last unit
-// zero-padded), and the floats of one unit's hi and lo.
-__host__ __device__ constexpr int ksteps(int r) { return (r + 7) / 8; }
-__host__ __device__ constexpr int node_units(int ks) { return (ks + 3) / 4; }
-__host__ __device__ constexpr int unit_groups(int ks) {
-  return (ks + node_units(ks) - 1) / node_units(ks);
-}
-__host__ __device__ constexpr int unit_floats(int ks) {
-  return 2 * (8 * ks) * (8 * unit_groups(ks));
 }
 
 // Shared memory besides the ring, in floats: the (n, 128) fk tile, and
@@ -147,11 +120,6 @@ inline size_t wide_smem_bytes(int n, int r) {
                   * unit_floats(ksteps(r))
               + fixed_floats(n))
          + 16 * kMaxStages;
-}
-
-inline long long scratch_floats(int n, int r) {
-  const int ks = ksteps(r);
-  return static_cast<long long>(n) * node_units(ks) * unit_floats(ks);
 }
 
 // The block's shared memory: the ring of unit stages, the fk tile, the
@@ -181,100 +149,6 @@ struct Smem {
   }
 };
 
-// ---- the ring: mbarriers and bulk copies ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-
-// Until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// `bytes` (a multiple of 16) from global src to shared dst by the bulk
-// copy engine, completing on `bar`.
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
-      "r"(smem_u32(bar)) : "memory");
-}
-
-// The consumer warpgroups' barrier (the producer warpgroup never
-// joins).
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// A position in the ring: the stage and the parity of its round.
-struct RingPos {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void next(int stages) {
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1u;
-    }
-  }
-};
-
-// Thread 0 initialises the barriers; every thread of the block returns
-// after they are visible.
-__device__ __forceinline__ void init_ring(const Smem& sm) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < sm.stages; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// Registers.  A block of 384 threads compiles to 168 a thread (ptxas
-// allocates a block by whole warpgroups); where ks > 4 the consumers need
-// more (phi's split and five accumulators: ~230 at ks = 16), so the
-// producer warpgroup gives 144 back and each consumer takes 72
-// (setmaxnreg; the counts of every such instance are 168, which
-// chip_smoke.py checks in ptxas's report).
-template <int KS>
-__device__ __forceinline__ void producer_registers() {
-  if constexpr (KS > 4)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-}
-
-template <int KS>
-__device__ __forceinline__ void consumer_registers() {
-  if constexpr (KS > 4)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-}
-
 // The producer (one lane): every unit of every tile of this block, in
 // the consumers' order, into the next free stage.
 __device__ __forceinline__ void produce(const Smem& sm,
@@ -297,12 +171,6 @@ __device__ __forceinline__ void produce(const Smem& sm,
 }
 
 // ---- the conditional on the tensor cores ----
-
-template <int K>
-__device__ __forceinline__ void zero(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) d[i] = 0.0f;
-}
 
 // fk of this warpgroup's 64 rows of the tile at every node into the fk
 // tile, KSR k-steps (KSR <= KS, the fragments held).  A unit is one
@@ -514,7 +382,7 @@ __device__ __forceinline__ Bracket wide_bracket(
 // ---- the prefix updates ----
 
 // dim_step's: phi' = phi (la C[i0] + (1 - la) C[i0+1]) / max-abs, each
-// column one FMA chain over i in order (update_wide_kernel's chain), for
+// column one FMA chain over i in order (prefix_update's chain), for
 // the tile's rows sorted by cell so that one read of the two (r, r)
 // slices (cmat (n, r*r)) serves a batch of up to kBatch rows of a cell.
 // An instance of KS k-steps gives a lane L = KS / 4 columns.
@@ -657,89 +525,36 @@ struct CoreUpdate {
   }
 };
 
-// odim_step's readout: va_j = sum_i p_i Q[i, i0*r + j] and vb_j at
-// i0 + 1, one chain each over i in order, then la va + (1 - la) vb
-// (FactorSlices' order), Q (r, n*r); a warp a row, 16 tile rows a warp.
-struct FactorUpdate {
-  __device__ __forceinline__ static void row(const float* p,
-                                             const float* __restrict__ qmat,
-                                             int n, int r, int i0, float la,
-                                             float (&acc)[kLanes]) {
-    const int lane = threadIdx.x & 31;
-    const size_t nr = static_cast<size_t>(n) * r;
-    const float* qa = qmat + i0 * r;
-    const float* qb = qa + r;
-    float vb[kLanes];
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) acc[k] = vb[k] = 0.0f;
-    for (int i = 0; i < r; ++i) {
-      const float pi = p[i];
-#pragma unroll
-      for (int k = 0; k < kLanes; ++k) {
-        const int j = lane + 32 * k;
-        if (j < r) {
-          acc[k] = fmaf(pi, qa[i * nr + j], acc[k]);
-          vb[k] = fmaf(pi, qb[i * nr + j], vb[k]);
-        }
-      }
-    }
-    const float lb = 1.0f - la;
-#pragma unroll
-    for (int k = 0; k < kLanes; ++k) acc[k] = la * acc[k] + lb * vb[k];
-  }
-
+// odim_step's stage ends with each row's cell: i0 (int32) into cell[row]
+// and the f32 weight la into cell[m + row] (`out`, 2m words), for the
+// cell-grouped readout that follows on the same stream
+// (cell_readout.cu: la v[i0] + (1 - la) v[i0+1] on the tensor cores from
+// the split that this launch leaves in its scratch).
+struct CellWeights {
   template <int KS>
   __device__ __forceinline__ static void tile(const Smem& sm,
                                               const float* __restrict__ phi,
                                               const float* __restrict__ qmat,
-                                              float* __restrict__ phin,
+                                              float* __restrict__ out,
                                               long long row0, int m, int n,
                                               int r) {
-    const int warp = threadIdx.x >> 5;
-    for (int k = 0; k < 16; ++k) {
-      const int trow = 16 * warp + k;
-      const long long row = row0 + trow;
-      if (row >= m) break;                      // uniform across the warp
-      float acc[kLanes];
-      FactorUpdate::row(phi + row * r, qmat, n, r, sm.i0[trow], sm.la[trow],
-                        acc);
-      CoreUpdate::store_row(acc, phin + row * r, r);
+    (void)phi, (void)qmat, (void)n, (void)r;
+    const int tid = threadIdx.x;
+    const long long row = row0 + tid;
+    if (tid < kTcRows && row < m) {
+      reinterpret_cast<int*>(out)[row] = sm.i0[tid];
+      out[m + row] = sm.la[tid];
     }
   }
 };
 
 // ---- the kernels ----
 
-// The split factor: unit k = x * nu + u of node x holds its hi part,
-// then its lo part, each (8 ks, 8 nc) in unit_core_offset's layout;
-// columns u * 8 nc + j past r and K rows past r are zero.
-__global__ void split_factor_kernel(const float* __restrict__ bmat,
-                                    float* __restrict__ split, int n, int r) {
-  const int ks = ksteps(r), nu = node_units(ks), nc = unit_groups(ks);
-  const int cols = 8 * nc, part = (8 * ks) * cols;
-  const long long total = static_cast<long long>(n) * nu * part;
-  const size_t nr = static_cast<size_t>(n) * r;
-  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x)
-                       + threadIdx.x;
-       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long k = idx / part;
-    const int rem = static_cast<int>(idx - k * part);
-    const int i = rem / cols, jl = rem - i * cols;
-    const int x = static_cast<int>(k / nu), u = static_cast<int>(k % nu);
-    const int j = cols * u + jl;
-    const float v = (i < r && j < r) ? bmat[i * nr + x * r + j] : 0.0f;
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    const long long o = 2 * k * part + unit_core_offset(nc, i, jl);
-    split[o] = __uint_as_float(hi);
-    split[o + part] = __uint_as_float(lo);
-  }
-}
-
-// dim_step (Update = CoreUpdate, slices = cmat) and odim_step (Update =
-// FactorUpdate, slices = bmat = Q): phi (m, r), qp/um (m,), bmat (r, n*r),
-// split (the factor as split_factor_kernel leaves it), h (n-1,), xg (2, n)
-// -> phin (m, r), out9 (m, 9).
+// dim_step (Update = CoreUpdate, slices = cmat) and odim_step's stage
+// (Update = CellWeights, slices = bmat = Q): phi (m, r), qp/um (m,), bmat
+// (r, n*r), split (the factor as split_factor_kernel leaves it), h
+// (n-1,), xg (2, n) -> out9 (m, 9) and phin (m, r), or for CellWeights
+// each row's cell (2m words).
 template <bool RT, class Update, int KS>
 __global__ void __launch_bounds__(kBlock, 1)
 dim_wide_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
@@ -750,7 +565,7 @@ dim_wide_kernel(const float* __restrict__ phi, const float* __restrict__ qp,
                 int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
-  init_ring(sm);
+  init_ring(sm.full, sm.empty, sm.stages);
   if (threadIdx.x >= kConsumers) {
     producer_registers<KS>();
     if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
@@ -794,7 +609,7 @@ bracket_wide_kernel(const float* __restrict__ phi,
                     int* __restrict__ i0, int m, int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
-  init_ring(sm);
+  init_ring(sm.full, sm.empty, sm.stages);
   if (threadIdx.x >= kConsumers) {
     producer_registers<KS>();
     if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
@@ -834,7 +649,7 @@ conditional_wide_kernel(const float* __restrict__ phi,
                         float* __restrict__ fk_out, int m, int n, int r) {
   extern __shared__ __align__(16) float smem[];
   const Smem sm(smem, n, r);
-  init_ring(sm);
+  init_ring(sm.full, sm.empty, sm.stages);
   if (threadIdx.x >= kConsumers) {
     producer_registers<KS>();
     if (threadIdx.x == kConsumers) produce(sm, split, m, n, r);
@@ -880,17 +695,6 @@ conditional_wide_kernel(const float* __restrict__ phi,
   }
 }
 
-// The factor split into `split` on `stream`.
-cudaError_t split_launch(const float* bmat, float* split, int n, int r,
-                         cudaStream_t stream) {
-  const long long total = scratch_floats(n, r) / 2;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  split_factor_kernel<<<static_cast<int>(blocks), 256, 0, stream>>>(
-      bmat, split, n, r);
-  return cudaGetLastError();
-}
-
 // The split, then a persistent launch of kern at (m, n, r): kBlock
 // threads and wide_smem_bytes(n, r) a block, one 128-row tile a block at
 // a time (one block an SM: the registers and shared memory).
@@ -898,7 +702,8 @@ cudaError_t wide_launch(const void* kern, void** args, const float* bmat,
                         float* split, int m, int n, int r, int device,
                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = split_launch(bmat, split, n, r, s);
+  cudaError_t e = split_launch(bmat, split, n, r, r,
+                               static_cast<long long>(n) * r, s);
   if (e != cudaSuccess) return e;
   const size_t smem = wide_smem_bytes(n, r);
   int cap = 0;
@@ -950,7 +755,7 @@ long long factor_wide_smem_bytes(int n, int r) {
 // The f32 scratch a launch at (n, r) within the caps needs, in floats:
 // the factor split into hi and lo, unit by unit.
 long long factor_wide_scratch_floats(int n, int r) {
-  return scratch_floats(n, r);
+  return split_floats(n, r);
 }
 
 // The split alone (the first of a launch's two kernels), for timing:
@@ -959,9 +764,9 @@ int factor_wide_split_launch(const void* bmat, void* scratch, int n, int r,
                              int device, void* stream) {
   (void)device;
   if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(split_launch(static_cast<const float*>(bmat),
-                                       static_cast<float*>(scratch), n, r,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(split_launch(
+      static_cast<const float*>(bmat), static_cast<float*>(scratch), n, r, r,
+      static_cast<long long>(n) * r, static_cast<cudaStream_t>(stream)));
 }
 
 // Each launch takes the operands of its narrow tier's entry point
@@ -971,7 +776,11 @@ int factor_wide_split_launch(const void* bmat, void* scratch, int n, int r,
 // memory of factor_wide_scratch_floats(n, r) floats that the launch
 // overwrites; it runs two kernels (the split, then the tier's kernel),
 // returns the first failing launch's cudaError_t (0 on success) and is
-// asynchronous on `stream`.
+// asynchronous on `stream`.  odim_step's takes `cell` (2m words) where its
+// narrow tier takes psin: the stage writes each row's i0 (int32) and la
+// there, and leaves the split of Q in `scratch` for the readout that the
+// caller launches next on the same stream (cell_readout.cu's
+// cell_readout_launch on psi, cell, cell + m and the scratch).
 int dim_step_wide_launch(const void* phi, const void* qp, const void* um,
                          const void* bmat, const void* cmat, const void* h,
                          const void* xg, void* phin, void* out9, int m, int n,
@@ -984,11 +793,11 @@ int dim_step_wide_launch(const void* phi, const void* qp, const void* um,
 
 int odim_step_wide_launch(const void* psi, const void* qp, const void* um,
                           const void* qmat, const void* h, const void* xg,
-                          void* psin, void* out9, int m, int n, int r, int rt,
+                          void* cell, void* out9, int m, int n, int r, int rt,
                           int device, void* stream, void* scratch) {
-  return dim_like_launch<FactorUpdate>(psi, qp, um, qmat, qmat, h, xg, psin,
-                                       out9, m, n, r, rt, device, stream,
-                                       scratch);
+  return dim_like_launch<CellWeights>(psi, qp, um, qmat, qmat, h, xg, cell,
+                                      out9, m, n, r, rt, device, stream,
+                                      scratch);
 }
 
 int cdf_bracket_factor_wide_launch(const void* phi, const void* qp,

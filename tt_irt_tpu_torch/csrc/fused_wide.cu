@@ -34,8 +34,8 @@
 //    log-density run one thread a row, the narrow kernel's sums
 //    (invert_rows) in its order;
 //  - the prefix update runs a warp a row with C_k's two slices read from
-//    L2 (update_wide_kernel's chain: prefix_update's operations in its
-//    order) and writes phi' back into phiT.
+//    L2 (interpolate, then one FMA chain a column: prefix_update's
+//    operations in its order) and writes phi' back into phiT.
 // BM is 4 rows a row group, as many row groups as 256 threads over
 // ceil(n / 4) node groups give, fewer where phiT would pass shared
 // memory (wide_plan).

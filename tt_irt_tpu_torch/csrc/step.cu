@@ -66,12 +66,11 @@
 // shared-memory opt-in).  At rank 128 neither the core (n r^2 floats,
 // 590 KB at n=9) nor P fits shared memory, and a row's phi no longer
 // fits one thread's registers:
-//   update_wide: one warp a row, the core read from L2; lane l holds the columns j = l + 32k
-//   of acc, phi_i comes by shuffle from the lane that holds it, and
-//   C[i0] and C[i0+1] are read a row of r entries at a time (coalesced).
-//   Each column's chain is update_row's (interpolate, then one FMA a
-//   step over i in order); the max-abs of normalize_row (floor 1e-30)
-//   is reduced across the warp.
+//   condition_update past n or r of 64 (update_wide) is not in this
+//   library: cell_readout.cu groups the rows by cell and runs the update
+//   as 3xTF32 products on the tensor cores (its own source and scratch;
+//   ops/step.py routes the shapes, and condition_update_launch here
+//   refuses them).
 //   gram_wide: for each rank slice i, v_i = phi P_i (P_i = P[i*r:(i+1)*r,
 //   :], r x n) is a GEMM of the block's rows, then f += phi_i v_i.  The
 //   block's phi is staged transposed in shared memory (phiT[j][row]) and
@@ -344,15 +343,6 @@ condition_update_kernel(const float* __restrict__ phi,
 
 // ---- the wide tier ----
 
-// Run STMT with the constant W set to ceil(k / 32) (k <= 128).
-#define TTIRT_FOR_WARP_WIDTH(k, STMT)                             \
-  switch (((k) + 31) / 32) {                                      \
-    case 1: { constexpr int W = 1; STMT; } break;                 \
-    case 2: { constexpr int W = 2; STMT; } break;                 \
-    case 3: { constexpr int W = 3; STMT; } break;                 \
-    default: { constexpr int W = 4; STMT; } break;                \
-  }
-
 inline bool in_wide_caps(int n, int r) {
   return n >= 2 && n <= kWideMaxN && r >= 1 && r <= kWideMaxR;
 }
@@ -551,63 +541,6 @@ gram_wide_kernel(const float* __restrict__ phi,
   cp_async_wait<0>();
 }
 
-// phi' of one row a warp; W = ceil(r / 32) columns a lane.
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-update_wide_kernel(const float* __restrict__ phi,
-                   const int* __restrict__ i0v,
-                   const float* __restrict__ la,
-                   const float* __restrict__ lb,
-                   const float* __restrict__ cmat,
-                   float* __restrict__ phin, int m, int n, int r) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t rr = static_cast<size_t>(r) * r;
-  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       row < m; row += static_cast<long long>(gridDim.x) * kWarps) {
-    float p[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int j = lane + 32 * k;
-      p[k] = j < r ? phi[row * r + j] : 0.0f;
-    }
-    const int i0 = min(max(i0v[row], 0), n - 2);
-    const float wa = la[row], wb = lb[row];
-    const float* ca = cmat + static_cast<size_t>(i0) * rr;
-    const float* cb = ca + rr;
-    float acc[W];
-#pragma unroll
-    for (int k = 0; k < W; ++k) acc[k] = 0.0f;
-    for (int i = 0; i < r; ++i) {
-      float src = p[0];
-#pragma unroll
-      for (int k = 1; k < W; ++k)
-        if ((i >> 5) == k) src = p[k];
-      const float pi = __shfl_sync(0xffffffffu, src, i & 31);
-#pragma unroll
-      for (int k = 0; k < W; ++k) {
-        const int j = lane + 32 * k;
-        if (j < r) {
-          const float b = wa * ca[i * r + j] + wb * cb[i * r + j];
-          acc[k] = fmaf(pi, b, acc[k]);
-        }
-      }
-    }
-    float scale = 0.0f;
-#pragma unroll
-    for (int k = 0; k < W; ++k)
-      if (lane + 32 * k < r) scale = fmaxf(scale, fabsf(acc[k]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      scale = fmaxf(scale, __shfl_xor_sync(0xffffffffu, scale, off));
-    const float denom = fmaxf(scale, 1e-30f);
-#pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const int j = lane + 32 * k;
-      if (j < r) phin[row * r + j] = acc[k] / denom;
-    }
-  }
-}
-
 // Persistent launch of kern at `smem` bytes, `blocks` wanted.
 inline cudaError_t launch_persistent(const void* kern, void** args,
                                      int blocks, size_t smem, int device,
@@ -664,17 +597,6 @@ cudaError_t launch_gram_wide(const float* phi, const float* pmat, float* fk,
                           stream);
 }
 
-template <int W>
-cudaError_t launch_update_wide(const float* phi, const int* i0,
-                               const float* la, const float* lb,
-                               const float* cmat, float* phin, int m, int n,
-                               int r, int device, cudaStream_t stream) {
-  void* args[] = {&phi, &i0, &la, &lb, &cmat, &phin, &m, &n, &r};
-  return launch_persistent(
-      reinterpret_cast<const void*>(&update_wide_kernel<W>), args,
-      (m + kWarps - 1) / kWarps, 0, device, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -691,9 +613,13 @@ long long gram_conditional_smem_bytes(int n, int r) {
 int gram_conditional_rows(int n, int r) {
   return gram_wide(n, r) ? wide_plan(n, r).tm : gram_rows_at(r);
 }
-// Shared memory a condition_update launch at (n, r) within the caps asks
-// for, and whether it stages the core (1) or reads it from global memory
-// (0; always in the wide tier).
+// Whether condition_update at (n, r) within the caps goes past this
+// library's tier (1: n or r above 64; cell_readout.cu's
+// condition_update_wide_launch takes it) or to it (0).
+int condition_update_tier(int n, int r) { return update_wide(n, r) ? 1 : 0; }
+// Shared memory a condition_update launch of this library at (n, r) asks
+// for (0 past its tier), and whether it stages the core (1) or reads it
+// from global memory (0; 0 past its tier).
 long long condition_update_smem_bytes(int n, int r) {
   return update_wide(n, r) ? 0
                            : static_cast<long long>(update_smem_bytes(n, r));
@@ -735,12 +661,14 @@ int gram_conditional_launch(const void* phi, const void* pmat, void* fk, int m,
 // Device pointers to contiguous arrays phi (m, r) f32, i0 (m,) int32,
 // la, lb (m,) f32, cmat (n, r*r) f32 -> phin (m, r) f32, all on device
 // `device`, which must be the current device.  Returns the launch's
-// cudaError_t; asynchronous on `stream`.
+// cudaError_t (cudaErrorInvalidValue past this library's tier:
+// condition_update_tier); asynchronous on `stream`.
 int condition_update_launch(const void* phi, const void* i0, const void* la,
                             const void* lb, const void* cmat, void* phin,
                             int m, int n, int r, int device, void* stream) {
   if (m == 0) return 0;
-  if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_wide_caps(n, r) || update_wide(n, r))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* a = static_cast<const float*>(phi);
   const int* ix = static_cast<const int*>(i0);
   const float* wa = static_cast<const float*>(la);
@@ -749,13 +677,8 @@ int condition_update_launch(const void* phi, const void* i0, const void* la,
   float* o = static_cast<float*>(phin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
-  if (update_wide(n, r)) {
-    TTIRT_FOR_WARP_WIDTH(r, e = launch_update_wide<W>(a, ix, wa, wb, c, o, m,
-                                                      n, r, device, s));
-  } else {
-    TTIRT_FOR_TIER(r, e = launch_update<TIER>(a, ix, wa, wb, c, o, m, n, r,
-                                              device, s));
-  }
+  TTIRT_FOR_TIER(r, e = launch_update<TIER>(a, ix, wa, wb, c, o, m, n, r,
+                                            device, s));
   return static_cast<int>(e);
 }
 

@@ -3,7 +3,9 @@ batch of rows (``hi_step="odim"``).
 
 Counterpart of ``tt_irt_tpu/ops/pallas_odim.py::odim_step``.
 ``odim_step_cuda`` launches the hand-written CUDA kernel
-``csrc/odim_step.cu`` and takes CUDA tensors only; ``odim_step_ref`` is
+``csrc/odim_step.cu`` (past n, r of 64 ``csrc/factor_wide.cu``'s stage,
+then the cell-grouped readout of ``csrc/cell_readout.cu``) and takes CUDA
+tensors only; ``odim_step_ref`` is
 the same function in plain PyTorch (``irt_scan._step_factor_ob`` +
 ``_cdf_rows32`` of the JAX package).  Which of the two a tensor gets is
 decided in one place, ``ops/kernel_plan.py``; there is no fallback from
@@ -70,7 +72,7 @@ def odim_step_cuda(psi, qp32, um32, qmat, hrow, xg, mode="irt"):
     launch = _factor_launcher("odim_step_cuda", "odim_step",
                               "odim_step_launch", "odim_step_wide_launch",
                               [p] * 8 + [ctypes.c_int] * 5 + [p], n, r,
-                              psi.device)
+                              psi.device, readout=True)
     psin = torch.empty((m, r), dtype=f32, device=psi.device)
     out9 = torch.empty((m, 9), dtype=f32, device=psi.device)
     with torch.cuda.device(psi.device):

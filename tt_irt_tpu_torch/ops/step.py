@@ -8,7 +8,8 @@ Counterpart of ``tt_irt_tpu/ops/pallas_step.py``: ``gram_conditional``,
 The ``*_cuda`` functions launch the hand-written kernels of
 ``csrc/step.cu`` (the first two), ``csrc/factor_conditional.cu`` and
 ``csrc/factor_step.cu`` (``cdf_bracket_factor``), the last two past
-n, r of 64 through ``csrc/factor_wide.cu``, and take CUDA tensors only;
+n, r of 64 through ``csrc/factor_wide.cu`` and ``condition_update`` past
+n, r of 64 through ``csrc/cell_readout.cu``, and take CUDA tensors only;
 the ``*_ref`` functions are the same functions in plain PyTorch (any
 float dtype, any device).  Which of the
 two a tensor gets is decided in ``ops/kernel_plan.py``; there is no
@@ -43,6 +44,7 @@ import ctypes
 
 import torch
 
+from . import cell_readout
 from ._build import load_library
 from .rowmath import (cdf_rows32, check_cuda_operands, check_factor_caps,
                       full_f32_matmul)
@@ -73,9 +75,46 @@ def condition_update_ref(phi, i0, la, lb, cmat):
     return phin / torch.clamp(scale, min=1e-30)
 
 
+class _StepLibrary:
+    """``csrc/step.cu``'s library (its C functions as attributes), with
+    ``condition_update_launch`` and ``condition_update_smem_bytes`` taking
+    every shape within the caps, by the same arguments: past n or r of
+    64 (``condition_update_tier``) ``csrc/cell_readout.cu``'s
+    ``condition_update_wide_launch`` and its shared memory, the launch's
+    scratch allocated a call on its device; step.cu's own below."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def condition_update_smem_bytes(self, n, r):
+        if self._lib.condition_update_tier(n, r):
+            return cell_readout.lib().cell_readout_smem_bytes(n, r)
+        return self._lib.condition_update_smem_bytes(n, r)
+
+    def condition_update_launch(self, phi, i0, la, lb, cmat, phin, m, n, r,
+                                device, stream):
+        if not self._lib.condition_update_tier(n, r):
+            return self._lib.condition_update_launch(
+                phi, i0, la, lb, cmat, phin, m, n, r, device, stream)
+        wide = cell_readout.lib()
+        scratch = torch.empty(
+            (wide.condition_update_wide_scratch_words(m, n, r),),
+            dtype=torch.int32, device=torch.device("cuda", device))
+        return wide.condition_update_wide_launch(
+            phi, i0, la, lb, cmat, phin, m, n, r, device, stream,
+            scratch.data_ptr())
+
+
+_STEP_LIBRARY = None
+
+
 def _lib():
-    lib = load_library("step")
-    if not getattr(lib, "_typed", False):
+    global _STEP_LIBRARY
+    if _STEP_LIBRARY is None:
+        lib = load_library("step")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gram_conditional_launch.argtypes = [p, p, p, i, i, i, i, p]
         lib.gram_conditional_launch.restype = i
@@ -86,11 +125,12 @@ def _lib():
         for f in ("gram_conditional", "condition_update"):
             fn = getattr(lib, f + "_smem_bytes")
             fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
-        for f in ("gram_conditional_rows", "condition_update_staged"):
+        for f in ("gram_conditional_rows", "condition_update_staged",
+                  "condition_update_tier"):
             getattr(lib, f).argtypes = [i, i]
             getattr(lib, f).restype = i
-        lib._typed = True
-    return lib
+        _STEP_LIBRARY = _StepLibrary(lib)
+    return _STEP_LIBRARY
 
 
 def gram_conditional_cuda(phi, pmat):
@@ -125,7 +165,8 @@ gram_conditional_cuda.launches = 0
 
 
 def condition_update_cuda(phi, i0, la, lb, cmat):
-    """phi' through the CUDA kernel; raises on anything but f32 CUDA
+    """phi' through the CUDA kernel (past n or r of 64 the cell-grouped
+    readout of ``csrc/cell_readout.cu``); raises on anything but f32 CUDA
     tensors (i0: int32) of the documented shapes.  The caller keeps i0
     within [0, n-2]; the kernel clips it so that no read leaves cmat.
     ``condition_update_cuda.launches`` counts kernel launches."""
@@ -175,7 +216,8 @@ def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
     return out9, i0.to(torch.int32)
 
 
-def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device):
+def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device,
+                     readout=False):
     """The launch function of the factor-family tier that takes (n, r):
     ``wide_fn`` of ``csrc/factor_wide.cu`` past the narrow tier's caps
     (n, r <= 64) or shared memory, else ``launch_fn`` of
@@ -183,7 +225,12 @@ def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device):
     ``argtypes``; raises past the wide tier's caps (n, r <= 128).  A wide
     launch also takes the tier's scratch (the factor split once a call),
     which the returned function allocates on ``device`` with the
-    caller's arguments and holds until the launch is queued."""
+    caller's arguments and holds until the launch is queued.  With
+    ``readout`` (odim_step, whose arguments are (psi, qp, um, qmat, h, xg,
+    psin, out9, m, n, r, rt, device, stream)) the wide launch writes each
+    row's cell in place of psin, and ``csrc/cell_readout.cu``'s
+    ``cell_readout_launch`` then forms psin from them and the split on
+    the same stream."""
     wide = load_library("factor_wide")
     if wide.factor_wide_tier.argtypes is None:
         for f in ("factor_wide_tier", "factor_wide_smem_bytes",
@@ -212,7 +259,26 @@ def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device):
         scratch = torch.empty((floats,), dtype=torch.float32, device=device)
         return launch(*args, scratch.data_ptr())
 
-    return call
+    if not readout:
+        return call
+    cr = cell_readout.lib()
+
+    def call_readout(*args):
+        m = args[8]
+        split = torch.empty((floats,), dtype=torch.float32, device=device)
+        cell = torch.empty((2 * m,), dtype=torch.int32, device=device)
+        plan = torch.empty((cr.cell_readout_plan_words(m, n),),
+                           dtype=torch.int32, device=device)
+        err = launch(*args[:6], cell.data_ptr(), *args[7:],
+                     split.data_ptr())
+        if err != 0:
+            return err
+        return cr.cell_readout_launch(
+            args[0], cell.data_ptr(), cell.data_ptr() + 4 * m, None,
+            split.data_ptr(), args[6], m, n, r, args[12], args[13],
+            plan.data_ptr())
+
+    return call_readout
 
 
 def factor_conditional_cuda(phi, bmat):
