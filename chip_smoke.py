@@ -6,9 +6,12 @@ Phases (any failure raises; nothing falls back to the CPU):
   1. print the card's name and power limit; build the CUDA kernels from
      tt_irt_tpu_torch/csrc into build/kernels (one nvcc per source, all
      started together; each source's build seconds and ptxas's
-     registers and spills); print the tensor-core instructions (HGMMA,
-     HMMA) in the SASS of dim_step, odim_step, cdf_bracket_factor and
-     factor_conditional;
+     registers and spills; the wide tiers' instances on the tensor cores
+     at 168 registers where they trade registers, gram_wide.cu's and
+     fused_wide.cu's without spills or serialized wgmma); print the
+     tensor-core instructions (HGMMA, HMMA) in the SASS of dim_step,
+     odim_step, cdf_bracket_factor, factor_conditional and every wide
+     tier on the tensor cores;
   2. hold the dim_step kernel against its plain PyTorch version on the
      card at the Lorenz-40 production shape (n=33, r=23, 2^18 rows), in
      'irt' and 'rt' modes, per dimension and through a whole level;
@@ -177,8 +180,12 @@ Phases (any failure raises; nothing falls back to the CPU):
      and (96, 32), each kernel against its plain version per dimension
      and through the level, tt_irt_sqr and tt_irt_lin at 'f32' on 2^16
      rows against 'f64' beside the plain steps (2x + 1e-6 at p99), launch
-     counts; both kernels timed at 2^18 rows at (9, 128), (96, 32) and
-     (96, 128) beside their plain versions, the einsum and the bounds;
+     counts; both kernels timed at 2^18 rows at (9, 128), (96, 32),
+     (33, 96) and (96, 128) beside their plain versions, the einsum and
+     the bounds, gram_conditional's fk held to f64 on 2^12 of those rows,
+     its split (the first of its two launches) timed alone and as a share
+     of a call, the Gram stage's own floor (its zero-padded products as
+     3xTF32) beside the bound;
  27. conditional sampling: tt_dirt_cond_sample on lz40n33_ck at 'hi'
      (2^log2n rows, the first 10 coordinates of the stack's own samples
      fixed a seed; 2240 dim_step launches), on lz20_ck at 'f32' with dims
@@ -212,7 +219,11 @@ Phases (any failure raises; nothing falls back to the CPU):
      timed alone and as a share of each call; condition_update's wide
      tier at (33, 96) (the split steps of the d=40 serve launch it)
      against its plain version and timed; fused_irt_sqr on d=8 TTs at
-     (9, 128) and (96, 32) against its plain version (p99) and timed;
+     (9, 128) and (96, 32) against its plain version (p99) and timed, its
+     splits (P and C of every dimension) alone and as a share of a call,
+     and the design's own floor (the Gram stage's and the dense-weighted
+     update's products on the nodes that the plain version's cells touch
+     in each 128-row tile) beside the bound;
  32. the sample mesh on four shards of the one card against the one-card
      mesh: __graft_entry__.py's dryrun_multichip in the port (a sharded
      tt_irt_sqr step with a global essinv, the two-level DIRT build, a
@@ -221,9 +232,9 @@ Phases (any failure raises; nothing falls back to the CPU):
      later losses within 1e-10); lz40n33_ck's 'hi' serve of 2^18 rows
      sharded, bit for bit; tt_irt_native on the host against 'f64' on the
      card; verify_env(device="cuda"); profiling.trace around one serve.
-The timing lines of phases 8 and 12 print beside condition_update's,
-gram_conditional's and fused_irt_sqr's times those of their previous
-designs (BEFORE_MS).
+The timing lines of phases 8, 12, 26 and 31 print beside
+condition_update's, gram_conditional's and fused_irt_sqr's times those of
+their previous designs (BEFORE_MS; the wide tiers' at phases 26 and 31).
 Bounds: the products phi B (and gram_conditional's and the whole
 transform's contractions) against the TF32 tensor-core peak three times
 over (3xTF32), the rest against the FP32 peak, bytes against HBM; the
@@ -291,7 +302,15 @@ FUSED_LF_SHARE = 0.999
 # (the latter on the bench TT).  Printed only, as
 # "before"; the kernels line holds this run's times alone.
 BEFORE_MS = {"condition_update": 0.1342, "condition_update_n33_r23": 0.194,
-             "gram_conditional": 0.1724, "fused_irt_sqr": 5.6453}
+             "gram_conditional": 0.1724, "fused_irt_sqr": 5.6453,
+             # the wide tiers of the two before their Gram stage went on
+             # the tensor cores (FP32 GEMMs a rank slice; fused_irt_sqr at
+             # d = 8)
+             "gram_conditional_wide": {"n9_r128": 2.7550,
+                                       "n96_r32": 1.6810,
+                                       "n96_r128": 26.7719},
+             "fused_irt_sqr_wide": {"n9_r128": 72.1089,
+                                    "n96_r32": 26.9669}}
 
 
 def _lap(run, name):
@@ -3625,7 +3644,8 @@ def _fused_path(run, dirt_a):
 # rank-128 TT of tests/test_torch_cuda.py, and one at n = 96), and the
 # shapes its kernels are timed at.
 WIDE_SERVE = ((9, 128), (96, 32))
-WIDE_TIMED = ((9, 128), (96, 32), (96, 128))
+WIDE_TIMED = ((9, 128), (96, 32), (33, 96), (96, 128))
+WIDE_TIMED_CHECK = 1 << 12      # rows of gram_conditional held to f64
 WIDE_ROWS = 1 << 16
 # Phase 27: coordinates fixed per seed on lz40n33_ck, and the subset of
 # lz20_ck's single-point form (dims 0, 1, 3: dirt_permute keeps every
@@ -3644,6 +3664,18 @@ DRAM_STEPS = 2000
 SVN_STEPS = 1
 
 
+def gram_stage_flops(n, r):
+    """Flops of one row and one node of the Gram stage's products
+    (csrc/tc_gram.cuh): ks k-steps of 8 times the node's units' 8 nu nc
+    columns, the zero padding included, two flops a multiply-add (as
+    3xTF32, three such products, in _bound_tc); and of its epilogue,
+    one multiply-add a column."""
+    ks = -(-r // 8)
+    nu = -(-ks // 4)
+    cols = 8 * nu * -(-ks // nu)
+    return 2 * 8 * ks * cols, 2 * cols
+
+
 def _wide_tier_timings(run):
     """Phase 26's timings: gram_conditional and condition_update in the
     wide tier at 2^18 rows on random operands of each WIDE_TIMED shape,
@@ -3651,16 +3683,24 @@ def _wide_tier_timings(run):
     (phase 8's: the Gram contraction as 3xTF32 on the tensor cores, the
     rest on the FP32 cores, bytes against HBM; the all-FP32 bound
     beside; condition_update's that of its cell-grouped form,
-    cell_readout_work, and the row-by-row form's all-FP32 bound beside)."""
+    cell_readout_work, and the row-by-row form's all-FP32 bound beside).
+    gram_conditional's fk on the first WIDE_TIMED_CHECK rows is held to
+    the plain version run in f64 (2x the plain f32 version's error +
+    1e-6 of the largest |fk|); its split (gram_wide_split_launch) is
+    timed alone, and the Gram stage's own floor (its products on whole
+    128-row tiles, padding included) printed beside the bound."""
     import numpy as np
     import torch
 
-    from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
+    from tt_irt_tpu_torch.ops.step import (_gram_wide_lib,
+                                           condition_update_cuda,
                                            condition_update_ref,
                                            gram_conditional_cuda,
                                            gram_conditional_ref)
 
     mb, dev = run.mb, run.dev
+    lib = _gram_wide_lib()
+    stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for n, r in WIDE_TIMED:
         assert max(n, r) > 64            # past the narrow tiers' caps
@@ -3675,29 +3715,61 @@ def _wide_tier_timings(run):
                                    (phi, pmat, cmat, i0, la))
         lb = 1.0 - la
         p3 = pmat.reshape(r, r, n)
+        c = WIDE_TIMED_CHECK
+        fk = gram_conditional_cuda(phi[:c], pmat)
+        f64 = gram_conditional_ref(phi[:c].double(), pmat.double())
+        scale = float(f64.abs().max())
+        g_err_k = float((fk.double() - f64).abs().max()) / scale
+        g_err_p = float((gram_conditional_ref(phi[:c], pmat).double()
+                         - f64).abs().max()) / scale
+        assert g_err_k <= 2.0 * g_err_p + 1e-6, (n, r, g_err_k, g_err_p)
+        g_abs = float((fk - gram_conditional_ref(phi[:c], pmat)).abs()
+                      .max())
         g_ms = _time_ms(lambda: gram_conditional_cuda(phi, pmat), 5)
         g_plain = _time_ms(lambda: gram_conditional_ref(phi, pmat), 2)
         g_lib = _time_ms(lambda: torch.einsum("mi,ijx,mj->mx", phi, p3,
                                               phi), 2)
+        scratch = torch.empty((lib.gram_wide_scratch_floats(n, r),),
+                              dtype=torch.float32, device=dev)
+
+        def split():
+            err = lib.gram_wide_split_launch(pmat.data_ptr(),
+                                             scratch.data_ptr(), n, r,
+                                             dev.index or 0, stream)
+            assert err == 0, err
+
+        split_ms = _time_ms(split, 20)
+        del scratch
         g_bytes = 4 * (mb * (r + n) + r * r * n)
         g_bound = _bound_tc(mb * 2 * r * r * n, mb * r * r, g_bytes)
+        f_tc, f_epi = gram_stage_flops(n, r)
+        rows_pad = -(-mb // 128) * 128
+        g_floor = _bound_tc(rows_pad * n * f_tc, rows_pad * n * f_epi,
+                            g_bytes)
         u_ms = _time_ms(lambda: condition_update_cuda(phi, i0, la, lb,
                                                       cmat), 5)
         u_plain = _time_ms(lambda: condition_update_ref(phi, i0, la, lb,
                                                         cmat), 2)
         u_bound = _bound_tc(*cell_readout_work(mb, n, r))
-        out[f"n{n}_r{r}"] = {
+        shape = f"n{n}_r{r}"
+        out[shape] = {
             "gram_ms": g_ms, "gram_plain_ms": g_plain,
             "gram_library_ms": g_lib, "gram_bound_ms": g_bound[0],
             "gram_bound_by": g_bound[1],
             "gram_bound_fp32_ms": _bound(mb * (2 * r * r * n + r * r),
                                          g_bytes)[0],
+            "gram_floor_ms": g_floor[0],
+            "gram_before_ms": BEFORE_MS["gram_conditional_wide"].get(shape),
+            "gram_split_ms": split_ms, "gram_split_share": split_ms / g_ms,
+            "gram_max_abs_err": g_abs, "gram_check_rows": c,
+            "gram_err_kernel_vs_f64": g_err_k,
+            "gram_err_plain_vs_f64": g_err_p,
             "update_ms": u_ms, "update_plain_ms": u_plain,
             "update_bound_ms": u_bound[0], "update_bound_by": u_bound[1],
             "update_bound_fp32_ms": _bound(
                 mb * (5 * r * r + 2 * r),
                 4 * (mb * (2 * r + 3) + n * r * r))[0]}
-        del phi, pmat, cmat, i0, la, lb, p3
+        del phi, pmat, cmat, i0, la, lb, p3, fk, f64
         torch.cuda.empty_cache()
     return out
 
@@ -4555,6 +4627,25 @@ def _wide_factor_timings(run):
     return out
 
 
+def _tile_nodes(i0s, n, tile=128):
+    """The mean number of nodes that a tile of `tile` consecutive rows
+    touches a dimension (its rows' cells i0 and i0 + 1), over the
+    dimensions whose cells (rows,) are listed."""
+    import torch
+
+    counts = []
+    for i0 in i0s:
+        i0 = i0.long()
+        rows = i0.shape[0] // tile * tile
+        hit = torch.zeros((rows // tile, n), dtype=torch.bool,
+                          device=i0.device)
+        cells = i0[:rows].reshape(-1, tile)
+        hit.scatter_(1, cells, True)
+        hit.scatter_(1, cells + 1, True)
+        counts.append(float(hit.sum(1).double().mean()))
+    return sum(counts) / len(counts)
+
+
 def _wide_fused(run):
     """Phase 31, kernel 6: fused_irt_sqr_cuda past its narrow caps on the
     bench-style TTs at d = WIDE_FUSED_D and each WIDE_FUSED shape: one
@@ -4562,15 +4653,23 @@ def _wide_fused(run):
     operands (the 99th percentile at most twice the plain f32 version's
     plus 1e-6, samples and log-densities) on WIDE_FUSED_PLAIN_ROWS rows;
     timed at 2^18 rows, the plain version and the kernel at
-    WIDE_FUSED_PLAIN_ROWS, with the bounds of phase 8.  Returns {shape:
-    numbers}."""
+    WIDE_FUSED_PLAIN_ROWS, with the bounds of phase 8, the splits of P
+    and C (fused_wide_split_launch, the first two of a call's three
+    launches) alone and as a share of a call, and the design's own floor:
+    the Gram stage's products on whole 128-row tiles and the
+    dense-weighted update's on the nodes that each tile's rows touch
+    (counted from the plain version's cells on the checked rows).
+    Returns {shape: numbers}."""
     import torch
 
     import tt_irt_tpu_torch as tp
+    import tt_irt_tpu_torch.ops.fused_irt as fused_mod
     from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
                                                 fused_irt_sqr_ref)
 
     mb, dev, d = run.mb, run.dev, WIDE_FUSED_D
+    wide = fused_mod._wide_lib()
+    stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for n, r in WIDE_FUSED:
         shape = f"n{n}_r{r}"
@@ -4586,7 +4685,20 @@ def _wide_fused(run):
         xk, lk = fused_irt_sqr_cuda(q[:rows].contiguous(), *ops)
         assert fused_irt_sqr_cuda.launches == 1
         assert bool(torch.isfinite(xk).all() and torch.isfinite(lk).all())
-        xr, lr = fused_irt_sqr_ref(q[:rows], *ops)
+        # the plain version, recording each dimension's cells
+        cells, update = [], fused_mod.condition_update_ref
+
+        def recorded(phi, i0, la, lb, cmat):
+            cells.append(i0)
+            return update(phi, i0, la, lb, cmat)
+
+        fused_mod.condition_update_ref = recorded
+        try:
+            xr, lr = fused_irt_sqr_ref(q[:rows], *ops)
+        finally:
+            fused_mod.condition_update_ref = update
+        touched = _tile_nodes(cells, n)
+        del cells
         x64, l64 = fused_irt_sqr_ref(q[:rows].double(),
                                      *(o.double() for o in ops))
         numbers = {}
@@ -4605,16 +4717,35 @@ def _wide_fused(run):
         qs = q[:rows].contiguous()
         ms_p = _time_ms(lambda: fused_irt_sqr_cuda(qs, *ops), 5)
         plain_ms = _time_ms(lambda: fused_irt_sqr_ref(qs, *ops), 2)
+        scratch = torch.empty((wide.fused_wide_scratch_floats(d, n, r),),
+                              dtype=torch.float32, device=dev)
+
+        def split():
+            err = wide.fused_wide_split_launch(
+                data["p2"].data_ptr(), data["coreu"].data_ptr(), d, n, r,
+                dev.index or 0, stream, scratch.data_ptr())
+            assert err == 0, err
+
+        split_ms = _time_ms(split, 5)
+        scratch_mb = scratch.numel() * 4 / 2**20
+        del scratch
         f_tc = 2 * r * r * n
         f_rest = r * r + (5 * r * r + 2 * r) + 10 * n
         f_bytes = mb * (8 * d + 4) + 4 * d * (2 * r * r * n + 2 * n - 1)
         bound, bound_by = _bound_tc(mb * d * f_tc, mb * d * f_rest, f_bytes)
+        s_tc, s_epi = gram_stage_flops(n, r)
+        rows_pad = -(-mb // 128) * 128
+        floor = _bound_tc(rows_pad * d * (n + touched) * s_tc,
+                          rows_pad * d * (n * s_epi + 10 * n), f_bytes)
         numbers.update({
             "ms": ms, "rows": mb, "d": d, "ms_at_plain_rows": ms_p,
+            "before_ms": BEFORE_MS["fused_irt_sqr_wide"].get(shape),
             "plain_ms": plain_ms, "plain_rows": rows, "bound_ms": bound,
             "bound_by": bound_by,
             "bound_fp32_ms": _bound(mb * d * (f_tc + f_rest), f_bytes)[0],
-            "library_ms": None})
+            "floor_ms": floor[0], "tile_nodes_touched": touched,
+            "split_ms": split_ms, "split_share": split_ms / ms,
+            "scratch_mb": scratch_mb, "library_ms": None})
         out[shape] = numbers
         del data, q, ops, qs
         torch.cuda.empty_cache()
@@ -4863,14 +4994,35 @@ def main(argv=None):
             print(f"  {name}: {ln}")
     # the wide tier's instances past ks = 4 trade registers between their
     # warpgroups (setmaxnreg), which needs the block's 168 a thread (as
-    # allocated: 8 at a time)
-    if "factor_wide" in reports:          # built by this run
-        wide_regs = {k: v for k, v in _build.ptxas_registers(
-            reports["factor_wide"][0]).items() if "_wide_kernel" in k}
+    # allocated: 8 at a time); factor_wide.cu and factor_wide_cond.cu
+    # build them from one header, 12 and 9 instances
+    if "factor_wide" in reports and "factor_wide_cond" in reports:
+        wide_regs = {}
+        for name in ("factor_wide", "factor_wide_cond"):
+            wide_regs.update({k: v for k, v in _build.ptxas_registers(
+                reports[name][0]).items() if "_wide_kernel" in k})
         rec["factor_wide_registers"] = wide_regs
         assert len(wide_regs) == 21, wide_regs
         assert all(-(-v[0] // 8) * 8 == 168 for k, v in wide_regs.items()
                    if re.search(r"Li(8|16)EEEv", k)), wide_regs
+    # the Gram family's wide tiers (gram_wide.cu, fused_wide.cu on
+    # tc_gram.cuh's stage): three instances each (ks 4, 8, 16), those past
+    # ks = 4 at 168 registers, none spilling, no wgmma that ptxas
+    # serializes (a C75xx warning)
+    for name, kern in (("gram_wide", "gram_wide_kernel"),
+                       ("fused_wide", "fused_wide_kernel")):
+        if name not in reports:           # built by an earlier run
+            continue
+        report = reports[name][0]
+        regs = {k: v for k, v in _build.ptxas_registers(report).items()
+                if kern in k}
+        rec[name + "_registers"] = regs
+        assert len(regs) == 3, (name, regs)
+        assert all(v[1] == 0 for v in regs.values()), (name, regs)
+        assert all(-(-v[0] // 8) * 8 == 168 for k, v in regs.items()
+                   if re.search(r"Li(8|16)EEEv", k)), (name, regs)
+        serialized = [ln for ln in report.splitlines() if "C75" in ln]
+        assert not serialized, (name, serialized)
     # the cell-grouped readout (csrc/cell_readout.cu): its three instances
     # (ks 4, 8, 16), the two past ks = 4 at 168 registers as above, none
     # spilling, and no wgmma that ptxas serializes (a C75xx warning)
@@ -4886,21 +5038,24 @@ def main(argv=None):
         serialized = [ln for ln in report.splitlines() if "C75" in ln]
         assert not serialized, serialized
     # the tensor-core instructions of the four kernels whose conditional
-    # runs on the tensor cores: HGMMA in each wgmma instance and in each
-    # instance of their wide tier, HMMA in each mma.sync instance
+    # runs on the tensor cores and of every wide tier on them (the Gram
+    # family's too): HGMMA in each wgmma instance and in each wide
+    # instance, HMMA in each mma.sync instance
     # (cuobjdump -sass)
     # (one cuobjdump a library, all at once)
     with ThreadPoolExecutor() as pool:
         sass = list(pool.map(_build.sass_tensor_ops, (
-            "dim_step", "dim_step_rt", "odim_step", "factor_step",
-            "factor_conditional", "factor_wide", "cell_readout")))
+            "dim_step", "dim_step_rt", "dim_step_rt_t64", "odim_step",
+            "factor_step", "factor_conditional", "factor_wide",
+            "factor_wide_cond", "cell_readout", "gram_wide", "fused_wide")))
     rec["sass_tensor_ops"] = {
         k: v for ops in sass for k, v in ops.items()
         if k.startswith(("dim_step_kernel<", "odim_step_kernel<",
                          "cdf_bracket_factor_kernel<",
                          "factor_conditional_kernel<", "dim_wide_kernel<",
                          "bracket_wide_kernel<", "conditional_wide_kernel<",
-                         "cell_readout_kernel<"))}
+                         "cell_readout_kernel<", "gram_wide_kernel<",
+                         "fused_wide_kernel<"))}
     for k, v in rec["sass_tensor_ops"].items():
         print(f"  SASS {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}")
     bad = [k for k, v in rec["sass_tensor_ops"].items()
@@ -4911,7 +5066,7 @@ def main(argv=None):
         "dim_step_kernel", "odim_step_kernel", "cdf_bracket_factor_kernel",
         "factor_conditional_kernel", "dim_wide_kernel",
         "bracket_wide_kernel", "conditional_wide_kernel",
-        "cell_readout_kernel"}, \
+        "cell_readout_kernel", "gram_wide_kernel", "fused_wide_kernel"}, \
         rec["sass_tensor_ops"]
     _lap(run, "1 build")
 
@@ -5135,6 +5290,11 @@ def main(argv=None):
         if entry["name"] in ("condition_update", "odim_step"):
             # past n or r of 64 the update is the cell-grouped readout
             entry["wide_tier_source"] = "tt_irt_tpu_torch/csrc/cell_readout.cu"
+        if entry["name"] in ("gram_conditional", "fused_irt_sqr"):
+            # past their narrow tiers, tc_gram.cuh's Gram stage
+            entry["wide_tier_source"] = "tt_irt_tpu_torch/csrc/" + (
+                "gram_wide.cu" if entry["name"] == "gram_conditional"
+                else "fused_wide.cu") + " + tc_gram.cuh"
         key = {"gram_conditional": "gram",
                "condition_update": "update"}.get(entry["name"])
         if key is not None:

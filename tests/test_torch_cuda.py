@@ -149,20 +149,43 @@ def test_tensor_core_kernels_use_the_tensor_cores():
     instructions (cuobjdump -sass): HGMMA in every wgmma instance, HMMA
     in every mma.sync instance, at least one instance of each kernel at
     the rank tier 24 with HGMMA; HGMMA in each of the 21 instances of
-    their wide tier (csrc/factor_wide.cu).  dim_step's two modes are two
-    sources."""
+    their wide tier (csrc/factor_wide.cuh, built from factor_wide.cu and
+    factor_wide_cond.cu) and in each of the three instances of the Gram
+    family's wide tiers (gram_wide.cu, fused_wide.cu).  dim_step's mode
+    'irt' is one source, its mode 'rt' two (dim_step_rt.cu, tiers 8-32;
+    dim_step_rt_t64.cu, 64).  The two Gram-family sources share
+    one Gram stage: both include csrc/tc_gram.cuh and run its gram_nodes,
+    which neither defines itself."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
-    from tt_irt_tpu_torch.ops._build import sass_tensor_ops
+    import os
+    import re
+
+    from tt_irt_tpu_torch.ops._build import CSRC, sass_tensor_ops
 
     ops = {}
-    for lib in ("dim_step", "dim_step_rt", "odim_step", "factor_step",
-                "factor_conditional"):
+    for lib in ("dim_step", "dim_step_rt", "dim_step_rt_t64", "odim_step",
+                "factor_step", "factor_conditional"):
         ops.update(sass_tensor_ops(lib))
-    wide = {k: v for k, v in sass_tensor_ops("factor_wide").items()
-            if "_wide_kernel<" in k}
+    wide = {}
+    for lib in ("factor_wide", "factor_wide_cond"):
+        wide.update({k: v for k, v in sass_tensor_ops(lib).items()
+                     if "_wide_kernel<" in k})
     assert len(wide) == 21, wide
     assert all(v["HGMMA"] > 0 for v in wide.values()), wide
+    for lib, kern in (("gram_wide", "gram_wide_kernel<"),
+                      ("fused_wide", "fused_wide_kernel<")):
+        inst = {k: v for k, v in sass_tensor_ops(lib).items()
+                if k.startswith(kern)}
+        assert len(inst) == 3, (lib, inst)
+        assert all(v["HGMMA"] > 0 for v in inst.values()), (lib, inst)
+        with open(os.path.join(CSRC, lib + ".cu")) as fh:
+            text = fh.read()
+        assert '#include "tc_gram.cuh"' in text, lib
+        assert re.search(r"\bgram_nodes<", text), lib
+        assert not re.search(r"void gram_nodes\(", text), lib
+    with open(os.path.join(CSRC, "tc_gram.cuh")) as fh:
+        assert re.search(r"void gram_nodes\(", fh.read())
     # 4 wgmma tiers + 3 mma.sync tiers, in 'irt' and 'rt' where the
     # kernel has the two modes
     for kern, count in (("dim_step_kernel", 14), ("odim_step_kernel", 14),
@@ -291,7 +314,8 @@ def test_step_kernels_mask_the_last_tile_on_card(m, n, r):
     guard words after them stay as they were.  (64, 32) is
     condition_update's unstaged core and gram_conditional's wide tier (P
     alone takes 262 KB); (9, 128) and (96, 128) are both kernels' wide
-    tier (a warp a row; a tile of 128 or 32 rows a block)."""
+    tier (128-row tiles of one cell; 128-row tiles of the Gram stage, two
+    warpgroups of 64)."""
     if not torch.cuda.is_available():
         pytest.skip(NO_CARD)
     lib = _step_lib()
@@ -1105,9 +1129,11 @@ def test_rank_128_at_f32_serves_through_the_wide_tier(n, r):
 # The wide tier's shapes: rank 128 at a short grid, n = 96 at rank 32
 # and both at 128; (64, 64) is within the narrow caps but its P needs
 # 1 MB of shared memory, so gram_conditional takes the wide tier there;
-# (9, 127) ends on a step of 3 of gram_conditional's 4 rank slices, and
-# (100, 70) on a node tile of one group of 4.
-WIDE_SHAPES = [(9, 128), (96, 32), (96, 128), (64, 64), (9, 127), (100, 70)]
+# (9, 127) ends on a zero-padded k-step, (100, 70) on a unit of 3
+# column groups; (33, 96) is the d = 40 serve's shape (three 32-column
+# units a node).
+WIDE_SHAPES = [(9, 128), (96, 32), (96, 128), (64, 64), (9, 127), (100, 70),
+               (33, 96)]
 
 
 @pytest.mark.cuda
@@ -1421,6 +1447,112 @@ def test_fused_irt_wide_tier_on_card(n, r):
         ep = torch.quantile((p_.double() - ref).abs().reshape(
             k.shape[0], -1).amax(1), 0.99)
         assert float(ek) <= 2.0 * float(ep) + 1e-6, (float(ek), float(ep))
+
+
+def _fused_p99(ops, xk, lk, rows=None):
+    """The whole transform's bar: the 99th percentile of the kernel's
+    row error in samples and log-densities against the plain version
+    run in f64 on the same f32 operands at most twice the plain f32
+    version's plus 1e-6 (on the given rows)."""
+    sel = slice(None) if rows is None else rows
+    xr, lr = fused_irt_sqr_ref(*ops)
+    x64, l64 = fused_irt_sqr_ref(*(t.double() for t in ops))
+    for k, p_, ref in ((xk, xr, x64), (lk, lr, l64)):
+        k, p_, ref = k[sel], p_[sel], ref[sel]
+        ek = torch.quantile((k.double() - ref).abs().reshape(
+            k.shape[0], -1).amax(1), 0.99)
+        ep = torch.quantile((p_.double() - ref).abs().reshape(
+            k.shape[0], -1).amax(1), 0.99)
+        assert float(ek) <= 2.0 * float(ep) + 1e-6, (float(ek), float(ep))
+
+
+# Kernel 6's wide tier at a shape of each of its instances (fragments of
+# 4, 8 and 16 k-steps: r <= 32, r <= 64, r <= 128): n = 96 at rank 32,
+# n = 70 at rank 48 (6 k-steps, two units of 3 column groups), rank 72
+# (9 k-steps) and 127 (a zero-padded last k-step) at n = 9.
+FUSED_WIDE_BRANCHES = [(96, 32), (70, 48), (9, 72), (9, 127)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", FUSED_WIDE_BRANCHES)
+def test_fused_irt_wide_branches_on_card(n, r):
+    """The whole-transform kernel's wide tier at d = 4 against its plain
+    version in f64 (the bar of test_fused_irt_wide_tier_on_card), one
+    launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, data = _fused_operands(4096 + 7, 4, n, r, n * r)
+    ops = (q, data["p2"], data["coreu"], data["x"], data["h"])
+    before = fused_irt_sqr_cuda.launches
+    xk, lk = fused_irt_sqr_cuda(*ops)
+    torch.cuda.synchronize()
+    assert fused_irt_sqr_cuda.launches == before + 1
+    assert bool(torch.isfinite(xk).all()) and bool(torch.isfinite(lk).all())
+    _fused_p99(ops, xk, lk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 129, 4096 + 7])
+@pytest.mark.parametrize("n,r", [(9, 128), (96, 32)])
+def test_fused_irt_wide_rows_are_their_own_on_card(m, n, r):
+    """Row counts that end inside a 64-row slab or the 128-row tile: the
+    first m rows of a longer launch's seeds, and m rows 37 further on
+    (other tile positions, other neighbours), give that launch's samples
+    and log-densities of the same rows bit for bit (a row's Gram stage,
+    CDF and dense-weighted update are its own: a zero weight adds an
+    exact zero, whatever cells the tile's other rows touch)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    q, data = _fused_operands(4096 + 7 + 200, 4, n, r, n + r)
+    ops = (data["p2"], data["coreu"], data["x"], data["h"])
+    xf, lf = fused_irt_sqr_cuda(q, *ops)
+    for first in (0, 37):
+        xm, lm = fused_irt_sqr_cuda(q[first:first + m].contiguous(), *ops)
+        torch.cuda.synchronize()
+        assert torch.equal(xm, xf[first:first + m]), first
+        assert torch.equal(lm, lf[first:first + m]), first
+        assert bool(torch.isfinite(xm).all() and torch.isfinite(lm).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one_cell", "first_cell", "last_cell",
+                                  "ends"])
+@pytest.mark.parametrize("n,r", [(9, 128), (96, 32)])
+def test_fused_irt_wide_skewed_cells_on_card(kind, n, r):
+    """Seeds that put every row of a tile in one cell (all rows one seed:
+    the update streams the units of two nodes), in the first or the last
+    cell (seeds within 1e-4 of 0 or 1), or half in each end cell: the
+    rows in reverse order give the same rows' outputs bit for bit; one
+    seed gives every row the outputs of that seed's row in a launch of
+    uniform seeds; the end cells are held to the plain version in f64 at
+    the 99th percentile."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    m, d = 4096 + 7, 4
+    q, data = _fused_operands(m, d, n, r, n + r)
+    ops = (data["p2"], data["coreu"], data["x"], data["h"])
+    rng = np.random.default_rng(n * r + 3)
+    lo = torch.from_numpy(rng.uniform(0.0, 1e-4, (m, d))).float().cuda()
+    if kind == "one_cell":
+        qs = q[7:8].expand(m, d).contiguous()
+    elif kind == "first_cell":
+        qs = lo
+    elif kind == "last_cell":
+        qs = 1.0 - lo
+    else:
+        qs = torch.where(torch.arange(m, device="cuda")[:, None] % 2 == 0,
+                         lo, 1.0 - lo)
+    xk, lk = fused_irt_sqr_cuda(qs, *ops)
+    xr, lr = fused_irt_sqr_cuda(qs.flip(0).contiguous(), *ops)
+    torch.cuda.synchronize()
+    assert torch.equal(xr.flip(0), xk) and torch.equal(lr.flip(0), lk)
+    assert bool(torch.isfinite(xk).all()) and bool(torch.isfinite(lk).all())
+    if kind == "one_cell":
+        xu, lu = fused_irt_sqr_cuda(q, *ops)
+        assert torch.equal(xk, xu[7:8].expand(m, d))
+        assert torch.equal(lk, lu[7:8].expand(m))
+    else:
+        _fused_p99((qs, *ops), xk, lk)
 
 
 @pytest.mark.cuda

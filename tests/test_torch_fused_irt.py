@@ -101,6 +101,48 @@ def test_fused_irt_sqr_padding_and_port_f64():
     assert float((lt.double() - l64).abs().max()) < 1e-3
 
 
+def test_fused_irt_sqr_wide_matches_jax_kernel():
+    """Past rank 64 (n = 9, r = 72, d = 2: the wide tier on the card) on
+    64 seeds: the port's plain version, and the same transform with the
+    card's arithmetic (the Gram stage and the dense-weighted update of
+    csrc/fused_wide.cu as tests/test_torch_tf32_split.py models them),
+    against pallas_irt_sqr(interpret) within 2e-4 (the bar of the narrow
+    shapes above), and both within the JAX bars of the f64 scan."""
+    import tt_irt_tpu_torch.ops.fused_irt as fused_mod
+    from test_torch_tf32_split import dense_update_model, gram_wide_model
+
+    n, d, r = 9, 2, 72
+    rng = np.random.default_rng(72)
+    cores = [rng.uniform(0.1, 1.0, (1, n, r)),
+             rng.uniform(0.1, 1.0, (r, n, 1))]
+    grids = [np.linspace(-1.0, 1.0, n)] * d
+    jtt, ttt, tg = _both(cores, grids)
+    q = rng.random((64, d))
+    xj, lj = pallas_irt_sqr(grids, jtt, jnp.asarray(q), block=64,
+                            interpret=True)
+    x64, l64 = ti.tt_irt_sqr(grids, jtt, jnp.asarray(q))
+    data = tp.build_fused_data(ttt, tg)
+    assert data["r"] == r
+    ops = (torch.from_numpy(q).float(), data["p2"], data["coreu"],
+           data["x"], data["h"])
+    runs = {"plain": fused_mod.fused_irt_sqr_ref(*ops)}
+    saved = (fused_mod.gram_conditional_ref, fused_mod.condition_update_ref)
+    fused_mod.gram_conditional_ref = gram_wide_model
+    fused_mod.condition_update_ref = dense_update_model
+    try:
+        runs["card model"] = fused_mod.fused_irt_sqr_ref(*ops)
+    finally:
+        fused_mod.gram_conditional_ref, fused_mod.condition_update_ref = \
+            saved
+    for name, (xt, lt) in runs.items():
+        xt = xt.numpy().astype(np.float64)
+        lt = lt.numpy().astype(np.float64)
+        assert np.max(np.abs(xt - np.asarray(xj))) < 2e-4, name
+        assert np.max(np.abs(lt - np.asarray(lj))) < 2e-4, name
+        assert np.max(np.abs(xt - np.asarray(x64))) < 5e-2, name
+        assert np.max(np.abs(lt - np.asarray(l64))) < 1e-3, name
+
+
 def test_fused_irt_degenerate_rows_and_edges():
     """A dimension whose conditional is identically zero takes the
     uniform fix (samples x0 + q (x_end - x0), log-density -log of the

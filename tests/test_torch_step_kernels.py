@@ -34,9 +34,11 @@ def _operands(m, r, n, seed, edge=False, free_lb=False):
     return phi, pmat, cmat, i0, la, lb
 
 
-# (m, r, n, i0 pinned at n-2 on half the rows, lb drawn independently)
+# (m, r, n, i0 pinned at n-2 on half the rows, lb drawn independently);
+# the last past rank 64, the Gram family's wide tier on the card.
 CASES = [(256, 23, 33, False, False), (64, 1, 9, False, False),
-         (128, 5, 17, True, False), (128, 7, 17, False, True)]
+         (128, 5, 17, True, False), (128, 7, 17, False, True),
+         (64, 72, 9, True, False)]
 
 
 @pytest.mark.parametrize("m,r,n,edge,free_lb", CASES)
@@ -53,6 +55,27 @@ def test_gram_conditional_ref_matches_jax_kernel(m, r, n, edge, free_lb):
     scale = np.max(np.abs(ref))
     assert np.max(np.abs(ft - fj)) / scale < 1e-5
     assert np.max(np.abs(ft - ref)) / scale < 1e-5
+
+
+def test_gram_wide_model_matches_jax_kernel():
+    """The card's arithmetic past rank 64 (the Gram stage of
+    csrc/tc_gram.cuh, modelled on the CPU by
+    tests/test_torch_tf32_split.py::gram_wide_model) against the JAX
+    package's Pallas kernel (interpret mode) at (9, 72): 1e-5 of the
+    largest |fk|, the JAX test's own bar."""
+    from test_torch_tf32_split import gram_wide_model
+
+    m, r, n = 64, 72, 9
+    phi, pmat, _, _, _, _ = _operands(m, r, n, 3)
+    fj = np.asarray(gram_conditional(jnp.asarray(phi), jnp.asarray(pmat)))
+    fm = gram_wide_model(torch.from_numpy(phi),
+                         torch.from_numpy(pmat)).numpy()
+    ref = np.einsum("mi,ijx,mj->mx", phi.astype(np.float64),
+                    pmat.reshape(r, r, n).astype(np.float64),
+                    phi.astype(np.float64))
+    scale = np.max(np.abs(ref))
+    assert np.max(np.abs(fm - fj)) / scale < 1e-5
+    assert np.max(np.abs(fm - ref)) / scale < 1e-5
 
 
 @pytest.mark.parametrize("m,r,n,edge,free_lb", CASES)

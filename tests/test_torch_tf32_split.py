@@ -28,6 +28,13 @@ the bracket's f1 and f2.  The wide tier past rank 64
 instead: ``wide_conditional_model``; the prefix update past rank 64
 (tt_irt_tpu_torch/csrc/cell_readout.cu) runs the same products on the
 rows of one cell and interpolates after them: ``cell_readout_model``.
+The Gram family's wide tiers (tt_irt_tpu_torch/csrc/tc_gram.cuh: the
+stage with a Gram epilogue, which gram_wide.cu and fused_wide.cu run)
+form v = phi P~ by the same products and fk = sum_j v_j phi_j in the
+lanes' order: ``gram_wide_model``; the whole transform's wide tier
+(fused_wide.cu) runs the same Gram stage and updates the prefix as a
+dense-weighted product over the nodes its rows touch, hi.hi in one
+part: ``dense_update_model``.
 Nothing here needs a card."""
 
 RECOMPUTE = 2.0 ** -8         # tc_conditional.cuh: kRecompute
@@ -42,7 +49,8 @@ from tt_irt_tpu_torch.ops.cell_readout import cell_plan_ref
 from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
 from tt_irt_tpu_torch.ops.rowmath import cdf_rows32, invert_quadratic
 from tt_irt_tpu_torch.ops.step import (condition_update_ref,
-                                       factor_conditional_ref)
+                                       factor_conditional_ref,
+                                       gram_conditional_ref)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "examples", "data")
@@ -232,6 +240,72 @@ def cell_readout_model(phi, slices, i0, la, lb, parts=4):
         scale = torch.clamp(w.abs().amax(1, keepdim=True), min=1e-30)
         out[idx] = w / scale
     return out
+
+
+def _lane_sums(vp, ap):
+    """sum_j v_j a_j per (row, node) in the wide tiers' lane order, from
+    v (mm, n, 8 ks) and a (mm, 1, 8 ks) zero-padded to whole k-steps:
+    lane t takes columns 8c + 2t and 8c + 2t + 1 of each group c in
+    order by fmaf, then the quad's four sums as (s0 + s1) + (s2 + s3)."""
+    mm, n, kp = vp.shape
+    ks = kp // 8
+    vp = vp.reshape(mm, n, ks, 4, 2).double()
+    ap = ap.reshape(ap.shape[0], ap.shape[1], ks, 4, 2).double()
+    acc = torch.zeros((mm, n, 4), dtype=torch.float32)
+    for c in range(ks):
+        for e in range(2):
+            acc = (vp[:, :, c, :, e] * ap[:, :, c, :, e]
+                   + acc.double()).float()
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+
+
+def gram_wide_model(phi, pmat, rows=128, parts=4):
+    """fk (M, n) as the Gram family's wide tiers compute it
+    (csrc/tc_gram.cuh::gram_nodes), from f32 phi (M, r) and pmat (r*r,
+    n): P as the factor form P~[i, x*r + j] = P[i*r + j, x], split once;
+    v = phi P~ by ``_wide_v`` (hi.hi in at most ``parts`` tensor-core
+    accumulators); fk[x] = sum_j v[x, j] phi_j in the lanes' order
+    (``_lane_sums``: the units of a node in order, their zero padding
+    adding nothing).  ``rows`` rows at a time."""
+    m, r = phi.shape
+    n = pmat.shape[1]
+    kp = 8 * -(-r // 8)
+    pt = pmat.reshape(r, r, n).permute(0, 2, 1).reshape(r, n * r)
+    bh, bl = _split_padded(pt, kp)
+    out = []
+    for lo_row in range(0, m, rows):
+        mm = min(rows, m - lo_row)
+        a = torch.zeros((mm, kp), dtype=torch.float32)
+        a[:, :r] = phi[lo_row:lo_row + mm]
+        v = _wide_v(a, bh, bl, parts)
+        vp = torch.zeros((mm, n, kp), dtype=torch.float32)
+        vp[:, :, :r] = v.reshape(mm, n, r)
+        out.append(_lane_sums(vp, a[:, None, :]))
+    return torch.cat(out)
+
+
+def dense_update_model(phi, i0, la, lb, cmat, parts=1):
+    """phi' (M, r) as the whole transform's wide tier updates the prefix
+    (csrc/fused_wide.cu::update_units), from f32 phi (M, r), i0 (M,), f32
+    la, lb (M,) and cmat (n, r*r) (condition_update_ref's operands): over
+    every node c in order, v =
+    phi C[c] by ``_wide_v`` (C[c] split once, hi.hi in ``parts``
+    accumulators), acc = acc + w_c v in f32 (the product rounded, then
+    the sum), w_c = la at c = i0, lb at c = i0 + 1, 0 elsewhere; each row
+    divided by its largest absolute entry (floor 1e-30)."""
+    m, r = phi.shape
+    n = cmat.shape[0]
+    kp = 8 * -(-r // 8)
+    a = torch.zeros((m, kp), dtype=torch.float32)
+    a[:, :r] = phi
+    x = i0.long()
+    acc = torch.zeros((m, r), dtype=torch.float32)
+    for c in range(n):
+        w = torch.where(x == c, la, torch.where(x + 1 == c, lb,
+                                                torch.zeros_like(la)))
+        v = _wide_v(a, *_split_padded(cmat[c].reshape(r, r), kp), parts)
+        acc = acc + w[:, None] * v
+    return acc / torch.clamp(acc.abs().amax(1, keepdim=True), min=1e-30)
 
 
 def chain_fk(phi, bmat, at=None):
@@ -456,6 +530,162 @@ def test_cell_readout_model_rows_are_their_own():
         part = cell_readout_model(phi[:100], slices, i0[:100], la[:100],
                                   lb[:100])
         assert torch.equal(part, full[:100])
+
+
+# The Gram family's wide shapes: WIDE_MODEL_SHAPES, a zero-padded last
+# k-step at n = 9, (64, 64) (within the narrow caps, P past shared
+# memory) and a unit of 3 column groups.
+GRAM_MODEL_SHAPES = WIDE_MODEL_SHAPES + [(9, 127), (64, 64), (100, 70)]
+
+
+def _gram_operands(n, r, m, seed):
+    """phi and a general (non-symmetric) P as the card tests make them
+    (tests/test_torch_cuda.py::_step_operands)."""
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((m, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    pmat = rng.standard_normal((r * r, n)).astype(np.float32)
+    return torch.from_numpy(phi), torch.from_numpy(pmat)
+
+
+def _gram_ratios(phi, pmat, fk):
+    """fk's error against the f64 fk over twice the plain f32 version's
+    plus 1e-6, relative to the largest |fk64| and to each row's own
+    (the card's bar is a ratio <= 1)."""
+    f64 = gram_conditional_ref(phi.double(), pmat.double())
+    fkp = gram_conditional_ref(phi, pmat)
+    out = []
+    for scale in (f64.abs().max(), f64.abs().amax(1, keepdim=True)):
+        em = float(((fk.double() - f64).abs() / scale).max())
+        ep = float(((fkp.double() - f64).abs() / scale).max())
+        out.append(em / (2.0 * ep + 1e-6))
+    return out
+
+
+@pytest.mark.parametrize("n,r", GRAM_MODEL_SHAPES)
+def test_gram_wide_model_meets_the_card_rule_on_random_operands(n, r):
+    """The Gram stage's arithmetic (3xTF32 products of phi with P's node
+    blocks, hi.hi in four parts, the Gram epilogue in the lanes' order)
+    on random operands: its fk at most twice as far from the f64 fk as
+    the plain f32 version plus 1e-6, relative to the largest |fk| and to
+    each row's own largest."""
+    phi, pmat = _gram_operands(n, r, 256, n + r)
+    for ratio in _gram_ratios(phi, pmat, gram_wide_model(phi, pmat)):
+        assert ratio <= 1.0, ratio
+
+
+def test_gram_wide_parts_pin_the_accumulators():
+    """How many hi.hi parts the Gram stage needs, at (96, 128) (16
+    k-steps): four (the kernels', the factor stage's) are the closest to
+    f64; two and one lose accuracy in that order (the tensor core
+    truncates each sum of a k-step into its accumulator), though on these
+    operands every count meets the bar (measured 0.16, 0.21, 0.37 of it
+    against the largest |fk|)."""
+    phi, pmat = _gram_operands(96, 128, 256, 224)
+    f64 = gram_conditional_ref(phi.double(), pmat.double())
+    err = [float((gram_wide_model(phi, pmat, parts=p).double()
+                  - f64).abs().max()) for p in (4, 2, 1)]
+    assert err[0] < err[1] < err[2], err
+    assert max(_gram_ratios(phi, pmat, gram_wide_model(phi, pmat))) <= 1.0
+
+
+def _update_operands(n, r, m, seed):
+    """A normal prefix and core, cells in [0, n-2] and weights la, lb =
+    1 - la, as the whole transform's CDF gives them."""
+    rng = np.random.default_rng(seed)
+    phi = rng.standard_normal((m, r)).astype(np.float32)
+    phi /= np.max(np.abs(phi), axis=1, keepdims=True)
+    cmat = rng.standard_normal((n, r * r)).astype(np.float32)
+    i0 = rng.integers(0, n - 1, m).astype(np.int32)
+    la = rng.uniform(size=m).astype(np.float32)
+    lb = (1.0 - la).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (phi, cmat, i0, la, lb))
+
+
+@pytest.mark.parametrize("n,r", GRAM_MODEL_SHAPES)
+def test_dense_update_model_meets_the_card_rule(n, r):
+    """The whole transform's dense-weighted prefix update (hi.hi in one
+    part, the blend after the products) on random operands: phi' at most
+    twice as far from condition_update_ref run in f64 as the plain f32
+    version plus 1e-6 (phi' is max-normalised: each row's largest is 1),
+    and with two parts too."""
+    phi, cmat, i0, la, lb = _update_operands(n, r, 256, n * r + 1)
+    model = dense_update_model(phi, i0, la, lb, cmat)
+    p64 = condition_update_ref(phi.double(), i0, la.double(), lb.double(),
+                               cmat.double())
+    pr = condition_update_ref(phi, i0, la, lb, cmat)
+    ek = (model.double() - p64).abs().amax(1)
+    ep = (pr.double() - p64).abs().amax(1)
+    assert float(ek.max()) <= 2.0 * float(ep.max()) + 1e-6
+    for parts in (2, 1):
+        m1 = dense_update_model(phi, i0, la, lb, cmat, parts=parts)
+        assert float((m1.double() - p64).abs().max()) <= \
+            2.0 * float(ep.max()) + 1e-6, parts
+
+
+def test_dense_update_equals_the_cell_grouping():
+    """A zero weight adds an exact zero: the dense-weighted update over
+    every node equals the cell-grouped form (each row times its two
+    slices only, kernel 3's wide tier's arithmetic at the same parts)
+    bit for bit, so a row's phi' is its own whatever cells its tile's
+    other rows touch; also with every row in one cell and in the two
+    end cells."""
+    n, r, m = 9, 72, 512
+    phi, cmat, i0, la, lb = _update_operands(n, r, m, 11)
+    slices = cmat.reshape(n, r, r)
+    for cells in (i0, torch.full_like(i0, 3), torch.zeros_like(i0),
+                  torch.full_like(i0, n - 2)):
+        dense = dense_update_model(phi, cells, la, lb, cmat)
+        assert torch.equal(dense, cell_readout_model(phi, slices, cells, la,
+                                                     lb, parts=1))
+        assert torch.equal(dense_update_model(phi[:100], cells[:100],
+                                              la[:100], lb[:100], cmat),
+                           dense[:100])
+
+
+@pytest.fixture(scope="module")
+def lz20():
+    """The last level of lz20_ck as DirtSampler prepares it at 'f32', and
+    2^10 rows of seeds (tests/test_torch_gram_design.py's fixture)."""
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.samplers.dirt import _prepare_level_preps
+
+    dirt = tp.load_dirt(os.path.join(DATA, "lz20_ck"), device="cpu")
+    p32 = _prepare_level_preps(dirt, "f32")[-1]
+    q = torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(1 << 10, dirt.d)))
+    return p32, q
+
+
+def test_gram_wide_models_meet_the_card_rule_on_lz20(lz20):
+    """lz20_ck's own Gram fields and cores at every dimension of its last
+    level, on the carry the plain f32 chain reaches there from 2^10
+    seeds: the Gram stage's fk (largest |fk| and row by row) and the
+    dense-weighted update's phi' (on the CDF's own cells and weights)
+    each at most twice as far from their f64 versions as the plain f32
+    versions plus 1e-6."""
+    from tt_irt_tpu_torch.samplers.irt_scan import _cdf_invert
+
+    p32, q = lz20
+    d, rr, _ = p32.pmat.shape
+    r = int(round(rr ** 0.5))
+    qs = q.float().T.contiguous()
+    phi = torch.zeros((q.shape[0], r), dtype=torch.float32)
+    phi[:, 0] = 1.0
+    for k in range(d):
+        pmat, cmat = p32.pmat[k], p32.cmat[k]
+        for ratio in _gram_ratios(phi, pmat, gram_wide_model(phi, pmat)):
+            assert ratio <= 1.0, (k, ratio)
+        fk = gram_conditional_ref(phi, pmat)
+        _, _, la, lb, i0 = _cdf_invert("sqr", fk, p32.xs[k], p32.hs[k],
+                                       qs[k])
+        model = dense_update_model(phi, i0, la, lb, cmat)
+        p64 = condition_update_ref(phi.double(), i0, la.double(),
+                                   lb.double(), cmat.double())
+        phi = condition_update_ref(phi, i0, la, lb, cmat)
+        ek = float((model.double() - p64).abs().max())
+        ep = float((phi.double() - p64).abs().max())
+        assert ek <= 2.0 * ep + 1e-6, (k, ek, ep)
 
 
 @pytest.fixture(scope="module")

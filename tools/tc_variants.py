@@ -75,20 +75,20 @@ them.  Output in chiprun_out/tc_variants_stride.json.
 
     python3 tools/tc_variants.py --wide --baseline CSRC
 
-times gram_conditional's wide tier (csrc/step.cu, n or r past 64, up
-to 128) through its C entry point at 2^18 rows on random operands at
-WIDE_SHAPES, beside the other checkout's step.cu (e.g. the first wide
-design's), six single-edit variants of the shipped plan ("wide_tm4",
-"wide_tm8": 4 or 8 rows a thread at every shape; "wide_tn4": nodes in
-groups of 4 at every n; "wide_s1", "wide_s2", "wide_s8": 1, 2 or 8 rank
-slices a step at 4 rows a thread, where the plan takes 4), the plain
-version (gram_conditional_ref) and the one PyTorch call (an einsum),
-all in turns (shipped first and last).  Every build's fk is held to the
-shipped kernel's bit for bit (all keep the same f32 chain a row and
-node).  As a static profile, the SASS instruction mix of every build's
-gram_wide_kernel instances (FFMA, shared loads LDS by width, barriers
-BAR) and, from ptxas's registers and the launch's shared memory and
-threads, the blocks and warps resident on an SM.  Output in
+times the Gram family's wide tiers, which run csrc/tc_gram.cuh's Gram
+stage (3xTF32 wgmma on a ring streamed by cp.async.bulk, a Gram
+epilogue): gram_conditional past step.cu's tier (csrc/gram_wide.cu) at
+GRAM_WIDE_SHAPES and fused_irt_sqr past fused_irt.cu's
+(csrc/fused_wide.cu, d = 8, chip_smoke.build_tt's TTs) at
+FUSED_WIDE_SHAPES, 2^18 rows, through their C entry points (outputs and
+scratch allocated once) and their wrappers, beside the other checkout's
+step.cu and fused_wide.cu (e.g. the parent's FP32-core designs), in
+turns; gram_conditional also beside its plain version and einsum.  Each
+build is held to the plain version run in f64 on the first
+WIDE_CHECK_ROWS rows (fk relative to the largest |fk|; samples and
+log-densities at the maximum and the 99th percentile over rows), beside
+the plain f32 version (twice plus 1e-6), not to the other build bit for
+bit (the arithmetic differs); ptxas's lines of both builds.  Output in
 chiprun_out/tc_variants_wide.json.
 
     python3 tools/tc_variants.py --factor-wide --baseline CSRC [--other-arith]
@@ -533,8 +533,9 @@ def main(argv=None):
                     help="dim_step's wide prefix update against edits of "
                          "its batching only")
     ap.add_argument("--wide", action="store_true",
-                    help="gram_conditional's wide tier against "
-                         "--baseline's and its variants only")
+                    help="gram_conditional's and fused_irt_sqr's wide "
+                         "tiers against --baseline's step.cu and "
+                         "fused_wide.cu only")
     ap.add_argument("--cell-readout", action="store_true",
                     help="kernel 3's wide tier and kernel 7's wide readout "
                          "(csrc/cell_readout.cu) against --baseline's "
@@ -1015,78 +1016,31 @@ def step_main(args, card):
     return 0
 
 
-# ---- gram_conditional's wide tier (--wide) ----
-
-WIDE_SHAPES = ((9, 128), (96, 32), (96, 128), (64, 64))
-WIDE_TM = ("  p.tm = (words - kRing * r * p.bn) / r - 4 < 8 * rg_threads ? 4 "
-           ": 8;")
-WIDE_S = "constexpr int kSmallS = 4;"
-WIDE_TN = "  p.tn = 3 * g3 < 4 * g4 ? 3 : 4;"
-
-
-def _wide_launch(plan_tm, plan_tn, n, r, small_s=4, smem_opt_in=227 * 1024):
-    """(threads, TM, TN, S) of a wide gram_conditional launch at (n, r):
-    the shipped wide_plan's rule (csrc/step.cu), with its choices of TM,
-    TN and S at TM = 4 as given, for the occupancy report."""
-    g3, g4 = (n + 2) // 3, (n + 3) // 4
-    tn = plan_tn if plan_tn else (3 if 3 * g3 < 4 * g4 else 4)
-    groups = g3 if tn == 3 else g4
-    ngb = min(groups, 8)
-    cap = (smem_opt_in // 4 - 2 * r * 4 * ngb) // r - 4
-    tm = plan_tm if plan_tm else (4 if cap // 8 < 256 // ngb else 8)
-    s = small_s if tm == 4 else 1
-    cap = (smem_opt_in // 4 - 2 * s * r * 4 * ngb) // r - 4
-    rg = min(256 // ngb, cap // tm)
-    return (rg * ngb + 31) // 32 * 32, tm, tn, s
-
-
-def _resident_warps(regs, threads, smem):
-    """Warps an SM holds of a kernel at ``regs`` registers a thread,
-    ``threads`` a block and ``smem`` bytes of shared memory a block
-    (sm_90: 64K registers allocated by 256 a warp, 228 KB of shared
-    memory with 1 KB reserved a block, 64 warps, 32 blocks)."""
-    warps = threads // 32
-    per_warp = (regs * 32 + 255) // 256 * 256
-    by_regs = 65536 // (per_warp * warps)
-    by_smem = (228 * 1024) // (smem + 1024)
-    return min(by_regs, by_smem, 64 // warps, 32) * warps
-
-
-def _sass_mix(lib_path, kernel="gram_wide_kernel"):
-    """{instance: {FFMA, LDS.32, LDS.64, LDS.128, BAR}} in the SASS of
-    ``kernel``'s instances in one library."""
-    import re
-
-    from tt_irt_tpu_torch.ops._build import _tool
-    out = subprocess.run([_tool("cuobjdump"), "-sass", lib_path],
-                         capture_output=True, text=True, check=True).stdout
-    mix = {}
-    for part in out.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        if kernel not in name:
-            continue
-        lds = re.findall(r"\bLDS(\.U)?(\.(64|128))?\b", part)
-        mix[name] = {
-            "FFMA": len(re.findall(r"\bFFMA\b", part)),
-            "LDS.32": sum(1 for _, _, w in lds if not w),
-            "LDS.64": sum(1 for _, _, w in lds if w == "64"),
-            "LDS.128": sum(1 for _, _, w in lds if w == "128"),
-            "BAR": len(re.findall(r"\bBAR\.SYNC", part))}
-    return mix
-
-
-def _registers(report, kernel="gram_wide_kernel"):
-    """{mangled instance: registers} from ptxas's lines."""
-    regs, name = {}, None
-    for ln in report:
-        if "Compiling entry function" in ln or "Function properties" in ln:
-            name = ln.split("'")[1] if "'" in ln else None
-        elif "registers" in ln and name and kernel in name:
-            regs[name] = int(ln.split("Used ")[1].split(" registers")[0])
-    return regs
-
-
 FACTOR_WIDE_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
+
+
+class _Libraries:
+    """Several loaded libraries as one: an attribute is the first
+    library's that has it."""
+
+    def __init__(self, *libs):
+        self._libs = libs
+
+    def __getattr__(self, name):
+        for lib in self._libs:
+            if hasattr(lib, name):
+                return getattr(lib, name)
+        raise AttributeError(name)
+
+
+def factor_wide_library():
+    """The package's wide factor tier as one library: the C functions of
+    csrc/factor_wide.cu and csrc/factor_wide_cond.cu (two sources built in
+    parallel), as one build of a single factor_wide.cu offered them."""
+    from tt_irt_tpu_torch.ops._build import load_library
+
+    return _Libraries(load_library("factor_wide"),
+                      load_library("factor_wide_cond"))
 
 
 def _factor_wide_calls(lib, t, m, n, r, stream, readout=None):
@@ -1272,10 +1226,10 @@ def factor_wide_main(args, card):
     jobs = {"factor_wide_base": os.path.join(base, "factor_wide.cu")}
     if os.path.exists(os.path.join(base, "cell_readout.cu")):
         jobs["cell_readout_base"] = os.path.join(base, "cell_readout.cu")
-    libs = _build_variants(jobs, ("factor_wide", "cell_readout"), reports)
-    from tt_irt_tpu_torch.ops._build import load_library
+    libs = _build_variants(jobs, ("factor_wide", "factor_wide_cond",
+                                  "cell_readout"), reports)
     from tt_irt_tpu_torch.ops.cell_readout import lib as readout_lib
-    builds = {"shipped": load_library("factor_wide"),
+    builds = {"shipped": factor_wide_library(),
               "baseline": ctypes.CDLL(libs["factor_wide_base"])}
     readouts = {"shipped": readout_lib(),
                 "baseline": (_typed_readout(libs["cell_readout_base"])
@@ -1348,7 +1302,7 @@ def factor_wide_main(args, card):
     return 0
 
 
-# dim_step's wide prefix update (csrc/factor_wide.cu, CoreUpdate): the
+# dim_step's wide prefix update (csrc/factor_wide.cuh, CoreUpdate): the
 # shipped batches of up to 4 rows of a cell, no branch among the FMAs,
 # beside edits of it.
 UPDATE_BATCH = ("constexpr int kBatch = 4;                "
@@ -1358,7 +1312,7 @@ UPDATE_FMAS = ("              const float pi = __shfl_sync(0xFFFFFFFFu, "
 
 
 def _wide_edit(old, new):
-    return ("factor_wide.cu", old, new)
+    return ("factor_wide.cuh", old, new)
 
 
 UPDATE_VARIANTS = {
@@ -1394,9 +1348,14 @@ def update_main(args, card):
     jobs = {name: os.path.join(_edited_copy(name, edits), "factor_wide.cu")
             for name, edits in UPDATE_VARIANTS.items()}
     reports = {}
-    libs = _build_variants(jobs, ("factor_wide",), reports)
-    builds = {"shipped": load_library("factor_wide"),
-              **{k: ctypes.CDLL(v) for k, v in libs.items()}}
+    libs = _build_variants(jobs, ("factor_wide", "factor_wide_cond"),
+                           reports)
+    # each variant's dim_step and odim_step beside the shipped
+    # cdf_bracket_factor and factor_conditional (factor_wide_cond.cu)
+    cond = load_library("factor_wide_cond")
+    builds = {"shipped": factor_wide_library(),
+              **{k: _Libraries(ctypes.CDLL(v), cond)
+                 for k, v in libs.items()}}
     stream = torch.cuda.current_stream().cuda_stream
     m = 1 << 18
     rows = []
@@ -1431,114 +1390,211 @@ def update_main(args, card):
     return 0
 
 
+# ---- the Gram family's wide tiers (--wide) ----
+
+GRAM_WIDE_SHAPES = ((9, 128), (96, 32), (33, 96), (96, 128))
+FUSED_WIDE_SHAPES = ((9, 128), (96, 32))
+FUSED_WIDE_D = 8
+WIDE_CHECK_ROWS = 1 << 12
+
+
+def _gram_wide_calls(base, phi, pmat, m, n, r, stream):
+    """{build: call} of gram_conditional past step.cu's tier: the shipped
+    Gram stage through its C entry point (csrc/gram_wide.cu, scratch
+    allocated once) and through the package's wrapper, and the baseline's
+    step.cu (its gram_conditional_launch, which took the wide shapes
+    itself); each call returns fk."""
+    from tt_irt_tpu_torch.ops.step import _gram_wide_lib
+
+    lib = _gram_wide_lib()
+    dev = phi.device.index
+    scratch = torch.empty((lib.gram_wide_scratch_floats(n, r),),
+                          dtype=torch.float32, device=phi.device)
+    base.gram_conditional_launch.argtypes = [P, P, P, I, I, I, I, P]
+    outs = {k: torch.empty((m, n), dtype=torch.float32, device=phi.device)
+            for k in ("shipped", "baseline")}
+
+    def shipped():
+        err = lib.gram_wide_launch(phi.data_ptr(), pmat.data_ptr(),
+                                   outs["shipped"].data_ptr(), m, n, r, dev,
+                                   stream, scratch.data_ptr())
+        if err:
+            raise RuntimeError(f"gram_wide_launch failed: {err}")
+        return outs["shipped"]
+
+    def baseline():
+        err = base.gram_conditional_launch(
+            phi.data_ptr(), pmat.data_ptr(), outs["baseline"].data_ptr(), m,
+            n, r, dev, stream)
+        if err:
+            raise RuntimeError(f"the baseline's launch failed: {err}")
+        return outs["baseline"]
+
+    return {"shipped": shipped, "baseline": baseline,
+            "shipped (wrapper)": lambda: gram_conditional_cuda(phi, pmat)}
+
+
+def _fused_wide_calls(base, ops, m, d, n, r, stream):
+    """{build: call} of fused_irt_sqr past fused_irt.cu's tier: the
+    shipped csrc/fused_wide.cu through its C entry point (scratch
+    allocated once) and through the package's wrapper, and the
+    baseline's fused_wide.cu (taking scratch last if it exports
+    fused_wide_scratch_floats); each call returns (out, lf)."""
+    from tt_irt_tpu_torch.ops.fused_irt import _wide_lib, fused_irt_sqr_cuda
+
+    lib = _wide_lib()
+    dev = ops[0].device.index
+    f32 = dict(dtype=torch.float32, device=ops[0].device)
+    base_scratch = hasattr(base, "fused_wide_scratch_floats")
+    base.fused_wide_launch.argtypes = [P] * 7 + [I] * 5 + [P] * (
+        1 + base_scratch)
+    if base_scratch:
+        base.fused_wide_scratch_floats.argtypes = [I, I, I]
+        base.fused_wide_scratch_floats.restype = ctypes.c_longlong
+    scratch = {"shipped": torch.empty(
+        (lib.fused_wide_scratch_floats(d, n, r),), **f32)}
+    if base_scratch:
+        scratch["baseline"] = torch.empty(
+            (base.fused_wide_scratch_floats(d, n, r),), **f32)
+    outs = {k: (torch.empty((m, d), **f32), torch.empty((m,), **f32))
+            for k in ("shipped", "baseline")}
+
+    def call(name, fn):
+        def run():
+            out, lf = outs[name]
+            extra = ((scratch[name].data_ptr(),) if name in scratch
+                     else ())
+            err = fn(*(o.data_ptr() for o in ops), out.data_ptr(),
+                     lf.data_ptr(), m, d, n, r, dev, stream, *extra)
+            if err:
+                raise RuntimeError(f"{name} fused_wide_launch failed: {err}")
+            return out, lf
+        return run
+
+    return {"shipped": call("shipped", lib.fused_wide_launch),
+            "baseline": call("baseline", base.fused_wide_launch),
+            "shipped (wrapper)": lambda: fused_irt_sqr_cuda(*ops)}
+
+
 def wide_main(args, card):
+    """gram_conditional's and fused_irt_sqr's wide tiers (the Gram stage
+    of csrc/tc_gram.cuh) against --baseline's step.cu and fused_wide.cu
+    in turns, each build held to the plain version run in f64."""
+    import chip_smoke
+
+    import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops.fused_irt import fused_irt_sqr_ref
+
     if not args.baseline:
-        raise SystemExit("--wide needs --baseline (the other step.cu)")
-    tm4 = _edited_copy("wide_tm4", [("step.cu", WIDE_TM,
-                                     "  p.tm = 4;")])
-    tm8 = _edited_copy("wide_tm8", [("step.cu", WIDE_TM,
-                                     "  p.tm = 8;")])
-    s1 = _edited_copy("wide_s1", [("step.cu", WIDE_S,
-                                   WIDE_S.replace("4", "1"))])
-    s2 = _edited_copy("wide_s2", [("step.cu", WIDE_S,
-                                   WIDE_S.replace("4", "2"))])
-    s8 = _edited_copy("wide_s8", [("step.cu", WIDE_S,
-                                   WIDE_S.replace("4", "8"))])
-    tn4 = _edited_copy("wide_tn4", [("step.cu", WIDE_TN,
-                                     "  p.tn = 4;")])
+        raise SystemExit("--wide needs --baseline (another csrc)")
     base = _edited_copy("baseline", [], src=args.baseline)
-    jobs = {"wide_base": os.path.join(base, "step.cu"),
-            "wide_tm4": os.path.join(tm4, "step.cu"),
-            "wide_tm8": os.path.join(tm8, "step.cu"),
-            "wide_s1": os.path.join(s1, "step.cu"),
-            "wide_s2": os.path.join(s2, "step.cu"),
-            "wide_s8": os.path.join(s8, "step.cu"),
-            "wide_tn4": os.path.join(tn4, "step.cu")}
     ptxas = {}
-    libs = _build_variants(jobs, ("step",), ptxas)
-    from tt_irt_tpu_torch.ops._build import library_path
-    paths = dict(libs, shipped=library_path("step"))
-    ship = step_lib()
-    fns = {"shipped": ship.gram_conditional_launch}
-    for name in jobs:
-        f = ctypes.CDLL(libs[name]).gram_conditional_launch
-        f.argtypes = [P, P, P, I, I, I, I, P]
-        fns[name] = f
-    order = ["shipped", "wide_base", "wide_tm4", "wide_tm8", "wide_tn4",
-             "wide_s1", "wide_s2", "wide_s8"]
+    libs = _build_variants({"step_base": os.path.join(base, "step.cu"),
+                            "fused_wide_base": os.path.join(
+                                base, "fused_wide.cu")},
+                           ("step", "gram_wide", "fused_wide"), ptxas)
+    bases = {k: ctypes.CDLL(v) for k, v in libs.items()}
     stream = torch.cuda.current_stream().cuda_stream
-    m = 1 << 18
-    rng = np.random.default_rng(11)
+    m, c = 1 << 18, WIDE_CHECK_ROWS
     rec = {"card": card, "baseline": args.baseline, "rows": m,
-           "ptxas": ptxas, "sass": {k: _sass_mix(v) for k, v in
-                                    paths.items()}, "shapes": []}
+           "check_rows": c, "ptxas": ptxas, "gram_conditional": [],
+           "fused_irt_sqr": []}
     for name, lines in ptxas.items():
         for ln in lines:
-            if "gram_wide" in ln or "registers" in ln:
+            if "_wide_kernel" in ln or "registers" in ln or "C75" in ln:
                 print(f"ptxas {name}: {ln}")
-    for name, mix in rec["sass"].items():
-        print(f"SASS {name}: " + json.dumps(mix))
-    dev = torch.cuda.current_device()
-    for n, r in WIDE_SHAPES:
+    rng = np.random.default_rng(15)
+    for n, r in GRAM_WIDE_SHAPES:
         phi = rng.uniform(0.05, 1.0, (m, r)).astype(np.float32)
         phi /= phi.max(axis=1, keepdims=True)
         phi = torch.from_numpy(phi).cuda()
         pmat = torch.from_numpy(rng.standard_normal((r * r, n)).astype(
             np.float32)).cuda()
         p3 = pmat.reshape(r, r, n)
-        outs = {k: torch.empty((m, n), dtype=torch.float32, device="cuda")
-                for k in fns}
-
-        def call(k):
-            err = fns[k](phi.data_ptr(), pmat.data_ptr(), outs[k].data_ptr(),
-                         m, n, r, dev, stream)
-            if err:
-                raise RuntimeError(f"{k} launch failed at {(n, r)}: {err}")
-
+        calls = _gram_wide_calls(bases["step_base"], phi, pmat, m, n, r,
+                                 stream)
+        f64 = gram_conditional_ref(phi[:c].double(), pmat.double())
+        scale = float(f64.abs().max())
+        errs = {"plain": float((gram_conditional_ref(phi[:c], pmat).double()
+                                - f64).abs().max()) / scale}
+        for k in ("shipped", "baseline"):
+            errs[k] = float((calls[k]()[:c].double() - f64).abs().max()) \
+                / scale
+        cases = dict(calls)
+        cases["plain"] = lambda: gram_conditional_ref(phi, pmat)
+        cases["einsum"] = lambda: torch.einsum("mi,ijx,mj->mx", phi, p3, phi)
+        order = ["shipped", "baseline", "shipped (wrapper)", "plain",
+                 "einsum"]
         ms = {k: [] for k in order}
         for k in order + order[::-1]:
-            ms[k].append(_time_ms(lambda: call(k), 5))
-        plain = _time_ms(lambda: gram_conditional_ref(phi, pmat), 2)
-        einsum = _time_ms(lambda: torch.einsum("mi,ijx,mj->mx", phi, p3,
-                                               phi), 2)
-        equal = {k: bool(torch.equal(outs[k], outs["shipped"]))
-                 for k in order[1:]}
-        smem = int(ship.gram_conditional_smem_bytes(n, r))
-        flops = 2.0 * m * n * r * r
-        occupancy = {}
-        for k, (tm_, tn_, s_) in (("shipped", (None, None, 4)),
-                                  ("wide_tm4", (4, None, 4)),
-                                  ("wide_tm8", (8, None, 4)),
-                                  ("wide_tn4", (None, 4, 4)),
-                                  ("wide_s1", (None, None, 1)),
-                                  ("wide_s2", (None, None, 2)),
-                                  ("wide_s8", (None, None, 8))):
-            threads, tm, tn, s = _wide_launch(tm_, tn_, n, r, s_)
-            regs = [v for name, v in _registers(
-                ptxas["package step" if k == "shipped" else k]).items()
-                if f"ILi{tm}ELi{tn}ELi{s}E" in name]
-            occupancy[k] = {"tm": tm, "tn": tn, "s": s, "threads": threads,
-                            "registers": regs[0] if regs else None,
-                            "resident_warps": _resident_warps(
-                                regs[0], threads, smem) if regs else None}
-        row = {"n": n, "r": r, "ms": ms, "plain_ms": plain,
-               "einsum_ms": einsum, "equal_to_shipped": equal,
-               "smem_bytes": smem, "launch": occupancy,
-               "tflops": {k: flops / (min(v) * 1e9) for k, v in ms.items()}}
-        rec["shapes"].append(row)
-        best = ", ".join(f"{k} {min(v):.4f}" for k, v in ms.items())
-        print(f"gram_conditional wide tier n={n} r={r} {m} rows, ms (best "
-              f"of 2): {best}; plain {plain:.4f}; einsum {einsum:.4f}; "
-              f"fk equal to shipped {json.dumps(equal)}; shared memory "
-              f"{smem} B, launch {json.dumps(occupancy)}; TFLOP/s "
-              + json.dumps({k: round(v, 2) for k, v in row["tflops"].items()})
-              + f" ({card})", flush=True)
-        del phi, pmat, p3, outs
+            ms[k].append(_time_ms(cases[k], 2 if k in ("plain", "einsum")
+                                  else 5))
+        bound = chip_smoke._bound_tc(m * 2 * r * r * n, m * r * r,
+                                     4 * (m * (r + n) + r * r * n))
+        row = {"n": n, "r": r, "ms": ms, "err_vs_f64": errs,
+               "bars_met": {k: errs[k] <= 2.0 * errs["plain"] + 1e-6
+                            for k in ("shipped", "baseline")},
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        rec["gram_conditional"].append(row)
+        print(f"gram_conditional wide n={n} r={r}, {m} rows, ms (best of 2 "
+              f"in turns): " + json.dumps({k: min(v) for k, v in ms.items()})
+              + f"; TC bound {bound[0]:.4f} ({bound[1]}); fk error against "
+              f"f64 on {c} rows relative to the largest |fk|: "
+              + json.dumps(errs) + f" ({card})", flush=True)
+        del phi, pmat, p3, calls, f64, cases
+        torch.cuda.empty_cache()
+    d = FUSED_WIDE_D
+    for n, r in FUSED_WIDE_SHAPES:
+        tt = tp.tt_from_numpy(chip_smoke.build_tt(d, n, r, seed=n + r),
+                              "cuda")
+        grids = [torch.linspace(-2.0, 2.0, n, dtype=torch.float64,
+                                device="cuda")] * d
+        data = tp.build_fused_data(tt, grids)
+        q = torch.rand((m, d), generator=torch.Generator(device="cuda")
+                       .manual_seed(n + r), device="cuda")
+        ops = (q, data["p2"], data["coreu"], data["x"], data["h"])
+        calls = _fused_wide_calls(bases["fused_wide_base"], ops, m, d, n, r,
+                                  stream)
+        small = (q[:c].contiguous(), *ops[1:])
+        xr, lr = fused_irt_sqr_ref(*small)
+        x64, l64 = fused_irt_sqr_ref(*(o.double() for o in small))
+        errs = {}
+        for k in ("shipped", "baseline", "plain"):
+            xk, lk = (xr, lr) if k == "plain" else calls[k]()
+            for what, a, ref in (("x", xk[:c], x64), ("lf", lk[:c], l64)):
+                e = (a.double() - ref).abs().reshape(c, -1).amax(1)
+                errs[f"{k}_{what}_max"] = float(e.max())
+                errs[f"{k}_{what}_p99"] = float(torch.quantile(e, 0.99))
+        bars = {k: all(errs[f"{k}_{w}_p99"]
+                       <= 2.0 * errs[f"plain_{w}_p99"] + 1e-6
+                       for w in ("x", "lf")) for k in ("shipped", "baseline")}
+        order = ["shipped", "baseline", "shipped (wrapper)"]
+        ms = {k: [] for k in order}
+        for k in order + order[::-1]:
+            ms[k].append(_time_ms(calls[k], 3))
+        f_tc = 2 * r * r * n
+        f_rest = r * r + (5 * r * r + 2 * r) + 10 * n
+        f_bytes = m * (8 * d + 4) + 4 * d * (2 * r * r * n + 2 * n - 1)
+        bound = chip_smoke._bound_tc(m * d * f_tc, m * d * f_rest, f_bytes)
+        row = {"n": n, "r": r, "d": d, "ms": ms, "err_vs_f64": errs,
+               "bars_met": bars, "bound_ms": bound[0],
+               "bound_by": bound[1]}
+        rec["fused_irt_sqr"].append(row)
+        print(f"fused_irt_sqr wide d={d} n={n} r={r}, {m} rows, ms (best of "
+              f"2 in turns): " + json.dumps({k: min(v) for k, v in
+                                              ms.items()})
+              + f"; TC bound {bound[0]:.4f} ({bound[1]}); against f64 on "
+              f"{c} rows: " + json.dumps(errs) + f" ({card})", flush=True)
+        del tt, data, q, ops, calls, small, xr, lr, x64, l64
         torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "tc_variants_wide.json"),
               "w") as fh:
         json.dump(rec, fh, indent=1)
+    failed = [(kern, row["n"], row["r"]) for kern in ("gram_conditional",
+                                                      "fused_irt_sqr")
+              for row in rec[kern] if not row["bars_met"]["shipped"]]
+    assert not failed, failed
     return 0
 
 

@@ -41,8 +41,8 @@
 // (factor_step.cu) runs the first pass's stages, so its out9 equals
 // this kernel's bit for bit.  The kernel body is tc_dim.cuh's, which
 // odim_step.cu shares.  This source holds the instances of mode 'irt';
-// dim_step_rt.cu those of mode 'rt' (dim_step.cuh: the kernel and its
-// launch).
+// dim_step_rt.cu and dim_step_rt_t64.cu those of mode 'rt' (dim_step.cuh:
+// the kernel and its launch).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 (no fast-math,
 // no -ftz: subnormal density ratios must survive to the f64 log).
@@ -57,8 +57,9 @@ int dim_step_launch(const void* phi, const void* qp, const void* um,
                     const void* bmat, const void* cmat, const void* h,
                     const void* xg, void* phin, void* out9, int m, int n,
                     int r, int rt, int device, void* stream) {
-  return dim_step_launch_mode<false>(phi, qp, um, bmat, cmat, h, xg, phin,
-                                     out9, m, n, r, rt, device, stream);
+  return dim_step_launch_mode<false, 8, ttirt::kMaxR>(
+      phi, qp, um, bmat, cmat, h, xg, phin, out9, m, n, r, rt, device,
+      stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // dim_step's kernel instances and the launch of one mode ('irt' or
-// 'rt'), shared by its two sources: dim_step.cu (mode 'irt') and
-// dim_step_rt.cu (mode 'rt'), one nvcc each, built in parallel (14
-// instances in one source made it the longest build of the port).  The
-// kernel is documented in dim_step.cu.
+// 'rt') at a range of rank tiers, shared by its three sources:
+// dim_step.cu (mode 'irt', every tier), dim_step_rt.cu (mode 'rt', tiers
+// 8-32) and dim_step_rt_t64.cu (mode 'rt', tier 64), one nvcc
+// each, built in parallel (14 instances in one source made it the
+// longest build of the port, and the 7 of mode 'rt' in one source after
+// it).  The kernel is documented in dim_step.cu.
 
 #pragma once
 
@@ -33,13 +35,13 @@ struct DimStepKernel {
   };
 };
 
-// The launch of mode RT; `rt` must name it (the other mode's source takes
-// the other).  All pointers are device pointers to contiguous f32 arrays:
+// The launch of mode RT at the rank tiers LO to HI; `rt` must name the
+// mode and r's tier lie in the range (the other sources take the rest).  All pointers are device pointers to contiguous f32 arrays:
 // phi (m, r), qp/um (m,), bmat (r, n*r), cmat (n, r*r), h (n-1,),
 // xg (2, n) -> phin (m, r), out9 (m, 9), all on device `device`, which
 // must be the current device.  Returns the launch's cudaError_t (0 on
 // success); the launch is asynchronous on `stream`.
-template <bool RT>
+template <bool RT, int LO, int HI>
 int dim_step_launch_mode(const void* phi, const void* qp, const void* um,
                          const void* bmat, const void* cmat, const void* h,
                          const void* xg, void* phin, void* out9, int m, int n,
@@ -56,8 +58,10 @@ int dim_step_launch_mode(const void* phi, const void* qp, const void* um,
   void* args[] = {&p[0], &p[1], &p[2], &p[3], &p[4], &p[5], &p[6], &pn, &o,
                   &m, &n, &r};
   const void* kern = nullptr;
-  TTIRT_FOR_TIER(r, (kern = tc_instance<DimStepKernel<RT>::template At,
-                                        TIER>(n, r)));
+  TTIRT_FOR_TIER(r, if constexpr (TIER >= LO && TIER <= HI)
+                        (kern = tc_instance<DimStepKernel<RT>::template At,
+                                            TIER>(n, r)));
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tc_launch(kern, args, m, n, r, device,
                                     static_cast<cudaStream_t>(stream)));
 }

@@ -71,23 +71,11 @@
 //   as 3xTF32 products on the tensor cores (its own source and scratch;
 //   ops/step.py routes the shapes, and condition_update_launch here
 //   refuses them).
-//   gram_wide: for each rank slice i, v_i = phi P_i (P_i = P[i*r:(i+1)*r,
-//   :], r x n) is a GEMM of the block's rows, then f += phi_i v_i.  The
-//   block's phi is staged transposed in shared memory (phiT[j][row]) and
-//   P's slices come in by cp.async, S at a time, into a ring of two
-//   steps, so that one barrier a step both publishes step t and frees
-//   step t-1's buffer while step t+1 is in flight.  A thread holds a
-//   TM x TN tile of (row, node) sums for each of the S slices (wide_plan:
-//   8 x 4, S = 1 at n = 96; 4 x 3, S = 4 at n = 9, whose nodes would pad
-//   to 12 in groups of 4 and whose phiT leaves room for 8 warps only at 4
-//   rows a thread), so that each j step is TM/4 + S float4 reads of
-//   shared memory for S TM TN FMAs.  (The first wide design, one slice
-//   staged between two barriers, a TR x 4 tile a thread with phi read a
-//   float at a time, issued TR + 1 shared loads for 4 TR FMAs and ran at
-//   24-30% of the FP32 bound, slower than the einsum.)  Each (row, x)
-//   keeps the one-row-a-thread chain of the tiers above: v_i by fmaf over
-//   j in order, f = fmaf(phi_i, v_i, f) over i in order, so fk equals
-//   theirs bit for bit.  P is read from L2 once a block tile.
+//   gram_conditional past its narrow tier (gram_wide) is not in this
+//   library either: gram_wide.cu runs it as 3xTF32 products on the
+//   tensor cores (tc_gram.cuh's Gram stage, which fused_wide.cu shares;
+//   its own source and scratch; ops/step.py routes the shapes, and
+//   gram_conditional_launch here refuses them).
 // Past n or r of 128 the launch returns cudaErrorInvalidValue and the
 // wrappers raise first, naming the caps.
 //
@@ -340,206 +328,18 @@ condition_update_kernel(const float* __restrict__ phi,
   cp_async_wait<0>();
 }
 
-
 // ---- the wide tier ----
 
 inline bool in_wide_caps(int n, int r) {
   return n >= 2 && n <= kWideMaxN && r >= 1 && r <= kWideMaxR;
 }
 
-// Whether (n, r) goes to the wide tier.
+// Whether (n, r) goes past this library's tiers (gram_wide.cu,
+// cell_readout.cu).
 bool gram_wide(int n, int r) {
   return !in_caps(n, r) || gram_smem_bytes(n, r) > kSmemOptIn;
 }
 bool update_wide(int n, int r) { return !in_caps(n, r); }
-
-// gram_wide's plan, a register-blocked GEMM a rank slice: the block
-// takes BM rows and BN nodes of fk; a thread holds a TM x TN tile of
-// (row, node) sums for each of S rank slices at once (TN = 3 or 4 nodes,
-// whichever pads n less, each group at a float4 slot of P's staged
-// slice; TM = 8 rows, or 4 where shared memory would leave threads idle
-// at 8; S = 4 slices at TM = 4, so that each phi read feeds 4 of them,
-// else 1); NGB <= 8 node groups a block and RG row groups, as many as
-// 256 threads or shared memory allow.  The block's phi is staged
-// transposed (phiT[j][row], pitch BM + 4), P's slices S at a time in a
-// ring of two steps.
-struct WidePlan {
-  int tn, tm, s;     // a thread's tile: TM rows x TN nodes x S slices
-  int ngb, nt;       // node groups a block; node tiles (of NGB groups)
-  int rg, bm, bmp;   // row groups; rows a block; phiT's pitch
-  int bn;            // P slice's floats a rank (4 NGB)
-  int threads;
-  size_t smem;       // bytes
-};
-
-constexpr int kWideThreads = 256;
-constexpr int kRing = 2;             // steps of S slices staged: t, t+1
-constexpr int kSmallS = 4;           // S at TM = 4
-
-__host__ __device__ inline WidePlan wide_plan(int n, int r) {
-  WidePlan p;
-  const int g3 = (n + 2) / 3, g4 = (n + 3) / 4;
-  p.tn = 3 * g3 < 4 * g4 ? 3 : 4;
-  const int groups = p.tn == 3 ? g3 : g4;
-  p.ngb = groups < 8 ? groups : 8;
-  p.nt = (groups + p.ngb - 1) / p.ngb;
-  p.bn = 4 * p.ngb;
-  const int words = static_cast<int>(kSmemOptIn / sizeof(float));
-  const int rg_threads = kWideThreads / p.ngb;
-  // 8 rows a thread, unless shared memory then leaves threads idle
-  p.tm = (words - kRing * r * p.bn) / r - 4 < 8 * rg_threads ? 4 : 8;
-  p.s = p.tm == 4 ? kSmallS : 1;
-  const int pfloats = kRing * p.s * r * p.bn;
-  const int bm_cap = (words - pfloats) / r - 4;
-  p.rg = rg_threads < bm_cap / p.tm ? rg_threads : bm_cap / p.tm;
-  p.bm = p.rg * p.tm;
-  p.bmp = p.bm + 4;
-  p.threads = (p.rg * p.ngb + 31) & ~31;
-  p.smem = (static_cast<size_t>(r) * p.bmp + pfloats) * sizeof(float);
-  return p;
-}
-
-size_t gram_wide_smem_bytes(int n, int r) { return wide_plan(n, r).smem; }
-
-// Slices i0 .. i0+S-1 (those below r) of P, node tile x0's columns, into
-// dst (S x (r x bn)): node x of group g at slot 4g + x % TN, the slots
-// past n and the fourth of a TN = 3 group zero.  One (j, slot) an
-// element, its index arithmetic shared by the S slices.
-template <int TN, int S>
-__device__ __forceinline__ void load_step(float* dst, const float* pmat,
-                                          int i0, int n, int r, int bn,
-                                          int x0, int tid, int threads) {
-  const int slice = r * bn;
-  const size_t pstride = static_cast<size_t>(r) * n;
-  for (int e = tid; e < slice; e += threads) {
-    const int j = e / bn;
-    const int s = e - j * bn;
-    const int g = s >> 2, t = s & 3;
-    const int x = x0 + g * TN + t;
-    const bool live = t < TN && x < n;
-    const float* src = pmat + static_cast<size_t>(i0) * pstride
-                       + static_cast<size_t>(j) * n + x;
-#pragma unroll
-    for (int q = 0; q < S; ++q) {
-      if (i0 + q >= r) break;
-      if (live)
-        cp_async4(dst + q * slice + e, src + q * pstride);
-      else
-        dst[q * slice + e] = 0.0f;
-    }
-  }
-  cp_async_commit();
-}
-
-template <int TM, int TN, int S>
-__global__ void __launch_bounds__(kWideThreads)
-gram_wide_kernel(const float* __restrict__ phi,
-                 const float* __restrict__ pmat, float* __restrict__ fk,
-                 int m, int n, int r) {
-  extern __shared__ __align__(16) float smem[];
-  const WidePlan pl = wide_plan(n, r);
-  const int tid = threadIdx.x, threads = blockDim.x;
-  float* pht = smem;                             // (r, bmp): phi^T
-  float* ps = smem + static_cast<size_t>(r) * pl.bmp;  // kRing x S x (r, bn)
-  const int slice = r * pl.bn;
-  const int rg = tid / pl.ngb, xg = tid - rg * pl.ngb;
-  const bool active = rg < pl.rg;
-  const int steps = (r + S - 1) / S;
-  const int tiles = ((m + pl.bm - 1) / pl.bm) * pl.nt;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int xt = tile % pl.nt;
-    const long long row0 = static_cast<long long>(tile / pl.nt) * pl.bm;
-    const long long left = m - row0;
-    const int nrows = static_cast<int>(left < pl.bm ? left : pl.bm);
-    const int x0 = xt * pl.ngb * TN;
-    __syncthreads();                   // the last tile is done with smem
-    // phi^T and the first step's slices in one cp.async group
-    for (int e = tid; e < pl.bm * r; e += threads) {
-      const int row = e / r;
-      const int j = e - row * r;
-      if (row < nrows)
-        cp_async4(pht + j * pl.bmp + row, phi + row0 * r + e);
-      else
-        pht[j * pl.bmp + row] = 0.0f;
-    }
-    load_step<TN, S>(ps, pmat, 0, n, r, pl.bn, x0, tid, threads);
-    float f[TM][TN];
-#pragma unroll
-    for (int k = 0; k < TM; ++k)
-#pragma unroll
-      for (int t = 0; t < TN; ++t) f[k][t] = 0.0f;
-    const float* pa = pht + rg * TM;
-    for (int t = 0; t < steps; ++t) {
-      cp_async_wait<0>();              // step t has landed
-      __syncthreads();                 // ... for every thread; step t-1 free
-      if (t + 1 < steps)               // step t+1 into the other buffer
-        load_step<TN, S>(ps + ((t + 1) % kRing) * S * slice, pmat,
-                         (t + 1) * S, n, r, pl.bn, x0, tid, threads);
-      if (!active) continue;
-      const float* pb = ps + (t % kRing) * S * slice + 4 * xg;
-      float v[S][TM][TN];
-#pragma unroll
-      for (int q = 0; q < S; ++q)
-#pragma unroll
-        for (int k = 0; k < TM; ++k)
-#pragma unroll
-          for (int c = 0; c < TN; ++c) v[q][k][c] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < r; ++j) {
-        float a[TM];
-#pragma unroll
-        for (int k4 = 0; k4 < TM / 4; ++k4) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              pa + j * pl.bmp + 4 * k4);
-          a[4 * k4 + 0] = w.x;
-          a[4 * k4 + 1] = w.y;
-          a[4 * k4 + 2] = w.z;
-          a[4 * k4 + 3] = w.w;
-        }
-#pragma unroll
-        for (int q = 0; q < S; ++q) {
-          const float4 b = *reinterpret_cast<const float4*>(
-              pb + q * slice + j * pl.bn);
-          const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int k = 0; k < TM; ++k)
-#pragma unroll
-            for (int c = 0; c < TN; ++c)
-              v[q][k][c] = fmaf(a[k], bv[c], v[q][k][c]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < S; ++q) {
-        const int i = t * S + q;
-        if (i >= r) break;
-#pragma unroll
-        for (int k4 = 0; k4 < TM / 4; ++k4) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              pa + i * pl.bmp + 4 * k4);
-          const float ai[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int c = 0; c < TN; ++c)
-              f[4 * k4 + k][c] = fmaf(ai[k], v[q][4 * k4 + k][c],
-                                      f[4 * k4 + k][c]);
-        }
-      }
-    }
-    if (!active) continue;
-#pragma unroll
-    for (int k = 0; k < TM; ++k) {
-      const int row = rg * TM + k;
-      if (row >= nrows) break;
-#pragma unroll
-      for (int c = 0; c < TN; ++c) {
-        const int x = x0 + xg * TN + c;
-        if (x < n) fk[(row0 + row) * n + x] = f[k][c];
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
 
 // Persistent launch of kern at `smem` bytes, `blocks` wanted.
 inline cudaError_t launch_persistent(const void* kern, void** args,
@@ -579,39 +379,26 @@ cudaError_t launch_update(const float* phi, const int* i0, const float* la,
                            update_smem_bytes(n, r), device, stream);
 }
 
-template <int TM, int TN, int S>
-cudaError_t launch_gram_wide(const float* phi, const float* pmat, float* fk,
-                             int m, int n, int r, int device,
-                             cudaStream_t stream) {
-  void* args[] = {&phi, &pmat, &fk, &m, &n, &r};
-  const WidePlan pl = wide_plan(n, r);
-  const void* kern = reinterpret_cast<const void*>(
-      &gram_wide_kernel<TM, TN, S>);
-  int cap = 0;
-  cudaError_t e = grid_cap(kern, device, pl.smem, &cap, pl.threads);
-  if (e != cudaSuccess) return e;
-  const long long tiles =
-      static_cast<long long>((m + pl.bm - 1) / pl.bm) * pl.nt;
-  const unsigned grid = static_cast<unsigned>(tiles < cap ? tiles : cap);
-  return cudaLaunchKernel(kern, dim3(grid), dim3(pl.threads), args, pl.smem,
-                          stream);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Caps the wrappers check before launching: the wide tier's.
+// Caps the wrappers check before launching: the wide tiers'.
 int step_max_n() { return kWideMaxN; }
 int step_max_r() { return kWideMaxR; }
-// Shared memory a gram_conditional launch at (n, r) within the caps asks
-// for, and the rows a thread takes there.
+// Whether gram_conditional at (n, r) within the caps goes past this
+// library's tier (1: gram_wide.cu's gram_wide_launch takes it) or to it
+// (0).
+int gram_conditional_tier(int n, int r) { return gram_wide(n, r) ? 1 : 0; }
+// Shared memory a gram_conditional launch of this library at (n, r)
+// asks for (0 past its tier), and the rows a thread takes there (0 past
+// its tier).
 long long gram_conditional_smem_bytes(int n, int r) {
-  return static_cast<long long>(gram_wide(n, r) ? gram_wide_smem_bytes(n, r)
-                                                : gram_smem_bytes(n, r));
+  return gram_wide(n, r) ? 0
+                         : static_cast<long long>(gram_smem_bytes(n, r));
 }
 int gram_conditional_rows(int n, int r) {
-  return gram_wide(n, r) ? wide_plan(n, r).tm : gram_rows_at(r);
+  return gram_wide(n, r) ? 0 : gram_rows_at(r);
 }
 // Whether condition_update at (n, r) within the caps goes past this
 // library's tier (1: n or r above 64; cell_readout.cu's
@@ -630,31 +417,19 @@ int condition_update_staged(int n, int r) {
 
 // Device pointers to contiguous f32 arrays phi (m, r), pmat (r*r, n)
 // -> fk (m, n), all on device `device`, which must be the current
-// device.  Returns the launch's cudaError_t (0 on success); the launch
-// is asynchronous on `stream`.
+// device.  Returns the launch's cudaError_t (cudaErrorInvalidValue past
+// this library's tier: gram_conditional_tier); asynchronous on `stream`.
 int gram_conditional_launch(const void* phi, const void* pmat, void* fk, int m,
                             int n, int r, int device, void* stream) {
   if (m == 0) return 0;
-  if (!in_wide_caps(n, r)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!in_wide_caps(n, r) || gram_wide(n, r))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* a = static_cast<const float*>(phi);
   const float* b = static_cast<const float*>(pmat);
   float* o = static_cast<float*>(fk);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
-  if (gram_wide(n, r)) {
-    const WidePlan pl = wide_plan(n, r);
-    if (pl.tm == 8 && pl.s == 1)
-      e = pl.tn == 4 ? launch_gram_wide<8, 4, 1>(a, b, o, m, n, r, device, s)
-                     : launch_gram_wide<8, 3, 1>(a, b, o, m, n, r, device, s);
-    else if (pl.tm == 4 && pl.s == kSmallS)
-      e = pl.tn == 4
-              ? launch_gram_wide<4, 4, kSmallS>(a, b, o, m, n, r, device, s)
-              : launch_gram_wide<4, 3, kSmallS>(a, b, o, m, n, r, device, s);
-    else
-      e = cudaErrorInvalidConfiguration;
-  } else {
-    TTIRT_FOR_TIER(r, e = launch_gram<TIER>(a, b, o, m, n, r, device, s));
-  }
+  TTIRT_FOR_TIER(r, e = launch_gram<TIER>(a, b, o, m, n, r, device, s));
   return static_cast<int>(e);
 }
 

@@ -1,11 +1,12 @@
 // The pieces of the wide tiers' tensor-core kernels that factor_wide.cu
-// (the factor family past n or r of 64) and cell_readout.cu (the prefix
-// update past 64) share: the factor or core split once a call into
-// tf32 hi and lo units in wgmma's K-major layout (split_factor_kernel),
-// the ring of unit stages that a producer warp streams by cp.async.bulk
-// through mbarriers, and the register trade between the producer
-// warpgroup and the two consumer warpgroups (setmaxnreg).  The designs
-// are documented in the two sources.
+// (the factor family past n or r of 64), cell_readout.cu (the prefix
+// update past 64) and tc_gram.cuh (the Gram stage of gram_wide.cu and
+// fused_wide.cu) share: the factor, core or Gram field split once a call
+// into tf32 hi and lo units in wgmma's K-major layout
+// (split_factor_kernel), the ring of unit stages that a producer warp
+// streams by cp.async.bulk through mbarriers, and the register trade
+// between the producer warpgroup and the two consumer warpgroups
+// (setmaxnreg).  The designs are documented in those sources.
 
 #pragma once
 
@@ -49,7 +50,7 @@ __host__ __device__ constexpr int unit_floats(int ks) {
 }
 
 // Floats of n nodes' (r, r) blocks split into units (a multiple of 128).
-inline long long split_floats(int n, int r) {
+__host__ __device__ inline long long split_floats(int n, int r) {
   const int ks = ksteps(r);
   return static_cast<long long>(n) * node_units(ks) * unit_floats(ks);
 }
@@ -158,18 +159,22 @@ __device__ __forceinline__ void zero(float (&d)[K]) {
 
 // ---- the split ----
 
-// The split of n (r, r) blocks, block x's entry (i, j) at
-// bmat[x * node + i * row + j] (the factor Q or B (r, n*r): node = r,
-// row = n r; the core C (n, r*r): node = r^2, row = r): unit k = x * nu
-// + u of node x holds its hi part, then its lo part, each (8 ks, 8 nc)
-// in unit_core_offset's layout; columns u * 8 nc + j past r and K rows
-// past r are zero.
+// The split of `nodes` (r, r) blocks, block x's entry (i, j) at
+// bmat[(x / per) * outer + (x % per) * node + i * row + j * col] (the
+// factor Q or B (r, n*r): node = r, row = n r, col = 1; the core C (n,
+// r*r): node = r^2, row = r, col = 1; the Gram field P (r*r, n): node = 1,
+// row = r n, col = n; per = n and outer the floats between the stacked
+// fields of several dimensions): unit k = x * nu + u of node x holds its
+// hi part, then its lo part, each (8 ks, 8 nc) in unit_core_offset's
+// layout; columns u * 8 nc + j past r and K rows past r are zero.
 __global__ void split_factor_kernel(const float* __restrict__ bmat,
-                                    float* __restrict__ split, int n, int r,
-                                    long long node, long long row) {
+                                    float* __restrict__ split, int nodes,
+                                    int r, long long node, long long row,
+                                    long long col, int per,
+                                    long long outer) {
   const int ks = ksteps(r), nu = node_units(ks), nc = unit_groups(ks);
   const int cols = 8 * nc, part = (8 * ks) * cols;
-  const long long total = static_cast<long long>(n) * nu * part;
+  const long long total = static_cast<long long>(nodes) * nu * part;
   for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x)
                        + threadIdx.x;
        idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -178,7 +183,9 @@ __global__ void split_factor_kernel(const float* __restrict__ bmat,
     const int i = rem / cols, jl = rem - i * cols;
     const int x = static_cast<int>(k / nu), u = static_cast<int>(k % nu);
     const int j = cols * u + jl;
-    const float v = (i < r && j < r) ? bmat[x * node + i * row + j] : 0.0f;
+    const long long at = (x / per) * outer + (x % per) * node + i * row
+                         + j * col;
+    const float v = (i < r && j < r) ? bmat[at] : 0.0f;
     uint32_t hi, lo;
     split_tf32(v, hi, lo);
     const long long o = 2 * k * part + unit_core_offset(nc, i, jl);
@@ -187,16 +194,28 @@ __global__ void split_factor_kernel(const float* __restrict__ bmat,
   }
 }
 
-// The split into `split` (split_floats(n, r) floats) on `stream`.
-inline cudaError_t split_launch(const float* bmat, float* split, int n,
-                                int r, long long node, long long row,
-                                cudaStream_t stream) {
-  const long long total = split_floats(n, r) / 2;
+// The split of `nodes` blocks at the strides above into `split`
+// (nodes / n * split_floats(n, r) floats, n = per) on `stream`.
+inline cudaError_t split_nodes_launch(const float* bmat, float* split,
+                                      int nodes, int r, long long node,
+                                      long long row, long long col, int per,
+                                      long long outer, cudaStream_t stream) {
+  const int ks = ksteps(r);
+  const long long total = static_cast<long long>(nodes) * node_units(ks)
+                          * (unit_floats(ks) / 2);
   long long blocks = (total + 255) / 256;
   if (blocks > 4096) blocks = 4096;
   split_factor_kernel<<<static_cast<int>(blocks), 256, 0, stream>>>(
-      bmat, split, n, r, node, row);
+      bmat, split, nodes, r, node, row, col, per, outer);
   return cudaGetLastError();
+}
+
+// The split of n blocks with unit column stride into `split`
+// (split_floats(n, r) floats) on `stream`.
+inline cudaError_t split_launch(const float* bmat, float* split, int n,
+                                int r, long long node, long long row,
+                                cudaStream_t stream) {
+  return split_nodes_launch(bmat, split, n, r, node, row, 1, n, 0, stream);
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 
 Counterpart of ``tt_irt_tpu/ops/pallas_dim.py::dim_step``.
 ``dim_step_cuda`` launches the hand-written CUDA kernel
-``csrc/dim_step.cu`` (``csrc/dim_step_rt.cu`` in mode 'rt'; past n, r
-of 64 or its shared memory, the wide tier of ``csrc/factor_wide.cu``)
+``csrc/dim_step.cu`` (``csrc/dim_step_rt.cu`` and ``dim_step_rt_t64.cu``
+in mode 'rt'; past n, r of 64 or its shared memory, the wide tier of
+``csrc/factor_wide.cu``)
 and takes CUDA tensors only; ``dim_step_ref`` is the
 same function in plain PyTorch (``irt_scan._step_factor_b`` +
 ``_cdf_rows32`` of the JAX package; the CDF part is
@@ -67,9 +68,11 @@ def dim_step_cuda(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
         "cmat": (cmat, f32, (n, r * r)), "hrow": (hrow, f32, (n - 1,)),
         "xg": (xg, f32, (2, n))})
     p = ctypes.c_void_p
-    # the narrow tier's two modes are two sources (csrc/dim_step.cu and
-    # dim_step_rt.cu), built in parallel
-    name = "dim_step_rt" if mode == "rt" else "dim_step"
+    # the narrow tier is three sources built in parallel: csrc/dim_step.cu
+    # (mode 'irt'), dim_step_rt.cu (mode 'rt', rank tiers 8-32) and
+    # dim_step_rt_t64.cu (mode 'rt', tier 64)
+    name = "dim_step" if mode != "rt" else (
+        "dim_step_rt" if r <= 32 else "dim_step_rt_t64")
     launch = _factor_launcher("dim_step_cuda", name, name + "_launch",
                               "dim_step_wide_launch",
                               [p] * 9 + [ctypes.c_int] * 5 + [p], n, r,

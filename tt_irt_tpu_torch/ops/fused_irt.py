@@ -9,10 +9,13 @@ layout the kernel stages) and launches the hand-written kernel
 same function in plain PyTorch, a Python loop over the dimensions that
 follows the kernel step by step.  Past n, r of 64 (or where no launch
 plan of ``fused_irt.cu`` fits shared memory) the wrapper launches the
-wide tier ``csrc/fused_wide.cu``, which takes the operands unpacked.  ``fused_irt_sqr`` is the public entry
-point.  The inversion is one-sided (from the left, against q * total),
-so the numerics are those of the JAX package's whole-transform kernel,
-not of ``tt_irt_sqr(precision='f32')``.
+wide tier ``csrc/fused_wide.cu``, which takes the operands unpacked and
+splits every dimension's Gram field and core once a call into scratch
+that the wrapper allocates (its Gram stage is ``csrc/tc_gram.cuh``'s,
+which ``gram_conditional``'s wide tier runs too).  ``fused_irt_sqr`` is
+the public entry point.  The inversion is one-sided (from the left,
+against q * total), so the numerics are those of the JAX package's
+whole-transform kernel, not of ``tt_irt_sqr(precision='f32')``.
 
 Operands (all f32, contiguous):
   q (M, d)             seeds in [0, 1]
@@ -161,8 +164,12 @@ def _wide_lib():
     lib = load_library("fused_wide")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_wide_launch.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.fused_wide_launch.argtypes = [p] * 7 + [i] * 5 + [p, p]
         lib.fused_wide_launch.restype = i
+        lib.fused_wide_split_launch.argtypes = [p, p] + [i] * 4 + [p, p]
+        lib.fused_wide_split_launch.restype = i
+        lib.fused_wide_scratch_floats.argtypes = [i, i, i]
+        lib.fused_wide_scratch_floats.restype = ctypes.c_longlong
         for f in ("fused_wide_max_n", "fused_wide_max_r"):
             getattr(lib, f).restype = i
         lib.fused_wide_smem_bytes.argtypes = [i, i]
@@ -191,7 +198,8 @@ def fused_irt_plan(n: int, r: int, m: int = 1, device: int | None = None):
 def fused_irt_sqr_cuda(q, p2, coreu, x, h):
     """The whole transform through the CUDA kernel: ``csrc/fused_irt.cu``
     where its caps (n, r <= 64) and a launch plan of it allow, else the
-    wide tier ``csrc/fused_wide.cu`` (n, r <= 128); raises on anything
+    wide tier ``csrc/fused_wide.cu`` (n, r <= 128; three launches: the
+    splits of P and C, then the transform); raises on anything
     but f32 CUDA tensors of the documented shapes, and past the wide
     tier's caps.
     ``fused_irt_sqr_cuda.launches`` counts kernel launches."""
@@ -226,10 +234,12 @@ def fused_irt_sqr_cuda(q, p2, coreu, x, h):
                 q.data_ptr(), pack.data_ptr(), out.data_ptr(), lf.data_ptr(),
                 m, d, n, r, cstride, block, q.device.index, stream)
         else:
+            scratch = torch.empty((wide.fused_wide_scratch_floats(d, n, r),),
+                                  dtype=torch.float32, device=q.device)
             err = wide.fused_wide_launch(
                 q.data_ptr(), p2.data_ptr(), coreu.data_ptr(), x.data_ptr(),
                 h.data_ptr(), out.data_ptr(), lf.data_ptr(), m, d, n, r,
-                q.device.index, stream)
+                q.device.index, stream, scratch.data_ptr())
     if err != 0:
         raise RuntimeError(f"fused_irt kernel launch failed: cudaError {err}")
     fused_irt_sqr_cuda.launches += 1

@@ -8,7 +8,8 @@ Counterpart of ``tt_irt_tpu/ops/pallas_step.py``: ``gram_conditional``,
 The ``*_cuda`` functions launch the hand-written kernels of
 ``csrc/step.cu`` (the first two), ``csrc/factor_conditional.cu`` and
 ``csrc/factor_step.cu`` (``cdf_bracket_factor``), the last two past
-n, r of 64 through ``csrc/factor_wide.cu`` and ``condition_update`` past
+n, r of 64 through ``csrc/factor_wide.cu``, ``gram_conditional`` past its
+narrow tier through ``csrc/gram_wide.cu`` and ``condition_update`` past
 n, r of 64 through ``csrc/cell_readout.cu``, and take CUDA tensors only;
 the ``*_ref`` functions are the same functions in plain PyTorch (any
 float dtype, any device).  Which of the
@@ -77,17 +78,37 @@ def condition_update_ref(phi, i0, la, lb, cmat):
 
 class _StepLibrary:
     """``csrc/step.cu``'s library (its C functions as attributes), with
-    ``condition_update_launch`` and ``condition_update_smem_bytes`` taking
-    every shape within the caps, by the same arguments: past n or r of
-    64 (``condition_update_tier``) ``csrc/cell_readout.cu``'s
-    ``condition_update_wide_launch`` and its shared memory, the launch's
-    scratch allocated a call on its device; step.cu's own below."""
+    ``gram_conditional_launch`` / ``gram_conditional_smem_bytes`` and
+    ``condition_update_launch`` / ``condition_update_smem_bytes`` taking
+    every shape within the caps, by the same arguments: past step.cu's
+    tiers (``gram_conditional_tier``: ``csrc/gram_wide.cu``'s
+    ``gram_wide_launch``; ``condition_update_tier``:
+    ``csrc/cell_readout.cu``'s ``condition_update_wide_launch``) the wide
+    library and its shared memory, the launch's scratch allocated a call
+    on its device; step.cu's own below."""
 
     def __init__(self, lib):
         self._lib = lib
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
+
+    def gram_conditional_smem_bytes(self, n, r):
+        if self._lib.gram_conditional_tier(n, r):
+            return _gram_wide_lib().gram_wide_smem_bytes(n, r)
+        return self._lib.gram_conditional_smem_bytes(n, r)
+
+    def gram_conditional_launch(self, phi, pmat, fk, m, n, r, device,
+                                stream):
+        if not self._lib.gram_conditional_tier(n, r):
+            return self._lib.gram_conditional_launch(phi, pmat, fk, m, n, r,
+                                                     device, stream)
+        wide = _gram_wide_lib()
+        scratch = torch.empty((wide.gram_wide_scratch_floats(n, r),),
+                              dtype=torch.float32,
+                              device=torch.device("cuda", device))
+        return wide.gram_wide_launch(phi, pmat, fk, m, n, r, device, stream,
+                                     scratch.data_ptr())
 
     def condition_update_smem_bytes(self, n, r):
         if self._lib.condition_update_tier(n, r):
@@ -108,6 +129,21 @@ class _StepLibrary:
             scratch.data_ptr())
 
 
+def _gram_wide_lib():
+    """``csrc/gram_wide.cu``'s library, typed."""
+    lib = load_library("gram_wide")
+    if lib.gram_wide_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gram_wide_launch.argtypes = [p, p, p, i, i, i, i, p, p]
+        lib.gram_wide_launch.restype = i
+        lib.gram_wide_split_launch.argtypes = [p, p, i, i, i, p]
+        lib.gram_wide_split_launch.restype = i
+        for f in ("gram_wide_smem_bytes", "gram_wide_scratch_floats"):
+            getattr(lib, f).argtypes = [i, i]
+            getattr(lib, f).restype = ctypes.c_longlong
+    return lib
+
+
 _STEP_LIBRARY = None
 
 
@@ -125,8 +161,8 @@ def _lib():
         for f in ("gram_conditional", "condition_update"):
             fn = getattr(lib, f + "_smem_bytes")
             fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
-        for f in ("gram_conditional_rows", "condition_update_staged",
-                  "condition_update_tier"):
+        for f in ("gram_conditional_rows", "gram_conditional_tier",
+                  "condition_update_staged", "condition_update_tier"):
             getattr(lib, f).argtypes = [i, i]
             getattr(lib, f).restype = i
         _STEP_LIBRARY = _StepLibrary(lib)
@@ -134,8 +170,10 @@ def _lib():
 
 
 def gram_conditional_cuda(phi, pmat):
-    """fk through the CUDA kernel; raises on anything but f32 CUDA
-    tensors of the documented shapes.
+    """fk through the CUDA kernel (past step.cu's tier the Gram stage of
+    ``csrc/gram_wide.cu``: two launches, P's split and the stage, counted
+    as one); raises on anything but f32 CUDA tensors of the documented
+    shapes.
     ``gram_conditional_cuda.launches`` counts kernel launches."""
     fn = "gram_conditional_cuda"
     if phi.ndim != 2 or pmat.ndim != 2:
@@ -216,10 +254,15 @@ def cdf_bracket_factor_ref(phi, qp32, bmat, hrow, xg, mode="irt"):
     return out9, i0.to(torch.int32)
 
 
+_FACTOR_WIDE_SOURCE = {"cdf_bracket_factor_wide_launch": "factor_wide_cond",
+                       "factor_conditional_wide_launch": "factor_wide_cond"}
+
+
 def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device,
                      readout=False):
     """The launch function of the factor-family tier that takes (n, r):
-    ``wide_fn`` of ``csrc/factor_wide.cu`` past the narrow tier's caps
+    ``wide_fn`` of ``csrc/factor_wide.cu`` (``factor_wide_cond.cu`` for
+    cdf_bracket_factor and factor_conditional) past the narrow tier's caps
     (n, r <= 64) or shared memory, else ``launch_fn`` of
     ``csrc/<name>.cu`` (the rule is ``factor_wide_tier``'s), typed with
     ``argtypes``; raises past the wide tier's caps (n, r <= 128).  A wide
@@ -249,7 +292,12 @@ def _factor_launcher(fn, name, launch_fn, wide_fn, argtypes, n, r, device,
         if launch.argtypes is None:
             launch.argtypes, launch.restype = argtypes, ctypes.c_int
         return launch
-    launch = getattr(wide, wide_fn)
+    # dim_step's and odim_step's wide instances are factor_wide.cu's,
+    # cdf_bracket_factor's and factor_conditional's factor_wide_cond.cu's
+    # (two sources, built in parallel)
+    launch = getattr(load_library(_FACTOR_WIDE_SOURCE.get(wide_fn,
+                                                          "factor_wide")),
+                     wide_fn)
     if launch.argtypes is None:
         launch.argtypes = argtypes + [ctypes.c_void_p]
         launch.restype = ctypes.c_int
