@@ -1,0 +1,9 @@
+"""gram_conditional's least time at the card's peaks
+(work/gram_conditional.py, products as one TF32 pass) over its time in
+the device trace."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline_pct(run, "gram_conditional")
