@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .ode import integrate_adaptive, integrate_to
 
 __all__ = ["lorenz_rhs", "lorenz_ll", "LorenzProblem"]
@@ -87,13 +88,16 @@ class LorenzProblem:
         return [np.linspace(-self.a, self.a, self.n) for _ in range(self.d)]
 
     def log_prior(self, x):
-        base = torch.as_tensor(self.x0base, dtype=x.dtype, device=x.device)
-        return -0.5 * torch.sum((x - base[None, :]) ** 2, dim=1)
+        with span("ttirt.model.log_prior"):
+            base = torch.as_tensor(self.x0base, dtype=x.dtype,
+                                   device=x.device)
+            return -0.5 * torch.sum((x - base[None, :]) ** 2, dim=1)
 
     def log_likelihood(self, x):
-        data = torch.as_tensor(self.data, dtype=x.dtype, device=x.device)
-        return lorenz_ll(x, data, self.sigma_n, self.steps,
-                         adaptive=self.adaptive, rtol=self.rtol)
+        with span("ttirt.model.log_likelihood"):
+            data = torch.as_tensor(self.data, dtype=x.dtype, device=x.device)
+            return lorenz_ll(x, data, self.sigma_n, self.steps,
+                             adaptive=self.adaptive, rtol=self.rtol)
 
     def log_posterior_fn(self):
         def lp(x):

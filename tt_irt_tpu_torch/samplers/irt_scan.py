@@ -66,6 +66,7 @@ from ..ops.rowmath import (cdf_rows32, cdf_sums32, cumsum_rows,
                            full_f32_matmul)
 from ..ops.rowmath import invert_quadratic as _invert_quadratic
 from ..ops.tt import TT
+from ..utils.profiling import span
 from .irt import _grid_spacings, _num_blocks, _pad_rows, _trapz_w2
 
 __all__ = ["stack_padded", "can_use_scan", "FactorPrep", "OrthoPrep",
@@ -437,54 +438,55 @@ def _cdf_invert(mode, fk, xp, h, qp):
     eps * (local tail mass) in both tails.  fk (M, n) unnormalised,
     xp (n,) grid, h (n,) spacings with h[0] = 0, qp (M,) seeds (x values
     in 'rt' mode).  Returns (out, dlf, la, lb, i0)."""
-    n = fk.shape[-1]
-    dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h[1:]
-    total = torch.sum(dc, dim=-1, keepdim=True)
-    # degenerate rows (no mass) fall back to the uniform density
-    bad = total <= 0.0
-    dc = torch.where(bad, (xp[1:] - xp[:-1]).expand_as(dc), dc)
-    fk = torch.where(bad, torch.ones_like(fk), fk)
-    total = torch.sum(dc, dim=-1, keepdim=True)
-    dc = dc / total
-    fk = fk / total
-    zero = torch.zeros((fk.shape[0], 1), dtype=fk.dtype, device=fk.device)
-    ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
-    cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
-                    zero], dim=1)
-    if mode == "rt":
-        i0 = torch.sum(xp[None, :] < qp[:, None], dim=1) - 1
-    else:
-        right = qp > 0.5
-        i0l = torch.sum(ck < qp[:, None], dim=1) - 1
-        i0r = torch.sum(cr > (1.0 - qp)[:, None], dim=1) - 1
-        i0 = torch.where(right, i0r, i0l)
-    i0 = torch.clamp(i0, 0, n - 2)
-    i1 = i0 + 1
+    with span("ttirt.cdf"):
+        n = fk.shape[-1]
+        dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h[1:]
+        total = torch.sum(dc, dim=-1, keepdim=True)
+        # degenerate rows (no mass) fall back to the uniform density
+        bad = total <= 0.0
+        dc = torch.where(bad, (xp[1:] - xp[:-1]).expand_as(dc), dc)
+        fk = torch.where(bad, torch.ones_like(fk), fk)
+        total = torch.sum(dc, dim=-1, keepdim=True)
+        dc = dc / total
+        fk = fk / total
+        zero = torch.zeros((fk.shape[0], 1), dtype=fk.dtype, device=fk.device)
+        ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
+        cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
+                        zero], dim=1)
+        if mode == "rt":
+            i0 = torch.sum(xp[None, :] < qp[:, None], dim=1) - 1
+        else:
+            right = qp > 0.5
+            i0l = torch.sum(ck < qp[:, None], dim=1) - 1
+            i0r = torch.sum(cr > (1.0 - qp)[:, None], dim=1) - 1
+            i0 = torch.where(right, i0r, i0l)
+        i0 = torch.clamp(i0, 0, n - 2)
+        i1 = i0 + 1
 
-    def read(rows, idx):
-        return torch.gather(rows, 1, idx[:, None])[:, 0]
+        def read(rows, idx):
+            return torch.gather(rows, 1, idx[:, None])[:, 0]
 
-    c1 = read(ck, i0)
-    cr2 = read(cr, i1)
-    f1 = read(fk, i0)
-    f2 = read(fk, i1)
-    x1, x2 = xp[i0], xp[i1]
-    if mode == "rt":
-        xk = qp
-        aq = 0.5 * (f2 - f1) / (x2 - x1)
-        cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
-        yk = x2 - xk
-        cr_ = 1.0 - (f2 * yk - aq * yk * yk + cr2)
-        out = torch.where(cl_ > 0.5, cr_, cl_)
-    else:
-        xl_ = _invert_quadratic(f1, f2, c1, qp, x1, x2)
-        xr_ = -_invert_quadratic(f2, f1, cr2, 1.0 - qp, -x2, -x1)
-        xk = torch.where(right, xr_, xl_)
-        out = xk
-    la = (x2 - xk) / (x2 - x1)
-    lb = (xk - x1) / (x2 - x1)
-    dlf = torch.log(f1 * la + f2 * lb)
-    return out, dlf, la, lb, i0
+        c1 = read(ck, i0)
+        cr2 = read(cr, i1)
+        f1 = read(fk, i0)
+        f2 = read(fk, i1)
+        x1, x2 = xp[i0], xp[i1]
+        if mode == "rt":
+            xk = qp
+            aq = 0.5 * (f2 - f1) / (x2 - x1)
+            cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
+            yk = x2 - xk
+            cr_ = 1.0 - (f2 * yk - aq * yk * yk + cr2)
+            out = torch.where(cl_ > 0.5, cr_, cl_)
+        else:
+            xl_ = _invert_quadratic(f1, f2, c1, qp, x1, x2)
+            xr_ = -_invert_quadratic(f2, f1, cr2, 1.0 - qp, -x2, -x1)
+            xk = torch.where(right, xr_, xl_)
+            out = xk
+        la = (x2 - xk) / (x2 - x1)
+        lb = (xk - x1) / (x2 - x1)
+        dlf = torch.log(f1 * la + f2 * lb)
+        return out, dlf, la, lb, i0
 
 
 def _cdf_invert_serve(mode, fk, xp, h32, qp):
@@ -498,48 +500,49 @@ def _cdf_invert_serve(mode, fk, xp, h32, qp):
     mode).  The bracket targets are q * tot and (1 - q) * tot formed in
     f64 and rounded to f32.  Returns (out, dlf, la, lb, i0) with f64
     scalars."""
-    n = fk.shape[1]
-    f64 = torch.float64
-    fk, ck, cr = cdf_sums32(fk, h32)
-    tot = ck[:, -1].to(f64)
-    if mode == "rt":
-        x32 = xp.to(torch.float32)
-        i0 = torch.sum(x32[None, :] < qp.to(torch.float32)[:, None],
-                       dim=1) - 1
-    else:
-        right = qp > 0.5
-        qt = qp * tot
-        ut = (1.0 - qp) * tot
-        i0l = torch.sum(ck < qt.to(torch.float32)[:, None], dim=1) - 1
-        i0r = torch.sum(cr > ut.to(torch.float32)[:, None], dim=1) - 1
-        i0 = torch.where(right, i0r, i0l)
-    i0 = torch.clamp(i0, 0, n - 2)
-    i1 = i0 + 1
+    with span("ttirt.cdf"):
+        n = fk.shape[1]
+        f64 = torch.float64
+        fk, ck, cr = cdf_sums32(fk, h32)
+        tot = ck[:, -1].to(f64)
+        if mode == "rt":
+            x32 = xp.to(torch.float32)
+            i0 = torch.sum(x32[None, :] < qp.to(torch.float32)[:, None],
+                           dim=1) - 1
+        else:
+            right = qp > 0.5
+            qt = qp * tot
+            ut = (1.0 - qp) * tot
+            i0l = torch.sum(ck < qt.to(torch.float32)[:, None], dim=1) - 1
+            i0r = torch.sum(cr > ut.to(torch.float32)[:, None], dim=1) - 1
+            i0 = torch.where(right, i0r, i0l)
+        i0 = torch.clamp(i0, 0, n - 2)
+        i1 = i0 + 1
 
-    def read64(rows, idx):
-        return torch.gather(rows, 1, idx[:, None])[:, 0].to(f64)
+        def read64(rows, idx):
+            return torch.gather(rows, 1, idx[:, None])[:, 0].to(f64)
 
-    c1 = read64(ck, i0)
-    cr2 = read64(cr, i1)
-    f1 = read64(fk, i0)
-    f2 = read64(fk, i1)
-    x1, x2 = xp[i0], xp[i1]
-    if mode == "rt":
-        xk = qp
-        yk = x2 - xk
-        aq = 0.5 * (f2 - f1) / (x2 - x1)
-        cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
-        cr_ = tot - (f2 * yk - aq * yk * yk + cr2)
-        out = torch.where(cl_ > 0.5 * tot, cr_, cl_) / tot
-    else:
-        xl_ = _invert_quadratic(f1, f2, c1, qt, x1, x2)
-        xr_ = -_invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
-        xk = torch.where(right, xr_, xl_)
-        out = xk
-    la = (x2 - xk) / (x2 - x1)
-    lb = (xk - x1) / (x2 - x1)
-    dlf = torch.log(f1 * la + f2 * lb) - torch.log(tot)
-    return out, dlf, la, lb, i0
+        c1 = read64(ck, i0)
+        cr2 = read64(cr, i1)
+        f1 = read64(fk, i0)
+        f2 = read64(fk, i1)
+        x1, x2 = xp[i0], xp[i1]
+        if mode == "rt":
+            xk = qp
+            yk = x2 - xk
+            aq = 0.5 * (f2 - f1) / (x2 - x1)
+            cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
+            cr_ = tot - (f2 * yk - aq * yk * yk + cr2)
+            out = torch.where(cl_ > 0.5 * tot, cr_, cl_) / tot
+        else:
+            xl_ = _invert_quadratic(f1, f2, c1, qt, x1, x2)
+            xr_ = -_invert_quadratic(f2, f1, cr2, ut, -x2, -x1)
+            xk = torch.where(right, xr_, xl_)
+            out = xk
+        la = (x2 - xk) / (x2 - x1)
+        lb = (xk - x1) / (x2 - x1)
+        dlf = torch.log(f1 * la + f2 * lb) - torch.log(tot)
+        return out, dlf, la, lb, i0
 
 
 def _serve_solve(mode, out9, qp):
@@ -547,40 +550,41 @@ def _serve_solve(mode, out9, qp):
     mode, the CDF evaluation) and the per-dim log-density from the nine
     bracket scalars.  Returns (out, dlf, la, lb), all f64: la and lb are
     the weights of the bracket's two nodes at the sample."""
-    f64 = torch.float64
-    c1 = out9[:, 0].to(f64)
-    cr2 = out9[:, 1].to(f64)
-    f1 = out9[:, 2].to(f64)
-    f2 = out9[:, 3].to(f64)
-    x1 = out9[:, 4].to(f64) + out9[:, 5].to(f64)
-    x2 = out9[:, 6].to(f64) + out9[:, 7].to(f64)
-    tot = out9[:, 8].to(f64)
-    if mode == "rt":
-        xk = qp
-        yk = x2 - xk
-        aq = 0.5 * (f2 - f1) / (x2 - x1)
-        cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
-        cr_ = tot - (f2 * yk - aq * yk * yk + cr2)
-        out = torch.where(cl_ > 0.5 * tot, cr_, cl_) / tot
-    else:
-        # the selector must equal the kernel's f32 bracket choice at
-        # rounding-boundary seeds (qp in (0.5, 0.5 + 2^-25) rounds to
-        # f32 0.5): derive it from the same f32 value
-        right = qp.to(torch.float32) > 0.5
-        ta = torch.where(right, (1.0 - qp) * tot, qp * tot)
-        fa = torch.where(right, f2, f1)
-        fb = torch.where(right, f1, f2)
-        ca = torch.where(right, cr2, c1)
-        ua = torch.where(right, -x2, x1)
-        ub = torch.where(right, -x1, x2)
-        xs_ = _invert_quadratic(fa, fb, ca, ta, ua, ub)
-        xk = torch.where(right, -xs_, xs_)
-        out = xk
-    inv21 = 1.0 / (x2 - x1)
-    la = (x2 - xk) * inv21
-    lb = (xk - x1) * inv21
-    dlf = torch.log((f1 * la + f2 * lb) / tot)
-    return out, dlf, la, lb
+    with span("ttirt.epilogue"):
+        f64 = torch.float64
+        c1 = out9[:, 0].to(f64)
+        cr2 = out9[:, 1].to(f64)
+        f1 = out9[:, 2].to(f64)
+        f2 = out9[:, 3].to(f64)
+        x1 = out9[:, 4].to(f64) + out9[:, 5].to(f64)
+        x2 = out9[:, 6].to(f64) + out9[:, 7].to(f64)
+        tot = out9[:, 8].to(f64)
+        if mode == "rt":
+            xk = qp
+            yk = x2 - xk
+            aq = 0.5 * (f2 - f1) / (x2 - x1)
+            cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
+            cr_ = tot - (f2 * yk - aq * yk * yk + cr2)
+            out = torch.where(cl_ > 0.5 * tot, cr_, cl_) / tot
+        else:
+            # the selector must equal the kernel's f32 bracket choice at
+            # rounding-boundary seeds (qp in (0.5, 0.5 + 2^-25) rounds to
+            # f32 0.5): derive it from the same f32 value
+            right = qp.to(torch.float32) > 0.5
+            ta = torch.where(right, (1.0 - qp) * tot, qp * tot)
+            fa = torch.where(right, f2, f1)
+            fb = torch.where(right, f1, f2)
+            ca = torch.where(right, cr2, c1)
+            ua = torch.where(right, -x2, x1)
+            ub = torch.where(right, -x1, x2)
+            xs_ = _invert_quadratic(fa, fb, ca, ta, ua, ub)
+            xk = torch.where(right, -xs_, xs_)
+            out = xk
+        inv21 = 1.0 / (x2 - x1)
+        la = (x2 - xk) * inv21
+        lb = (xk - x1) * inv21
+        dlf = torch.log((f1 * la + f2 * lb) / tot)
+        return out, dlf, la, lb
 
 
 def _fwd_serveb(mode, q, d, r, step_k):
@@ -639,8 +643,9 @@ def _fwd_gramb(mode, prep: GramBPrep, q, step=None):
 
     def step_k(k, phi, qk, uk):
         fk = torch.clamp(gram(phi, prep.pmat[k]), min=0.0)
-        out9, i0, la = cdf_rows32(_kmode(mode), fk, prep.xg[k, 0],
-                                  prep.xg[k, 1], prep.hrow[k], qk, uk)
+        with span("ttirt.cdf"):
+            out9, i0, la = cdf_rows32(_kmode(mode), fk, prep.xg[k, 0],
+                                      prep.xg[k, 1], prep.hrow[k], qk, uk)
         return update(phi, i0.to(torch.int32), la, 1.0 - la,
                       prep.cmat[k]), out9
 
@@ -743,15 +748,16 @@ def _fwd(mode, prep, q, step=None):
     ``step`` replaces the kernel-plan choice of the per-dimension
     functions; the chip smoke test passes the plain versions to compare
     on the card."""
-    if isinstance(prep, (GramPrep, LinPrep)):
-        return _fwd_gram(mode, prep, q, step)
-    if isinstance(prep, GramBPrep):
-        return _fwd_gramb(mode, prep, q, step)
-    if isinstance(prep, OrthoPrep):
-        return _fwd_ortho(mode, prep, q, step)
-    if prep.step == "dim":
-        return _fwd_dim(mode, prep, q, step)
-    return _fwd_split(mode, prep, q, step)
+    with span("ttirt.block"):
+        if isinstance(prep, (GramPrep, LinPrep)):
+            return _fwd_gram(mode, prep, q, step)
+        if isinstance(prep, GramBPrep):
+            return _fwd_gramb(mode, prep, q, step)
+        if isinstance(prep, OrthoPrep):
+            return _fwd_ortho(mode, prep, q, step)
+        if prep.step == "dim":
+            return _fwd_dim(mode, prep, q, step)
+        return _fwd_split(mode, prep, q, step)
 
 
 def fwd_blocked(mode, prep, q, block: int):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .dirt import DIRT, RAGGED_STEP, _prepare_upper, _resolve_precision, \
     _serve_upper_levels, serve_precision
 from .irt import _canon_grid, auto_block, tt_irt_lin, tt_irt_sqr, tt_rt_sqr
@@ -78,14 +79,15 @@ class IrtSampler:
     def sample(self, q):
         """Transform seeds ('sqr', 'lin') or samples ('rt'); returns
         (x, lf)."""
-        q = _as_rows(q, self.device)
-        if self._prep is None:
-            fn = {"sqr": tt_irt_sqr, "rt": tt_rt_sqr,
-                  "lin": tt_irt_lin}[self.mode]
-            return fn(self._grid, self._f, q, block=self.block,
-                      precision=self.precision, device=self.device)
-        return fwd_blocked(self.mode, self._prep, q,
-                           auto_block(q.shape[0], self.block))
+        with span("ttirt.sample"):
+            q = _as_rows(q, self.device)
+            if self._prep is None:
+                fn = {"sqr": tt_irt_sqr, "rt": tt_rt_sqr,
+                      "lin": tt_irt_lin}[self.mode]
+                return fn(self._grid, self._f, q, block=self.block,
+                          precision=self.precision, device=self.device)
+            return fwd_blocked(self.mode, self._prep, q,
+                               auto_block(q.shape[0], self.block))
 
     __call__ = sample
 
@@ -142,20 +144,24 @@ class DirtSampler:
     def sample(self, q, logpostfun=None):
         """Push reference seeds through levels L..1 and level 0; returns
         (z, lfapp) or (z, lfapp, logpostfun(z))."""
-        z = _as_rows(q, self.device)
-        sigma = self._sigma
-        block = auto_block(z.shape[0], self.block)
-        lfapp = torch.zeros((z.shape[0],), dtype=z.dtype, device=z.device)
-        z, lfapp = _serve_upper_levels(self.dirt, self._upper, z, lfapp,
-                                       self.precision, self.hi_step, block)
-        if sigma is not None:
-            z = tnormal_to_uniform(z, sigma)
-        if self._prep0 is not None:
-            z, dlf = fwd_blocked("sqr", self._prep0, z, block)
-        else:
-            z, dlf = tt_irt_sqr(self.dirt.x0, self.dirt.f0, z, block=block,
-                                precision=self.precision, device=self.device)
-        lfapp = lfapp + dlf
+        with span("ttirt.sample"):
+            z = _as_rows(q, self.device)
+            sigma = self._sigma
+            block = auto_block(z.shape[0], self.block)
+            lfapp = torch.zeros((z.shape[0],), dtype=z.dtype,
+                                device=z.device)
+            z, lfapp = _serve_upper_levels(self.dirt, self._upper, z,
+                                           lfapp, self.precision,
+                                           self.hi_step, block)
+            if sigma is not None:
+                z = tnormal_to_uniform(z, sigma)
+            if self._prep0 is not None:
+                z, dlf = fwd_blocked("sqr", self._prep0, z, block)
+            else:
+                z, dlf = tt_irt_sqr(self.dirt.x0, self.dirt.f0, z,
+                                    block=block, precision=self.precision,
+                                    device=self.device)
+            lfapp = lfapp + dlf
         if logpostfun is not None:
             return z, lfapp, logpostfun(z)
         return z, lfapp

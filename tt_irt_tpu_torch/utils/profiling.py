@@ -1,65 +1,53 @@
-"""Structured metrics and profiling helpers.
+"""Profiling helpers: named spans inside the serve path, and a
+``torch.profiler`` capture that shows them.
 
-Counterpart of ``tt_irt_tpu/utils/profiling.py``.  The reference threads
-tic/toc wall times and function-eval counters through every phase
-(amen_cross_s.m:61-62, als_cross_parametric.m:43-45, IRTstruct.evalcnt);
-the constructors return their eval counters already.  This module adds
-lightweight timers (``Metrics``, the JAX package's class) and
-``trace(logdir)``, a ``torch.profiler`` capture of the host and, where
-one is present, the CUDA device, written as a Chrome trace.
+Counterpart of ``tt_irt_tpu/utils/profiling.py``, whose ``Metrics``
+timers are not ported: on a card they would time the host's enqueue,
+not the device.  Instead the serve path opens ``span(name)`` around
+its parts, and ``trace(logdir)`` captures the host and, where one is
+present, the CUDA device, written as a Chrome trace in which every
+device operation can be tied to the spans open at its launch.
+
+The spans of the program, one site each:
+  ``ttirt.sample``    the body of ``DirtSampler.sample`` and
+                      ``IrtSampler.sample`` (samplers/serve.py);
+  ``ttirt.block``     one block's forward pass (``irt_scan._fwd``);
+  ``ttirt.epilogue``  the f64 epilogue ``irt_scan._serve_solve``;
+  ``ttirt.cdf``       the plain-PyTorch CDF and inversion between the
+                      kernels (``_cdf_invert``, ``_cdf_invert_serve``,
+                      ``cdf_rows32`` in ``_fwd_gramb``);
+  ``ttirt.model.log_prior``, ``ttirt.model.log_likelihood``
+                      ``LorenzProblem``'s two densities.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict
 
 import torch
 
-__all__ = ["Metrics", "trace"]
+__all__ = ["span", "trace"]
+
+_NULL = contextlib.nullcontext()
 
 
-class Metrics:
-    """Accumulating wall-clock timers + counters."""
-
-    def __init__(self):
-        self.times: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def add(self, name: str, value: int = 1):
-        self.counts[name] += value
-
-    def report(self) -> str:
-        lines = []
-        for k in sorted(set(self.times) | set(self.counts)):
-            t = self.times.get(k)
-            c = self.counts.get(k)
-            parts = [k]
-            if t is not None and t > 0:
-                parts.append(f"{t:.3f}s")
-            if c:
-                parts.append(f"x{c}")
-            lines.append("  ".join(parts))
-        return "\n".join(lines)
+def span(name: str):
+    """A named span of the program's host thread: a
+    ``torch.profiler.record_function`` while a profiler capture runs,
+    else one shared null context (no device work, no synchronisation,
+    about 0.1 us).  Spans nest by the host thread's order."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a trace of the block with ``torch.profiler`` (the CPU, and
     CUDA when a card is present) into ``logdir/trace.json``, viewable in
-    chrome://tracing or Perfetto.  Yields the profiler, whose
+    chrome://tracing or Perfetto; the program's ``ttirt.*`` spans are in
+    it as user annotations.  Yields the profiler, whose
     ``key_averages()`` sums the kernels by name."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
