@@ -37,7 +37,8 @@ Phases (any failure raises; nothing falls back to the CPU):
      plain version, row by row and against the f64 tt_irt_sqr, on the
      bench TT at 2^18 rows;
   6. path A: serve 2^log2n seeds through the 13 transforms of lz20_ck
-     with DirtSampler(precision="auto") -> 'f32': launch counts, finite
+     with DirtSampler(precision="auto") -> 'f32': launch counts (the CDF
+     kernel's among them), finite
      outputs, the CPU plain path on the first rows, N/ESS for 6 seed
      sets with the 'f64' serve of the --seed set beside it, and one
      profiled call split by kernel name;
@@ -46,6 +47,9 @@ Phases (any failure raises; nothing falls back to the CPU):
      fused_irt_sqr call split into build_fused_data and the kernel call;
   8. time those three kernels, their plain versions and, for
      gram_conditional, the one einsum that computes the same function;
+     time the CDF kernel between them and its plain chain at
+     (2^18, 17), (2^20, 17) and (2^18, 33) beside its bytes bound, and
+     hold its outputs there against the plain version's;
      print the whole-transform kernel's launch plan and the L2 reads of
      its staging;
   9. count, per level of lz40n33_ck and in both bases, the share of
@@ -588,6 +592,28 @@ def _device_events(fn):
     return call_s, events
 
 
+def _launch_device_ms(fn, reps, name):
+    """Device milliseconds a launch of the kernel whose name contains
+    ``name``, from ``reps`` calls of fn() under the profiler (each call
+    launching it once): the host's pace between launches, which paces a
+    timing by events around short kernels, does not enter."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    _, events = _device_events(calls)
+    hits = [v for k, v in events.items() if name in k]
+    count = sum(c for _, c in hits)
+    assert count == reps, (name, count, reps)
+    return sum(us for us, _ in hits) / count / 1e3
+
+
 def _trace_call(fn, names):
     """Run fn() under torch.profiler.  Returns (call seconds, device busy
     seconds or None, {name: seconds of kernels whose name contains it},
@@ -643,15 +669,17 @@ def _compare_gram_level(prep32, prep64, q, rec, tag):
     run in f64 on the same f32 operands, and at most twice as far from
     it as the plain f32 version plus 1e-6; phi' at most twice as far
     from the f64 plain version as the plain f32 one plus 1e-6.  Through
-    the whole level (d steps, the f32 CDF between the kernels), kernels
-    and plain versions are each held against the f64 Gram path on the
-    card: the 99th percentile of the kernel path's error at most twice
+    the whole level (d steps, the f32 CDF between the contractions: its
+    kernel on the kernel path, its plain version on the plain one),
+    kernels and plain versions are each held against the f64 Gram path
+    on the card: the 99th percentile of the kernel path's error at most twice
     the plain path's plus 1e-6, the maximum (an extreme-value statistic
     over 2^18 rows) at most four times.  fk_kp_abs / fk_kp_rel and
     phin_kp are the largest |kernel - plain| per dimension (fk_kp_rel
     relative to the largest |fk| of its dimension)."""
     import torch
 
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_cuda, cdf_invert_into_ref
     from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
                                            condition_update_ref,
                                            gram_conditional_cuda,
@@ -660,10 +688,10 @@ def _compare_gram_level(prep32, prep64, q, rec, tag):
 
     checks = {}
     key = f"gram_{tag}_"
-    xk, lk = _fwd("sqr", prep32, q,
-                  step=(gram_conditional_cuda, condition_update_cuda))
-    xp, lp_ = _fwd("sqr", prep32, q,
-                   step=(gram_conditional_ref, condition_update_ref))
+    xk, lk = _fwd("sqr", prep32, q, step=(
+        gram_conditional_cuda, cdf_invert_cuda, condition_update_cuda))
+    xp, lp_ = _fwd("sqr", prep32, q, step=(
+        gram_conditional_ref, cdf_invert_into_ref, condition_update_ref))
     x64, l64 = _fwd("sqr", prep64, q)
     _gate2x(rec, checks, key + "level_x", xk, xp, x64, factor_max=4.0)
     _gate2x(rec, checks, key + "level_lf", lk, lp_, l64, factor_max=4.0)
@@ -1069,6 +1097,7 @@ def _path_a(run, dirt_a):
     import torch
 
     import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_cuda
 
     rec, card, dev, m, seed = run.rec, run.card, run.dev, run.m, run.seed
     t0 = time.perf_counter()
@@ -1079,9 +1108,13 @@ def _path_a(run, dirt_a):
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeds = tp.randref(dirt_a.reference, gen, (m, dirt_a.d))
     launches = run.nblocks * (dirt_a.nlevels + 1) * dirt_a.d
+    cdf0 = cdf_invert_cuda.launches
     best, (z, lfapp) = _serve_best_of_3(
         sampler, seeds, {"gram_conditional": launches,
                          "condition_update": launches})
+    # the CDF kernel between them, once a dimension (warm-up + 3 calls)
+    assert cdf_invert_cuda.launches - cdf0 == 4 * launches, (
+        cdf_invert_cuda.launches - cdf0, 4 * launches)
     assert z.shape == (m, dirt_a.d)
     assert bool(torch.isfinite(z).all())
     cpu = tp.DirtSampler(tp.load_dirt(CKPT_A, device="cpu"),
@@ -1118,7 +1151,8 @@ def _path_a(run, dirt_a):
     lw_d = lw_d[torch.isfinite(lw_d)]
     rec.update(
         a_nonfinite_rows_sets=bad, a_serve_best_s=best,
-        a_samples_per_s=m / best, a_launches_per_call=[launches, launches],
+        a_samples_per_s=m / best,
+        a_launches_per_call=[launches, launches, launches],
         a_n_over_ess_sets=ess, a_n_over_ess_median=float(np.median(ess)),
         a_max_weight_share_sets=share,
         a_n_over_ess_f64=float(tp.essinv(le64, l64)),
@@ -1332,7 +1366,9 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
 
     b_gram = rec["b_irt_f32_launches"]["gram_conditional"]
     b_update = rec["b_irt_f32_launches"]["condition_update"]
-    return [
+    cdf_entry = _cdf_timings(run, fk, prep32.xs[k], prep32.hs[k], qs[k],
+                             launches_a)
+    return [cdf_entry,
         entry("gram_conditional", "step.cu", "pallas_step.py:188",
               {"A": launches_a, "B tt_irt_sqr": b_gram}, worst("fk_kp_abs"),
               g_ms, g_plain, g_bound, g_lib, bound_fp32_ms=g_fp32,
@@ -1349,6 +1385,115 @@ def _gram_timings(run, prep32, qa, qb, data_b, launches_a, gram_tags):
               samples_rows_flipped=rec["fused_x_rows_flipped"],
               samples_within_1e4_where_well_conditioned=rec[
                   "fused_x_well_elements_kernel_within_1e4_of_plain"])]
+
+
+def _cdf_gate(got, want, w64):
+    """The CDF kernel's (sample, dlf, la, lb, i0) ``got`` against the
+    plain version's ``want`` on the same f32 inputs and its f64 run
+    ``w64``, at the bar of tests/test_torch_cdf.py::assert_as_accurate:
+    the bracket of all three agrees on 97% of the rows; on those rows,
+    where all three are finite, each output's |error| against the f64
+    run at most twice the plain version's plus 1e-6 at the 99th
+    percentile, three times at the 99.9th and four times at the maximum.
+    Returns the statistics and ``ok``; ``max_abs_err`` is the largest
+    |kernel - plain| sample on rows of one bracket."""
+    import torch
+
+    agree = (got[4] == want[4]) & (want[4] == w64[4])
+    stats = {"bracket_agree": float(agree.double().mean())}
+    ok = stats["bracket_agree"] >= 0.97
+    for name, g, w, r in zip(("x", "dlf", "la", "lb"), got, want, w64):
+        rows = agree & torch.isfinite(g) & torch.isfinite(w)
+        rows &= torch.isfinite(r)
+        err_k = (g.double() - r)[rows].abs()
+        err_p = (w.double() - r)[rows].abs()
+        for what, factor in (("p99", 2.0), ("p999", 3.0), ("max", 4.0)):
+            if what == "max":
+                ek, ep = float(err_k.max()), float(err_p.max())
+            else:
+                level = 0.99 if what == "p99" else 0.999
+                ek = float(torch.quantile(err_k, level))
+                ep = float(torch.quantile(err_p, level))
+            stats[f"{name}_{what}_kernel"] = ek
+            stats[f"{name}_{what}_plain"] = ep
+            ok &= ek <= factor * ep + 1e-6
+        if name == "x":
+            same = agree & torch.isfinite(g) & torch.isfinite(w)
+            stats["max_abs_err"] = float((g - w)[same].abs().max())
+    stats["ok"] = bool(ok)
+    return stats
+
+
+def _cdf_timings(run, fk, xp, h, qp, launches_a):
+    """Phase 8, the CDF kernel (csrc/cdf_invert.cu): its time and the
+    plain chain's (ops/cdf.py::cdf_invert_ref, about a hundred PyTorch
+    operations) at (2^18, 17) on a dimension of path A's level (fk, xp,
+    h, qp), at (2^20, 17) on those rows four times over, and at
+    (2^18, 33) on random rows, each beside its bound: 4 M (n + 7) bytes
+    (fk, the seed and lf read once, the sample, lf, la, lb and i0 written
+    once) against about 7 (n - 1) + 30 operations a row.  At 2^18 rows fk
+    (17.8 MB) stays in the 50 MB L2 between launches, as it does in a
+    serve, where gram_conditional has just written it.  The kernel's
+    time is its device time a launch under the profiler; ``events_ms``,
+    20 calls between two CUDA events, also counts the host's gaps between
+    launches where it enqueues slower than the kernel runs.  At each
+    shape the kernel's outputs are held against the plain version's on
+    the same inputs (``_cdf_gate``).  Returns its kernels entry."""
+    import torch
+
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_cuda, cdf_invert_ref
+
+    rec, mb, dev = run.rec, run.mb, run.dev
+    gen = torch.Generator(device=dev).manual_seed(run.seed)
+    x33 = torch.linspace(-2.0, 2.0, 33, device=dev)
+    h33 = torch.cat([x33.new_zeros(1), x33[1:] - x33[:-1]])
+    shapes = {
+        "m18_n17": (fk, xp, h, qp),
+        "m20_n17": (fk.repeat(4, 1), xp, h, qp.repeat(4)),
+        "m18_n33": (torch.rand((mb, 33), generator=gen, device=dev) ** 3,
+                    x33, h33, torch.rand((mb,), generator=gen, device=dev))}
+    times = {}
+    for tag, (f, x, hh, q) in shapes.items():
+        m, n = f.shape
+        out = torch.empty((m,), dtype=torch.float32, device=dev)
+        lf = torch.zeros((m,), dtype=torch.float32, device=dev)
+
+        def kernel():
+            cdf_invert_cuda("sqr", f, x, hh, q, out, lf)
+
+        k_ms = _launch_device_ms(kernel, 20, "cdf_invert_kernel")
+        e_ms = _time_ms(kernel, 20)
+        p_ms = _time_ms(lambda: cdf_invert_ref("sqr", f, x, hh, q), 5)
+        bound = _bound(m * (7 * (n - 1) + 30), 4 * m * (n + 7))
+        lf.zero_()
+        la, lb, i0 = cdf_invert_cuda("sqr", f, x, hh, q, out, lf)
+        want = cdf_invert_ref("sqr", f, x, hh, q)
+        w64 = cdf_invert_ref("sqr", *(t.double() for t in (f, x, hh, q)))
+        times[tag] = {"ms": k_ms, "events_ms": e_ms, "plain_ms": p_ms,
+                      "bound_ms": bound[0], "bound_by": bound[1],
+                      "accuracy": _cdf_gate(
+                          (out, lf, la, lb, i0.long()), want, w64)}
+    rec["cdf_invert_timings"] = times
+    print("cdf_invert kernel (between events) / plain chain / bound (ms): "
+          + "; ".join(
+              f"{tag} {t['ms']:.4f} ({t['events_ms']:.4f}) / "
+              f"{t['plain_ms']:.4f} / {t['bound_ms']:.4f} ({t['bound_by']})"
+              for tag, t in times.items())
+          + f" ({run.card}); against the plain version: " + json.dumps(
+              {tag: t["accuracy"] for tag, t in times.items()}), flush=True)
+    failed = [tag for tag, t in times.items() if not t["accuracy"]["ok"]]
+    assert not failed, f"cdf_invert kernel vs plain failed: {failed}"
+    first = times["m18_n17"]
+    return {"name": "cdf_invert", "route": "cuda",
+            "source": "tt_irt_tpu_torch/csrc/cdf_invert.cu",
+            "replaces": "none (plain jnp between the Pallas kernels: "
+                        "tt_irt_tpu/samplers/irt_scan.py::_cdf_invert)",
+            "launches": launches_a, "launches_by_path": {"A": launches_a},
+            "max_abs_err": max(t["accuracy"]["max_abs_err"]
+                               for t in times.values()), "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "timings": times}
 
 
 def _lz40_shapes(dirt):
@@ -1978,6 +2123,7 @@ def _plain_steps():
     while the block runs: a serve on the card through the same code
     with no kernel launched (the plain side of the serve gates)."""
     from tt_irt_tpu_torch.ops import kernel_plan as kp
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_into_ref
     from tt_irt_tpu_torch.ops.dim_step import dim_step_ref
     from tt_irt_tpu_torch.ops.odim_step import odim_step_ref
     from tt_irt_tpu_torch.ops.step import (cdf_bracket_factor_ref,
@@ -1989,7 +2135,8 @@ def _plain_steps():
              "cdf_bracket_factor": cdf_bracket_factor_ref,
              "factor_conditional": factor_conditional_ref,
              "gram_conditional": gram_conditional_ref,
-             "condition_update": condition_update_ref}
+             "condition_update": condition_update_ref,
+             "cdf_invert": cdf_invert_into_ref}
     saved = {k: getattr(kp, k) for k in plain}
     for k, f in plain.items():
         setattr(kp, k, f)
@@ -2381,6 +2528,7 @@ def _lin_path(run):
     import torch
 
     import tt_irt_tpu_torch as tp
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_cuda, cdf_invert_into_ref
     from tt_irt_tpu_torch.ops.step import (condition_update_cuda,
                                            condition_update_ref)
     from tt_irt_tpu_torch.samplers.irt import _canon_grid
@@ -2422,11 +2570,11 @@ def _lin_path(run):
     rec.update({f"lin_per_dim_{k}": v for k, v in worst.items()})
     checks = {"lin_phin_2x": worst["phin_kernel_vs_f64"]
               <= 2.0 * worst["phin_plain_vs_f64"] + 1e-6}
-    # through the whole transform: kernel and plain update each against
-    # the f64 'lin' path
-    xk, lk = _fwd("lin", p32, q, step=(lin_conditional,
+    # through the whole transform: the kernel path (the CDF kernel and
+    # the update kernel) and the plain one each against the f64 'lin' path
+    xk, lk = _fwd("lin", p32, q, step=(lin_conditional, cdf_invert_cuda,
                                        condition_update_cuda))
-    xp, lpl = _fwd("lin", p32, q, step=(lin_conditional,
+    xp, lpl = _fwd("lin", p32, q, step=(lin_conditional, cdf_invert_into_ref,
                                         condition_update_ref))
     x64, l64 = _fwd("lin", p64, q)
     _gate2x(rec, checks, "lin_level_x", xk, xp, x64, factor_max=4.0)

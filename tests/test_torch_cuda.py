@@ -9,6 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cdf import assert_as_accurate, cdf_rows
+from test_torch_cdf import same as same_or_nan
+from tt_irt_tpu_torch.ops.cdf import (cdf_invert_cuda, cdf_invert_into_ref,
+                                      cdf_invert_ref)
 from tt_irt_tpu_torch.ops.dim_step import dim_step_cuda, dim_step_ref
 from tt_irt_tpu_torch.ops.fused_irt import (fused_irt_sqr_cuda,
                                             fused_irt_sqr_ref)
@@ -1110,12 +1114,15 @@ def test_rank_128_at_f32_serves_through_the_wide_tier(n, r):
             launched = counts[k].launches - before[k]
             assert (launched > 0) == (k in kern), (fn.__name__, k, launched)
         x64, lf64 = fn(grids, tt, q, precision="f64")
-        orig = irt_scan.kernel_plan.gram_step
+        orig = (irt_scan.kernel_plan.gram_step,
+                irt_scan.kernel_plan.cdf_invert)
         irt_scan.kernel_plan.gram_step = lambda dt: plain
+        irt_scan.kernel_plan.cdf_invert = cdf_invert_into_ref
         try:
             xp, lfp = fn(grids, tt, q, precision="f32")
         finally:
-            irt_scan.kernel_plan.gram_step = orig
+            (irt_scan.kernel_plan.gram_step,
+             irt_scan.kernel_plan.cdf_invert) = orig
         for a, b, ref in ((x, xp, x64), (lf, lfp, lf64)):
             ek = (a.double() - ref).abs().reshape(a.shape[0], -1).amax(1)
             ep = (b.double() - ref).abs().reshape(a.shape[0], -1).amax(1)
@@ -1891,3 +1898,148 @@ def test_odim_step_wide_on_skewed_seeds_on_card(where, n, r):
     err_k = float((pk.double() - p64)[same].abs().max())
     err_p = float((pr.double() - p64)[same].abs().max())
     assert err_k <= 2.0 * err_p + 1e-6, (where, err_k, err_p)
+
+
+def _cdf_card(m, n, mode, exact, aligned=True):
+    """(fk, xp, h, qp) of tests/test_torch_cdf.py::cdf_rows in f32 on the
+    card; in mode 'rt' the seeds are points across the grid.  With
+    ``aligned`` false fk starts 4 bytes into its storage, so that the
+    kernel's tile staging takes its scalar path."""
+    fk, xp, h, qp = cdf_rows(m, n, n + m, torch.float32, exact)
+    if mode == "rt":
+        qp = xp[0] + qp * (xp[-1] - xp[0])
+    flat = torch.empty((m * n + 1,), dtype=torch.float32, device="cuda")
+    fk_card = flat[int(not aligned):][:m * n].view(m, n)
+    fk_card.copy_(fk)
+    return fk_card, xp.cuda(), h.cuda(), qp.cuda()
+
+
+def _near_node_rows(mode, fk, xp, h, qp, tol):
+    """Rows whose target lies within ``tol`` of one of its running sums
+    (the plain version's in f64): their f32 bracket may go either way.
+    None in mode 'rt', whose bracket compares the grid itself."""
+    if mode == "rt":
+        return torch.zeros_like(qp, dtype=torch.bool)
+    f, x, hh, q = (t.double() for t in (fk, xp, h, qp))
+    dc = 0.5 * (f[:, :-1] + f[:, 1:]) * hh[1:]
+    bad = dc.sum(1, keepdim=True) <= 0.0
+    dc = torch.where(bad, (x[1:] - x[:-1]).expand_as(dc), dc)
+    dc = dc / dc.sum(1, keepdim=True)
+    zero = torch.zeros_like(dc[:, :1])
+    ck = torch.cat([zero, dc.cumsum(1)], 1)
+    cr = torch.cat([dc.flip(1).cumsum(1).flip(1), zero], 1)
+    right = q > 0.5
+    rows = torch.where(right[:, None], cr, ck)
+    target = torch.where(right, 1.0 - q, q)
+    return ((rows - target[:, None]).abs() < tol).any(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("mode", ["sqr", "rt"])
+@pytest.mark.parametrize("n", [17, 33, 64, 128])
+def test_cdf_invert_kernel_exact_rows_on_card(n, mode, aligned):
+    """The CDF kernel on rows whose sums are exact in f32 (so that no
+    order of summation rounds): every output equals the plain version's
+    on the card bit for bit (NaN where it is NaN: a negative node can
+    make the density at the sample negative), on a row count that ends
+    inside a block, with rows without mass, rows whose running sums are
+    not monotone and seeds at 0, 0.5, just above 0.5 and 1; one launch a
+    call; lf is added to, not overwritten."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    m = 4096 + 7
+    fk, xp, h, qp = _cdf_card(m, n, mode, exact=True, aligned=aligned)
+    out = torch.empty((m,), dtype=torch.float32, device="cuda")
+    lf = torch.full((m,), 0.5, dtype=torch.float32, device="cuda")
+    before = cdf_invert_cuda.launches
+    la, lb, i0 = cdf_invert_cuda(mode, fk, xp, h, qp, out, lf)
+    torch.cuda.synchronize()
+    assert cdf_invert_cuda.launches == before + 1
+    assert i0.dtype == torch.int32
+    x, dlf, la0, lb0, i00 = cdf_invert_ref(mode, fk, xp, h, qp)
+    assert torch.equal(i0.long(), i00)
+    for got, want in ((out, x), (lf, 0.5 + dlf), (la, la0), (lb, lb0)):
+        assert same_or_nan(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sqr", "rt"])
+@pytest.mark.parametrize("n", [17, 33, 64, 128])
+def test_cdf_invert_kernel_matches_plain_on_card(n, mode):
+    """The CDF kernel on random rows (slightly negative nodes and rows
+    without mass among them) against the plain version on the card.  The
+    two differ only in how they sum a row's total (a compensated sum in
+    order here, a tree in PyTorch), so: i0 equal on every row but those
+    whose target lies within 4 n f32 ulps of 1 of a running sum (none in
+    mode 'rt'); the sample, dlf, la and lb as accurate as the plain
+    version's against its f64 run (tests/test_torch_cdf.py::
+    assert_as_accurate: twice its 99th percentile of |error| plus 1e-6,
+    three times its 99.9th)."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    m = 4096 + 7
+    fk, xp, h, qp = _cdf_card(m, n, mode, exact=False)
+    out = torch.empty((m,), dtype=torch.float32, device="cuda")
+    lf = torch.zeros((m,), dtype=torch.float32, device="cuda")
+    la, lb, i0 = cdf_invert_cuda(mode, fk, xp, h, qp, out, lf)
+    got = (out, lf, la, lb)
+    want = cdf_invert_ref(mode, fk, xp, h, qp)
+    w64 = cdf_invert_ref(mode, *(t.double() for t in (fk, xp, h, qp)))
+    near = _near_node_rows(mode, fk, xp, h, qp, 4 * n * 2.0 ** -24)
+    assert torch.equal((i0.long() != want[4]) & ~near,
+                       torch.zeros_like(near))
+    assert_as_accurate(got + (i0.long(),), want, w64)
+
+
+@pytest.mark.cuda
+def test_cdf_invert_launches_once_a_dimension_on_card():
+    """An 'f32' serve of lz20_ck (12 levels and level 0, d = 20) in one
+    call of 2^20 seeds runs the CDF kernel once a dimension of every
+    transform, 260 launches, beside kernels 5 and 3 as often."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    import os
+
+    import tt_irt_tpu_torch as tp
+
+    dirt = tp.load_dirt(os.path.join(os.path.dirname(__file__), "..",
+                                     "examples", "data", "lz20_ck"))
+    sampler = tp.DirtSampler(dirt, precision="f32", block=2 ** 20)
+    q = tp.randref(dirt.reference, torch.Generator(
+        device="cuda").manual_seed(20), (2 ** 20, dirt.d))
+    before = (cdf_invert_cuda.launches, gram_conditional_cuda.launches,
+              condition_update_cuda.launches)
+    z, lf = sampler(q)
+    torch.cuda.synchronize()
+    after = (cdf_invert_cuda.launches, gram_conditional_cuda.launches,
+             condition_update_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [260] * 3
+    assert float(torch.isfinite(lf).double().mean()) > 0.999
+
+
+@pytest.mark.cuda
+def test_cdf_invert_refuses_past_its_caps_on_card():
+    """Past n = 128, and on an f64 fk, the kernel's wrapper raises (the
+    former naming 'f64', which serves any shape); kernel_plan hands an
+    f64 fk on the card to the plain version, with no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CARD)
+    from tt_irt_tpu_torch.ops import kernel_plan
+
+    m = 64
+    fk, xp, h, qp = _cdf_card(m, 129, "sqr", exact=False)
+    out = torch.empty((m,), dtype=torch.float32, device="cuda")
+    lf = torch.zeros((m,), dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="'f64'"):
+        cdf_invert_cuda("sqr", fk, xp, h, qp, out, lf)
+    fk, xp, h, qp = (t.double() for t in _cdf_card(m, 17, "sqr", False))
+    out, lf = out.double(), lf.double()
+    with pytest.raises(ValueError, match="float64"):
+        cdf_invert_cuda("sqr", fk, xp, h, qp, out, lf)
+    before = cdf_invert_cuda.launches
+    la, lb, i0 = kernel_plan.cdf_invert("sqr", fk, xp, h, qp, out, lf)
+    assert cdf_invert_cuda.launches == before
+    x, dlf, la0, lb0, i00 = cdf_invert_ref("sqr", fk, xp, h, qp)
+    assert torch.equal(out, x) and torch.equal(i0, i00)
+    assert same_or_nan(lf, dlf) and torch.equal(la, la0)

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tt_irt_tpu_torch.ops.cdf import cdf_invert_into_ref
 from tt_irt_tpu_torch.ops.step import (condition_update_ref,
                                        gram_conditional_ref)
 
@@ -163,9 +164,11 @@ def test_model_level_meets_the_card_rule_on_lz20(lz20):
     p32, p64, q = lz20
     runs = {
         "model": _fwd("sqr", p32, q,
-                      step=(gram_chain_model, condition_update_ref)),
+                      step=(gram_chain_model, cdf_invert_into_ref,
+                            condition_update_ref)),
         "plain": _fwd("sqr", p32, q,
-                      step=(gram_conditional_ref, condition_update_ref)),
+                      step=(gram_conditional_ref, cdf_invert_into_ref,
+                            condition_update_ref)),
         "f64": _fwd("sqr", p64, q)}
     for i, what in enumerate(("x", "lf")):
         ref = runs["f64"][i]

@@ -120,3 +120,40 @@ def test_kernel_plan_routes_cpu_and_f64_to_plain():
         gram_conditional_cuda(phi, pmat)
     with pytest.raises(ValueError, match="CUDA"):
         condition_update_cuda(phi, i0, la, lb, cmat)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_plan_routes_cpu_and_f64_cdf_to_plain(dtype):
+    """kernel_plan.cdf_invert runs the plain version on CPU tensors of
+    either dtype, writing its sample into ``out`` and adding its dlf into
+    ``lf``; on a device other than the CPU (here ``meta``, which computes
+    shapes only) an f64 fk goes to the plain version too, and an f32 one
+    to the kernel, whose wrapper raises off the card.  No launch is
+    counted."""
+    from tt_irt_tpu_torch.ops.cdf import cdf_invert_cuda, cdf_invert_ref
+
+    rng = np.random.default_rng(5)
+    m, n = 64, 9
+    fk = torch.tensor(rng.uniform(size=(m, n)), dtype=dtype)
+    xp = torch.linspace(-1.0, 1.0, n, dtype=dtype)
+    h = torch.cat([torch.zeros(1, dtype=dtype), xp[1:] - xp[:-1]])
+    qp = torch.tensor(rng.uniform(size=m), dtype=dtype)
+    before = cdf_invert_cuda.launches
+    out = torch.empty((m,), dtype=dtype)
+    lf = torch.full((m,), 0.25, dtype=dtype)
+    la, lb, i0 = kernel_plan.cdf_invert("sqr", fk, xp, h, qp, out, lf)
+    x, dlf, la0, lb0, i00 = cdf_invert_ref("sqr", fk, xp, h, qp)
+    assert torch.equal(out, x) and torch.equal(lf, 0.25 + dlf)
+    assert torch.equal(la, la0) and torch.equal(lb, lb0)
+    assert torch.equal(i0, i00)
+    meta = [t.to("meta") for t in (fk, xp, h, qp, out, lf)]
+    if dtype == torch.float64:
+        _, _, i0m = kernel_plan.cdf_invert("sqr", *meta)
+        assert i0m.device.type == "meta" and i0m.dtype == torch.int64
+    else:
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel_plan.cdf_invert("sqr", *meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        cdf_invert_cuda("sqr", fk.float(), xp.float(), h.float(),
+                        qp.float(), out.float(), lf.float())
+    assert cdf_invert_cuda.launches == before

@@ -10,11 +10,12 @@
 // tt_irt_tpu/ops/pallas_step.py::condition_update (:238, _update_kernel):
 //   phi'[m] = phi[m] (la[m] C[i0[m]] + lb[m] C[i0[m]+1]) / max|.|
 // with the floor 1e-30 on the divisor.  The CDF build and inversion
-// between the two stays in PyTorch (samplers/irt_scan.py::_cdf_invert),
-// as it stays in XLA between the two TPU kernels.  The TPU kernels build
-// the outer product, the one-hot weights and the batched matvec out of
-// matmuls against 0/1 structure matrices because Mosaic cannot reshape
-// or gather; here they are index arithmetic and shared-memory reads.
+// between the two, which stays in XLA between the two TPU kernels, is
+// csrc/cdf_invert.cu at an f32 CDF and PyTorch otherwise (ops/cdf.py).
+// The TPU kernels build the outer product, the one-hot weights and the
+// batched matvec out of matmuls against 0/1 structure matrices because
+// Mosaic cannot reshape or gather; here they are index arithmetic and
+// shared-memory reads.
 //
 // gram_conditional: n r^2 FMAs a row (6.1k at n=17, r=19) against
 // 4 (r + n) bytes of row traffic, so the FP32 pipe bounds it (0.049 ms

@@ -10,7 +10,9 @@ the TPU kernels are), so the 'f64' precision, the oracle of the others,
 has none: ``gram_step`` hands the Gram forward pass the plain pair for
 an f64 contraction, and ``factor_step`` does the same for the f64 carry
 of 'ds', chosen by the precision of the prepared operands and not by
-whatever dtype a tensor arrives in.  There is no switch that
+whatever dtype a tensor arrives in.  ``cdf_invert`` likewise hands an
+f64 conditional (the CDF dtype of 'f64', 'mixed' and the other f64-CDF
+paths) to the plain version on either device.  There is no switch that
 turns a kernel off on the card, and no other module chooses between a
 kernel and its plain version.
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .cdf import cdf_invert_cuda, cdf_invert_into_ref
 from .dim_step import dim_step_cuda, dim_step_ref
 from .fused_irt import fused_irt_sqr_cuda, fused_irt_sqr_ref
 from .odim_step import odim_step_cuda, odim_step_ref
@@ -29,7 +32,7 @@ from .step import (cdf_bracket_factor_cuda, cdf_bracket_factor_ref,
 
 __all__ = ["dim_step", "odim_step", "cdf_bracket_factor",
            "factor_conditional", "gram_conditional", "condition_update",
-           "gram_step", "factor_step", "fused_irt_rows"]
+           "gram_step", "factor_step", "fused_irt_rows", "cdf_invert"]
 
 
 def dim_step(phi, qp32, um32, bmat, cmat, hrow, xg, mode="irt"):
@@ -115,3 +118,15 @@ def fused_irt_rows(q, p2, coreu, x, h):
     if q.device.type == "cpu":
         return fused_irt_sqr_ref(q, p2, coreu, x, h)
     return fused_irt_sqr_cuda(q, p2, coreu, x, h)
+
+
+def cdf_invert(mode, fk, xp, h, qp, out, lf):
+    """The Gram family's CDF build, bracket and in-cell solve
+    (ops/cdf.py): writes the sample into ``out`` (M,), adds dlf into
+    ``lf`` (M,) in place and returns (la, lb, i0).  An f32 ``fk`` on a
+    CUDA device goes to the kernel, which launches or raises (i0 int32);
+    a CPU ``fk``, and an f64 one on either device, to the plain version
+    (i0 int64)."""
+    if fk.device.type == "cpu" or fk.dtype == torch.float64:
+        return cdf_invert_into_ref(mode, fk, xp, h, qp, out, lf)
+    return cdf_invert_cuda(mode, fk, xp, h, qp, out, lf)

@@ -11,12 +11,14 @@ entries).
   (``_prepare_scan``) emits the semi-marginal fields P_k, with the QR
   carry (``stable=True``, the default of every entry point) or the Gram
   carry.  The forward pass runs, per dimension, the conditional
-  fk = (phi x phi) P_k, the two-sided CDF inversion ``_cdf_invert`` in
+  fk = (phi x phi) P_k, the two-sided CDF inversion of ops/cdf.py in
   the CDF dtype, and the prefix update.  At 'f32'/'mixed' the two
   contractions are the CUDA kernels of ops/step.py on the card and their
   plain versions on the CPU; at 'f64' they are plain PyTorch on either
   device (the kernels are f32), which makes 'f64' the oracle of the rest.
-  'mixed' is f32 contractions with the CDF in native f64.
+  The CDF is the CUDA kernel of ops/cdf.py where it is f32 ('f32') on the
+  card, and plain PyTorch otherwise.  'mixed' is f32 contractions with
+  the CDF in native f64.
 * 'hi'.  ``_prepare_scan_factor`` carries the suffix Gram in f64 and
   emits the factors B_k = C_k L_k.  The keyword ``hi_step`` names the
   algorithm of the per-dimension step; each value has its own kernel(s)
@@ -62,8 +64,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops import kernel_plan
-from ..ops.rowmath import (cdf_rows32, cdf_sums32, cumsum_rows,
-                           full_f32_matmul)
+from ..ops.cdf import cdf_invert_ref as _cdf_invert
+from ..ops.rowmath import cdf_rows32, cdf_sums32, full_f32_matmul
 from ..ops.rowmath import invert_quadratic as _invert_quadratic
 from ..ops.tt import TT
 from ..utils.profiling import span
@@ -430,65 +432,6 @@ def _prep(cstack, xstack, precision: str = "hi", stable: bool = True,
                         "hid" if precision == "hid" else hi_step)
 
 
-def _cdf_invert(mode, fk, xp, h, qp):
-    """CDF build, bracket and in-cell quadratic solve in fk's dtype.
-
-    TWO-SIDED: seeds past the median invert against the right-tail mass
-    (a reversed cumsum of only-small terms), so the perturbation stays at
-    eps * (local tail mass) in both tails.  fk (M, n) unnormalised,
-    xp (n,) grid, h (n,) spacings with h[0] = 0, qp (M,) seeds (x values
-    in 'rt' mode).  Returns (out, dlf, la, lb, i0)."""
-    with span("ttirt.cdf"):
-        n = fk.shape[-1]
-        dc = 0.5 * (fk[:, :-1] + fk[:, 1:]) * h[1:]
-        total = torch.sum(dc, dim=-1, keepdim=True)
-        # degenerate rows (no mass) fall back to the uniform density
-        bad = total <= 0.0
-        dc = torch.where(bad, (xp[1:] - xp[:-1]).expand_as(dc), dc)
-        fk = torch.where(bad, torch.ones_like(fk), fk)
-        total = torch.sum(dc, dim=-1, keepdim=True)
-        dc = dc / total
-        fk = fk / total
-        zero = torch.zeros((fk.shape[0], 1), dtype=fk.dtype, device=fk.device)
-        ck = torch.cat([zero, cumsum_rows(dc)], dim=1)
-        cr = torch.cat([torch.flip(cumsum_rows(torch.flip(dc, [1])), [1]),
-                        zero], dim=1)
-        if mode == "rt":
-            i0 = torch.sum(xp[None, :] < qp[:, None], dim=1) - 1
-        else:
-            right = qp > 0.5
-            i0l = torch.sum(ck < qp[:, None], dim=1) - 1
-            i0r = torch.sum(cr > (1.0 - qp)[:, None], dim=1) - 1
-            i0 = torch.where(right, i0r, i0l)
-        i0 = torch.clamp(i0, 0, n - 2)
-        i1 = i0 + 1
-
-        def read(rows, idx):
-            return torch.gather(rows, 1, idx[:, None])[:, 0]
-
-        c1 = read(ck, i0)
-        cr2 = read(cr, i1)
-        f1 = read(fk, i0)
-        f2 = read(fk, i1)
-        x1, x2 = xp[i0], xp[i1]
-        if mode == "rt":
-            xk = qp
-            aq = 0.5 * (f2 - f1) / (x2 - x1)
-            cl_ = aq * (xk - x1) ** 2 + f1 * (xk - x1) + c1
-            yk = x2 - xk
-            cr_ = 1.0 - (f2 * yk - aq * yk * yk + cr2)
-            out = torch.where(cl_ > 0.5, cr_, cl_)
-        else:
-            xl_ = _invert_quadratic(f1, f2, c1, qp, x1, x2)
-            xr_ = -_invert_quadratic(f2, f1, cr2, 1.0 - qp, -x2, -x1)
-            xk = torch.where(right, xr_, xl_)
-            out = xk
-        la = (x2 - xk) / (x2 - x1)
-        lb = (xk - x1) / (x2 - x1)
-        dlf = torch.log(f1 * la + f2 * lb)
-        return out, dlf, la, lb, i0
-
-
 def _cdf_invert_serve(mode, fk, xp, h32, qp):
     """Two-sided CDF inversion with f32 rows and f64 restricted to the
     per-row bracket scalars (the in-loop CDF of ``hi_step="pair"``).
@@ -707,13 +650,15 @@ def lin_conditional(phi, pmat):
 def _fwd_gram(mode, prep, q, step=None):
     """Gram-family forward pass over one block of rows (a GramPrep, or a
     LinPrep in mode 'lin').  Per dimension: the conditional,
-    ``_cdf_invert`` in the CDF dtype (at 'mixed' on fk clamped at 0, as
+    the CDF inversion in the CDF dtype (at 'mixed' on fk clamped at 0, as
     the JAX package does before its f64 CDF; at 'f32' fk may come out
     slightly negative by cancellation and is left so), and the prefix
-    update.  ``step`` is the pair (conditional, condition_update) and
-    defaults to the choice of ops/kernel_plan.py, with
-    ``lin_conditional`` for a LinPrep.  Samples and log-density come
-    back in the CDF dtype."""
+    update.  ``step`` is the triple (conditional, cdf_invert,
+    condition_update) and defaults to the choice of ops/kernel_plan.py,
+    with ``lin_conditional`` for a LinPrep; the CDF (as
+    ``kernel_plan.cdf_invert``) writes each dimension's samples into
+    ``outs`` and adds its log-density into ``lf`` in place.  Samples and
+    log-density come back in the CDF dtype."""
     d, n = prep.pmat.shape[0], prep.pmat.shape[2]
     r = int(round(prep.cmat.shape[2] ** 0.5))
     cdt, pdt = prep.pmat.dtype, prep.xs.dtype
@@ -721,9 +666,10 @@ def _fwd_gram(mode, prep, q, step=None):
     mb = q.shape[0]
     qs = q.to(pdt).T.contiguous()                          # (d, mb)
     if step is not None:
-        gram, update = step
+        gram, cdf, update = step
     else:
         gram, update = kernel_plan.gram_step(cdt)
+        cdf = kernel_plan.cdf_invert
         if isinstance(prep, LinPrep):
             gram = lin_conditional
     phi = torch.zeros((mb, r), dtype=cdt, device=q.device)
@@ -734,9 +680,8 @@ def _fwd_gram(mode, prep, q, step=None):
         fk = gram(phi, prep.pmat[k])
         if mixed:
             fk = torch.clamp(fk, min=0.0)
-        outs[k], dlf, la, lb, i0 = _cdf_invert(
-            mode, fk.to(pdt), prep.xs[k], prep.hs[k], qs[k])
-        lf = lf + dlf
+        la, lb, i0 = cdf(mode, fk.to(pdt), prep.xs[k], prep.hs[k], qs[k],
+                         outs[k], lf)
         phi = update(phi, i0.to(torch.int32), la.to(cdt), lb.to(cdt),
                      prep.cmat[k])
     return outs.T, lf
@@ -745,9 +690,10 @@ def _fwd_gram(mode, prep, q, step=None):
 def _fwd(mode, prep, q, step=None):
     """Forward pass over one block of rows; the prep's type (and a
     FactorPrep's ``step``) names it.  Returns (samples (M, d), lf (M,)).
-    ``step`` replaces the kernel-plan choice of the per-dimension
-    functions; the chip smoke test passes the plain versions to compare
-    on the card."""
+    ``step`` replaces the kernel-plan choice of every per-dimension
+    function (in the Gram family the conditional, the CDF and the
+    update); the chip smoke test passes the plain versions to compare on
+    the card."""
     with span("ttirt.block"):
         if isinstance(prep, (GramPrep, LinPrep)):
             return _fwd_gram(mode, prep, q, step)

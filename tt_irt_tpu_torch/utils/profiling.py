@@ -13,8 +13,9 @@ The spans of the program, one site each:
                       ``IrtSampler.sample`` (samplers/serve.py);
   ``ttirt.block``     one block's forward pass (``irt_scan._fwd``);
   ``ttirt.epilogue``  the f64 epilogue ``irt_scan._serve_solve``;
-  ``ttirt.cdf``       the plain-PyTorch CDF and inversion between the
-                      kernels (``_cdf_invert``, ``_cdf_invert_serve``,
+  ``ttirt.cdf``       the CDF and inversion between the kernels
+                      (ops/cdf.py's ``cdf_invert_ref`` and the launch in
+                      ``cdf_invert_cuda``, ``_cdf_invert_serve``,
                       ``cdf_rows32`` in ``_fwd_gramb``);
   ``ttirt.model.log_prior``, ``ttirt.model.log_likelihood``
                       ``LorenzProblem``'s two densities.
